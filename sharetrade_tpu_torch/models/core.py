@@ -34,7 +34,20 @@ class Model:
     (ModelOut, carry_batch)`` for a batch of fresh sessions and
     ``apply_serve_batch(params, obs, carry_batch) -> (ModelOut,
     carry_batch)`` for a batch of warm sessions at heterogeneous episode
-    steps; ``cast_carry(carry, dtype)`` is the precision policy's hook."""
+    steps; ``cast_carry(carry, dtype)`` is the precision policy's hook.
+
+    The training entries, with the JAX package's signatures (its
+    ``models/core.py`` field docs):
+
+    - ``apply_unroll(params, obs (T, B, obs_dim), carry) -> (logits (T, B,
+      A), values (T, B), aux)``: the replay as one banded pass;
+    - ``apply_unroll_shared``: the same outputs, the banded pass run once
+      for a representative row and only the head per agent;
+    - ``apply_rollout_trunk(params, obs (B, obs_dim), future_ticks (B, T),
+      carry) -> (hn_base (B, T+1, d), carry after T steps)``;
+    - ``apply_rollout_head(params, hn_row (B, d), obs) -> ModelOut``;
+    - ``rollout_head_factored(params, hn_base (T+1, d)) -> (base_logits,
+      base_values, pf_fn)`` with ``pf_fn(obs) -> (dlogits, dvalues)``."""
 
     init: Callable[..., Any]
     init_carry: Callable[[], Any]
@@ -45,6 +58,12 @@ class Model:
     obs_dim: int = 0
     name: str = "model"
     device: torch.device = torch.device("cpu")
+    num_actions: int = 3
+    apply_unroll: Callable | None = None
+    apply_unroll_shared: Callable | None = None
+    apply_rollout_trunk: Callable | None = None
+    apply_rollout_head: Callable | None = None
+    rollout_head_factored: Callable | None = None
 
 
 def compute_dtype(params: Any) -> torch.dtype:
@@ -61,6 +80,53 @@ def compute_dtype(params: Any) -> torch.dtype:
         return None
 
     return first_float(params) or torch.float32
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a nested dict/list/tuple tree, dict keys in sorted
+    order (as ``jax.tree.leaves`` orders them), so two trees of the same
+    structure pair up leaf for leaf whatever their key insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` applied to every leaf of a nested dict/list/tuple tree, in
+    :func:`tree_leaves` order (tuples come back as lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def unflatten_like(tree: Any, leaves: list) -> Any:
+    """A tree shaped like ``tree`` whose leaves are ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def rows_finite(tree: Any, batch: int) -> torch.Tensor:
+    """(batch,) bool: True where every batched leaf row of ``tree`` is
+    finite — the row predicate shared by the rollout's representative
+    election (agents/base.election_health) and the shared replay's.
+    Leaves whose leading dim is not ``batch`` are ignored; integer leaves
+    pass."""
+    ok = None
+    for leaf in tree_leaves(tree):
+        if not isinstance(leaf, torch.Tensor) or leaf.ndim < 1 \
+                or leaf.shape[0] != batch:
+            continue
+        if ok is None:
+            ok = torch.ones((batch,), dtype=torch.bool, device=leaf.device)
+        if leaf.is_floating_point():
+            ok = ok & torch.isfinite(leaf).reshape(batch, -1).all(dim=-1)
+    if ok is None:
+        raise ValueError(f"rows_finite: no leaf has leading dim {batch}")
+    return ok
 
 
 def dense(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Episode-mode transformer: the tick stream is the sequence (serving half).
+"""Episode-mode transformer: the tick stream is the sequence.
 
 Counterpart of the JAX package's ``models/transformer_episode.py``; read its
 module docstring for the design. Ticks are embedded once from step-invariant
@@ -20,13 +20,25 @@ Serving runs two programs:
   attention in plain PyTorch (no kernel: the JAX package has none there
   either).
 
+Training runs the JAX package's trunk-precomputed pair and replays:
+
+- :func:`apply_rollout_trunk`: the whole unroll's trunk in one banded pass
+  over ``[history | first window | future ticks]`` (the rollout's prices do
+  not depend on its actions), plus the carry after the unroll;
+- :func:`rollout_head_factored` / :func:`apply_rollout_head`: the small
+  state-dependent head the sequential loop applies per step;
+- :func:`apply_unroll` and :func:`apply_unroll_shared`: the differentiable
+  replay of a stored trajectory as one banded pass (the shared form runs it
+  once for a representative row and only the head per agent). Gradients
+  flow through ``flash_attention``'s backward kernels.
+
 Carry per session: ``k``/``v`` ``(L, H, W, Dh)`` in the compute dtype,
 ``hist`` ``(hist_len,)`` float32 prices, ``t`` int32 step clock. Batched
 carries add a leading batch dimension.
 
-Not yet ported: the training entries (``apply_unroll*``, ``apply_rollout_*``,
-``rollout_head_factored``), the lockstep ``_incremental``/``apply_batch``,
-the pipelined and MoE variants.
+Not yet ported: the lockstep ``_incremental``/``apply_batch``/``apply``
+(the generic per-step rollout), block rematerialisation, the pipelined and
+MoE variants.
 """
 
 from __future__ import annotations
@@ -37,7 +49,7 @@ from sharetrade_tpu_torch.config import ConfigError
 from sharetrade_tpu_torch.device import resolve_device
 from sharetrade_tpu_torch.models.core import (
     Model, ModelOut, compute_dtype, dense, dense_init, layer_norm,
-    portfolio_features)
+    portfolio_features, rows_finite)
 from sharetrade_tpu_torch.models.ffn import ffn_apply
 from sharetrade_tpu_torch.ops.attention import flash_attention
 
@@ -78,8 +90,9 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
 
     ``device`` is ``cuda`` when None (raises without one).
     ``attention_fn(q, k, v, window) -> out`` replaces the banded flash
-    attention of the prefill pass (``chip_smoke.py`` passes the plain
-    version to hold the kernel's end-to-end output against it)."""
+    attention of every banded pass (``chip_smoke.py`` passes the plain
+    version to hold the kernels' end-to-end outputs and gradients against
+    it)."""
     if head_dim % 2:
         raise ConfigError(f"RoPE needs an even head_dim, got {head_dim}")
     device = resolve_device(device)
@@ -141,29 +154,37 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         h = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
         return x + ffn_apply(blk, h)
 
-    def block_apply(blk, x, positions):
+    def block_apply(blk, x, positions, kv_offset=0):
         """One banded pre-LN block over (B, S, d). Returns ``(x, (k_tail,
-        v_tail))``, the rotated K/V of the last ``window`` ticks."""
+        v_tail))``, the rotated K/V of the ``window`` ticks that end
+        ``kv_offset`` ticks before the series end."""
         dtype = compute_dtype(blk)
         q, k, v = _qkv(blk, x, positions)
         x_attn = attend(q, k, v, window)
-        lo = x.shape[1] - window
-        return _block_tail(blk, x, x_attn, dtype), (k[:, :, lo:],
-                                                    v[:, :, lo:])
+        lo = x.shape[1] - window - kv_offset
+        return _block_tail(blk, x, x_attn, dtype), (
+            k[:, :, lo:lo + window], v[:, :, lo:lo + window])
 
-    def forward(params, series, positions, port_feats):
+    def forward(params, series, positions, port_feats, *, kv_offset=0,
+                heads=True):
         """Banded forward over a (B, S) tick series. ``port_feats`` (B, S,
         3) is zero except at query positions. Returns (logits (B, S, A) f32,
         values (B, S) f32, per-layer rotated (k, v) tails, hidden (B, S,
-        d))."""
+        d)). ``kv_offset`` shifts the cached window that many ticks back
+        from the series end (the rollout trunk's last tick belongs to the
+        bootstrap position). ``heads=False`` skips the policy/value heads
+        (logits and values are then None) for the passes that only read the
+        hidden state."""
         dtype = compute_dtype(params)
         x = dense(params["embed"], _tick_features(series).to(dtype))
         kv = []
         for blk in params["blocks"]:
-            x, kv_tail = block_apply(blk, x, positions)
+            x, kv_tail = block_apply(blk, x, positions, kv_offset)
             kv.append(kv_tail)
         hn = layer_norm(x, params["final_ln"]["scale"],
                         params["final_ln"]["bias"])
+        if not heads:
+            return None, None, kv, hn
         hn_port = hn + dense(params["port"], port_feats.to(dtype))
         logits = dense(params["policy"], hn_port).float()
         values = dense(params["value"], hn_port).float()[..., 0]
@@ -233,6 +254,143 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         carry["t"] = t + 1
         return ModelOut(logits=logits, value=values), carry
 
+    def _series(hist, first_win, ticks, t0):
+        """[history | first window | ticks] and absolute positions, with the
+        first-price padding substituted for the history at episode start
+        (t == 0: the carry's zeros are not what the prefill saw)."""
+        hist = torch.where((t0 == 0)[:, None], first_win[:, :1], hist)
+        series = torch.cat([hist, first_win, ticks.to(torch.float32)], dim=1)
+        positions = (t0[:, None] - hist_len + torch.arange(
+            series.shape[1], dtype=torch.int32, device=series.device))
+        return series, positions.to(torch.int32)
+
+    def apply_unroll(params, obs, carry):
+        """Training replay: ONE banded pass over [history | chunk ticks].
+        ``obs`` (T, B, obs_dim) is the stored trajectory, ``carry`` the
+        batched carry at unroll start. Returns (logits (T, B, A), values
+        (T, B), aux 0)."""
+        t_len, bsz = obs.shape[0], obs.shape[1]
+        first_win = obs[0, :, :window]                      # (B, W)
+        newer = obs[1:, :, window - 1].T                    # (B, T-1)
+        t0 = carry["t"].to(torch.int32)
+        series, positions = _series(carry["hist"], first_win, newer, t0)
+        s_len = series.shape[1]
+        q0 = hist_len + window - 1                          # query positions
+        anchor = obs[:, :, window - 1]
+        feats = portfolio_features(obs[:, :, window], obs[:, :, window + 1],
+                                   anchor)                  # (T, B, 3)
+        port = torch.zeros((bsz, s_len, 3), dtype=torch.float32,
+                           device=obs.device)
+        port[:, q0:q0 + t_len] = feats.transpose(0, 1)
+        logits, values, _kv, _hn = forward(params, series, positions, port)
+        return (logits[:, q0:q0 + t_len].transpose(0, 1),
+                values[:, q0:q0 + t_len].transpose(0, 1),
+                torch.zeros((), device=obs.device))
+
+    def _head_fold(params):
+        """The (3 -> A) / (3 -> 1) folded portfolio-head matrices of the
+        factored head, in float32 from the compute-copy leaves: shared by
+        :func:`rollout_head_factored` and :func:`apply_unroll_shared` so
+        their op order (and so their bf16 rounding) cannot diverge.
+        Differentiable."""
+        wp = params["port"]["w"].float()
+        bp = params["port"]["b"].float()
+        wl = params["policy"]["w"].float()
+        wv = params["value"]["w"].float()
+        return wp @ wl, bp @ wl, (wp @ wv)[:, 0], (bp @ wv)[0]
+
+    def apply_unroll_shared(params, obs, carry):
+        """:func:`apply_unroll` with the banded pass run ONCE for a
+        representative row: every healthy agent's price series is the same
+        (the lockstep batch), so only the portfolio head runs per agent.
+        The representative is the row with the most healthy steps (anchor
+        price > 0) among rows whose unroll-start carry is finite — the first
+        such row, as ``argmax`` gives — and is chosen on the device (no
+        host sync)."""
+        t_len, bsz = obs.shape[0], obs.shape[1]
+        counts = (obs[:, :, window - 1] > 0).sum(dim=0)               # (B,)
+        carry_ok = rows_finite(carry, bsz)
+        rep = torch.argmax(torch.where(carry_ok, counts,
+                                       torch.full_like(counts, -1)))
+        rep = rep.reshape(1)
+        obs1 = obs.index_select(1, rep)                               # (T,1,·)
+        carry1 = {k: v.index_select(0, rep) for k, v in carry.items()}
+        first_win = obs1[0, :, :window]
+        newer = obs1[1:, :, window - 1].T
+        t0 = carry1["t"].to(torch.int32)
+        series, positions = _series(carry1["hist"], first_win, newer, t0)
+        _l, _v, _kv, hn = forward(params, series, positions, None,
+                                  heads=False)
+        q0 = hist_len + window - 1
+        hn_q = hn[0, q0:q0 + t_len]                                   # (T, d)
+        # Per-agent head in the same factored form (and op order) as the
+        # rollout's, so stored and replayed logp agree to rounding in bf16.
+        base_l = dense(params["policy"], hn_q).float()                # (T, A)
+        base_v = dense(params["value"], hn_q).float()[..., 0]
+        w_pl, b_pl, w_pv, b_pv = _head_fold(params)
+        anchor = obs[:, :, window - 1]                                # (T, B)
+        feats = portfolio_features(obs[:, :, window], obs[:, :, window + 1],
+                                   anchor).float()
+        logits = base_l[:, None] + feats @ w_pl + b_pl
+        values = base_v[:, None] + feats @ w_pv + b_pv
+        return logits, values, torch.zeros((), device=obs.device)
+
+    def apply_rollout_trunk(params, obs, future_ticks, carry):
+        """The whole unroll's trunk in ONE banded pass. ``future_ticks`` (B,
+        T) are the ticks that enter the window at each of the next T steps.
+        Returns (hn_base (B, T+1, d) — row i serves step t0+i, row T the
+        bootstrap value — and the carry after T steps, its K/V in ring
+        layout so an incremental step continues from it)."""
+        bsz, t_len = future_ticks.shape
+        t0 = carry["t"].to(torch.int32)
+        first_win = obs[:, :window]
+        series, positions = _series(carry["hist"], first_win, future_ticks,
+                                    t0)
+        _l, _v, kv, hn = forward(params, series, positions, None,
+                                 kv_offset=1, heads=False)
+        q0 = hist_len + window - 1
+        hn_base = hn[:, q0:q0 + t_len + 1]
+        # The cached window (kv_offset=1) holds ticks [t_end-1, t_end+W-2]
+        # in series order; the ring keeps tick j at slot j mod W, so roll by
+        # (t_end - 1) mod W — as a gather, to keep the shift on the device.
+        t_end = t0 + t_len
+        shift = torch.remainder(t_end[0] - 1, window)
+        ring = torch.remainder(
+            torch.arange(window, device=obs.device) - shift, window)
+        cache_k = torch.stack([k for k, _ in kv], dim=1).index_select(3, ring)
+        cache_v = torch.stack([v for _, v in kv], dim=1).index_select(3, ring)
+        hist_next = (series[:, t_len:t_len + hist_len] if hist_len
+                     else carry["hist"])
+        return hn_base, {"k": cache_k, "v": cache_v, "hist": hist_next,
+                         "t": t_end}
+
+    def apply_rollout_head(params, hn_row, obs):
+        """The state-dependent rest of the forward: inject the portfolio
+        features and read the policy/value heads — (B, d)-sized ops."""
+        dtype = compute_dtype(params)
+        hn = hn_row.to(dtype) + dense(params["port"], portfolio_features(
+            obs[:, window], obs[:, window + 1], obs[:, window - 1]).to(dtype))
+        logits = dense(params["policy"], hn).float()
+        values = dense(params["value"], hn).float()[..., 0]
+        return ModelOut(logits=logits, value=values)
+
+    def rollout_head_factored(params, hn_base):
+        """The rollout head with its linearity used: dense(policy, hn +
+        dense(port, feats)) == dense(policy, hn) + [feats @ (Wp Wl) + bp
+        Wl]. The first term is one (T+1, d) x (d, A) product over the whole
+        unroll's trunk; the second is a (3 -> A) contraction per step."""
+        dtype = compute_dtype(params)
+        base_logits = dense(params["policy"], hn_base.to(dtype)).float()
+        base_values = dense(params["value"], hn_base.to(dtype)).float()[..., 0]
+        w_pl, b_pl, w_pv, b_pv = _head_fold(params)
+
+        def pf_fn(obs):
+            feats = portfolio_features(obs[:, window], obs[:, window + 1],
+                                       obs[:, window - 1]).float()
+            return feats @ w_pl + b_pl, feats @ w_pv + b_pv
+
+        return base_logits, base_values, pf_fn
+
     def init_carry():
         return {
             "k": torch.zeros((num_layers, num_heads, window, head_dim),
@@ -253,4 +411,9 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
 
     return Model(init=init, init_carry=init_carry, apply_prefill=_prefill,
                  apply_serve_batch=_incremental_serve, cast_carry=cast_carry,
-                 obs_dim=obs_dim, name="transformer_episode", device=device)
+                 obs_dim=obs_dim, name="transformer_episode", device=device,
+                 num_actions=num_actions, apply_unroll=apply_unroll,
+                 apply_unroll_shared=apply_unroll_shared,
+                 apply_rollout_trunk=apply_rollout_trunk,
+                 apply_rollout_head=apply_rollout_head,
+                 rollout_head_factored=rollout_head_factored)

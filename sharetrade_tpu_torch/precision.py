@@ -1,11 +1,15 @@
 """Precision policy: bf16 compute with fp32 master weights.
 
-Counterpart of the JAX package's ``precision.py`` (serving half). Masters
-stay float32; :meth:`PrecisionPolicy.cast_compute` makes the compute copy the
-forwards run on (bfloat16 under ``bf16_mixed``), with float32 accumulation in
-every matrix product (``models.core.dense``, ``ops.attention``). The
-recurrent carry is cast once, through the model's own hook where it has one
-(the episode transformer keeps its price history ``hist`` in float32).
+Counterpart of the JAX package's ``precision.py``. Masters stay float32;
+:meth:`PrecisionPolicy.cast_compute` makes the compute copy the forwards
+and backwards run on (bfloat16 under ``bf16_mixed``), with float32
+accumulation in every matrix product (``models.core.dense``,
+``ops.attention``). Gradients of the compute copy reach the float32 masters
+through the fused update, which upcasts them inside its own pass (every
+``fused_update`` setting takes that pass: see ``agents.base.make_update_fn``).
+The recurrent carry is cast once, through the
+model's own hook where it has one (the episode transformer keeps its price
+history ``hist`` in float32).
 
 In fp32 mode every helper returns its argument object untouched.
 """

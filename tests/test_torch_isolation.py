@@ -4,8 +4,8 @@
   ``sharetrade_tpu`` out of ``sys.modules``.
 - A source scan of the package and ``chip_smoke.py`` finds no import of
   ``jax`` and no reference to the JAX package's modules.
-- Without a GPU and without ``--device cpu``, ``cli serve`` fails with a
-  message that says so instead of running on the CPU.
+- Without a GPU and without ``--device cpu``, ``cli serve`` and ``cli
+  train`` fail with a message that says so instead of running on the CPU.
 """
 
 import json
@@ -73,6 +73,16 @@ def test_cli_without_gpu_refuses_instead_of_running_on_cpu(tmp_path):
     assert out.returncode != 0
     assert "CUDA" in out.stderr and "--device cpu" in out.stderr
     assert "serving_ready" not in out.stdout
+
+
+def test_cli_train_without_gpu_refuses_instead_of_running_on_cpu(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train",
+         "--set", "data.synthetic_length=300"], capture_output=True,
+        text=True, timeout=120, cwd=tmp_path, env=_env(CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "--device cpu" in out.stderr
+    assert "avg_portfolio" not in out.stdout
 
 
 def test_library_entry_points_default_to_cuda():
