@@ -9,14 +9,17 @@ Phases, in order (any failure exits non-zero before the final line):
 1. device    — refuse to run without CUDA; print the card's name and power
                limit as ``nvidia-smi`` reports them.
 2. build     — compile every CUDA source of the package (one ``nvcc`` per
-               source, all started together) and print the build time.
+               source, all started together); print the build time and each
+               kernel's registers, spill bytes and static shared memory
+               from the ``-Xptxas -v`` log.
 3. kernels   — hold each kernel against its plain PyTorch version (computed
                in float32 from the same inputs) at the shapes the main paths
                give it and the other shapes its TPU counterparts served;
                time kernel, plain version and the library yardstick with
                CUDA events (median device time, L2 flushed before every
-               launch, the host one call ahead of the device); print
-               one JSON line per case.
+               launch, the host one call ahead of the device); then, untimed,
+               the bf16 edge cases (T < 64 and ragged T, window 1, D = 64,
+               non-causal tq != tk, B*H > 64); print one JSON line per case.
 4. train     — the training main path: PPO on the flagship episode
                transformer at full width (512 agents, unroll 1024, L=2,
                H=2, Dh=128, window 201, bf16_mixed, adagrad), seeded random
@@ -197,31 +200,74 @@ def _band_pairs(t: int, window: int | None) -> int:
     return sum(min(r + 1, w) for r in range(t))
 
 
+def _demangle(names: list[str]) -> list[str]:
+    """``kernel<args>`` for each mangled name (``c++filt`` where it exists;
+    else the mangled name)."""
+    import re
+    import shutil
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    short = []
+    for full in out:
+        full = full.replace("(anonymous namespace)::", "")
+        m = re.match(r"(?:void )?(?:\w+::)*(\w+(?:<[^(]*>)?)\(", full)
+        short.append(m.group(1) if m else full)
+    return short if len(short) == len(names) else names
+
+
 def phase_build() -> dict:
     from sharetrade_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     per_source = cuda_build.build_all()
-    return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "sources": per_source, "nvcc": cuda_build.nvcc_path()}
+    seconds = time.perf_counter() - t0
+    resources = {}
+    for name in cuda_build.sources():
+        usage = cuda_build.kernel_resources(name)
+        for short, info in zip(_demangle(list(usage)), usage.values()):
+            resources[f"{name}:{short}"] = info
+    return {"phase": "build", "seconds": seconds, "sources": per_source,
+            "nvcc": cuda_build.nvcc_path(), "ptxas": resources}
+
+
+def _host_us(torch, fn, calls: int = 50) -> float:
+    """Host microseconds to enqueue one call of ``fn`` (the wrapper's
+    checks, the tensor-map encoding, the launch), with the device held busy
+    by a sleep so no call waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50 * _HOST_AHEAD_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def check_flash_fwd(torch, *, name: str, batch: int, heads: int, seq: int,
-                    head_dim: int, window: int | None, dtype) -> dict:
+                    head_dim: int, window: int | None, dtype,
+                    causal: bool = True, kv_len: int | None = None,
+                    timed: bool = True) -> dict:
     import torch.nn.functional as F
 
     from sharetrade_tpu_torch.ops import attention
 
     gen = torch.Generator(device="cuda").manual_seed(seq * 131 + head_dim)
     shape = (batch, heads, seq, head_dim)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
+    kv_shape = (batch, heads, kv_len or seq, head_dim)
+    q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(kv_shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
     scale = head_dim ** -0.5
     before = attention.launch_counts["flash_fwd"]
-    out, lse = attention.flash_fwd(q, k, v, causal=True, sm_scale=scale,
+    out, lse = attention.flash_fwd(q, k, v, causal=causal, sm_scale=scale,
                                    window=window)
     torch.cuda.synchronize()
     ref_out, ref_lse = attention._plain_forward(
-        q.float(), k.float(), v.float(), True, scale, window)
+        q.float(), k.float(), v.float(), causal, scale, window)
     dname = str(dtype).removeprefix("torch.")
     diff = (out.float() - ref_out).abs()
     err = diff.max().item()
@@ -229,13 +275,23 @@ def check_flash_fwd(torch, *, name: str, batch: int, heads: int, seq: int,
     lse_err = (lse - ref_lse).abs().max().item()
     ok = (within and lse_err <= LSE_ATOL[dname]
           and bool(torch.isfinite(out).all()))
+    row = {
+        "phase": "kernels", "kernel": "flash_fwd", "case": name,
+        "shape": list(shape), "kv_len": kv_shape[2], "causal": causal,
+        "window": window, "dtype": dname, "max_abs_err": err,
+        "tolerance": {"atol": ATOL[dname], "rtol": RTOL[dname]},
+        "lse_max_abs_err": lse_err, "lse_tolerance": LSE_ATOL[dname],
+        "launches": attention.launch_counts["flash_fwd"] - before, "ok": ok,
+    }
+    if not timed:
+        return row
 
     kernel_fn = lambda: attention.flash_fwd(  # noqa: E731
-        q, k, v, causal=True, sm_scale=scale, window=window)
+        q, k, v, causal=causal, sm_scale=scale, window=window)
     kernel_ms = _time_ms(torch, kernel_fn)
     kernel_call_ms = _time_ms(torch, kernel_fn, host_ahead=False)
     plain_ms = _time_ms(torch, lambda: attention._plain_forward(
-        q, k, v, True, scale, window), iters=10)
+        q, k, v, causal, scale, window), iters=10)
     if window is None:
         lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=True, scale=scale)
@@ -250,22 +306,18 @@ def check_flash_fwd(torch, *, name: str, batch: int, heads: int, seq: int,
     elem = q.element_size()
     nbytes = 4 * q.numel() * elem + lse.numel() * 4
     ops = 4 * head_dim * batch * heads * _band_pairs(seq, window)
-    return {
-        "phase": "kernels", "kernel": "flash_fwd", "case": name,
-        "shape": list(shape), "window": window, "dtype": dname,
-        "max_abs_err": err,
-        "tolerance": {"atol": ATOL[dname], "rtol": RTOL[dname]},
-        "lse_max_abs_err": lse_err, "lse_tolerance": LSE_ATOL[dname],
+    row.update({
         "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
+        "host_us_per_call": _host_us(torch, kernel_fn),
         "plain_ms": plain_ms,
-        "library_ms": library_ms, **_bound(nbytes, ops, dname),
-        "launches": attention.launch_counts["flash_fwd"] - before,
-        "ok": ok,
-    }
+        "library_ms": library_ms, **_bound(nbytes, ops, dname)})
+    return row
 
 
 def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
-                    head_dim: int, window: int | None, dtype) -> list[dict]:
+                    head_dim: int, window: int | None, dtype,
+                    causal: bool = True, kv_len: int | None = None,
+                    timed: bool = True) -> list[dict]:
     """flash_bwd_dq and flash_bwd_dkv against the plain backward in float32
     from the same inputs; one row per kernel."""
     import torch.nn.functional as F
@@ -274,25 +326,28 @@ def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
 
     gen = torch.Generator(device="cuda").manual_seed(seq * 17 + head_dim)
     shape = (batch, heads, seq, head_dim)
-    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
-                     .to(dtype) for _ in range(4))
+    kv_shape = (batch, heads, kv_len or seq, head_dim)
+    q, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(kv_shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
     scale = head_dim ** -0.5
     qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
-    out, lse = attention._plain_forward(qf, kf, vf, True, scale, window)
+    out, lse = attention._plain_forward(qf, kf, vf, causal, scale, window)
     delta = (df * out).sum(dim=-1)
-    kw = dict(causal=True, sm_scale=scale, window=window)
+    kw = dict(causal=causal, sm_scale=scale, window=window)
     before = dict(attention.launch_counts)
     dq = attention.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = attention.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     torch.cuda.synchronize()
-    ref = attention._plain_backward(qf, kf, vf, df, lse, delta, True, scale,
+    ref = attention._plain_backward(qf, kf, vf, df, lse, delta, causal, scale,
                                     window)
     dname = str(dtype).removeprefix("torch.")
     if dtype == torch.float32:
         tolerance = {"atol": BWD_ATOL_F32, "rtol": BWD_RTOL_F32}
         plain_err = [0.0, 0.0, 0.0]
     else:
-        plain = attention._plain_backward(q, k, v, dout, lse, delta, True,
+        plain = attention._plain_backward(q, k, v, dout, lse, delta, causal,
                                           scale, window)
         plain_err = [(p.float() - r).abs().max().item()
                      for p, r in zip(plain, ref)]
@@ -309,57 +364,73 @@ def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
             ok = worst <= BWD_BF16_FACTOR * plain_err[j] + BWD_BF16_ATOL
         return worst, ok and bool(torch.isfinite(got).all())
 
+    common = {"phase": "kernels", "case": name, "shape": list(shape),
+              "kv_len": kv_shape[2], "causal": causal, "window": window,
+              "dtype": dname, "tolerance": tolerance}
+    e_dq, ok_dq = err(dq, ref[0], 0)
+    e_dk, ok_dk = err(dk, ref[1], 1)
+    e_dv, ok_dv = err(dv, ref[2], 2)
+    rows = [{**common, "kernel": "flash_bwd_dq", "max_abs_err": e_dq,
+             "launches": attention.launch_counts["flash_bwd_dq"]
+             - before["flash_bwd_dq"], "ok": ok_dq},
+            {**common, "kernel": "flash_bwd_dkv",
+             "max_abs_err": max(e_dk, e_dv),
+             "launches": attention.launch_counts["flash_bwd_dkv"]
+             - before["flash_bwd_dkv"], "ok": ok_dk and ok_dv}]
+    if not timed:
+        return rows
+
+    # The library yardstick: SDPA with the band mask. Its backward alone
+    # (one forward kept, autograd.grad timed with retain_graph) is the same
+    # function as the two kernels together; forward + backward is kept
+    # beside it.
     idx = torch.arange(seq, device="cuda")
     band = idx[None, :] <= idx[:, None]
     if window is not None:
         band = band & (idx[None, :] > idx[:, None] - window)
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
 
-    def library():
+    def library_fwd_bwd():
         o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=band,
                                            scale=scale)
         torch.autograd.grad(o, (qg, kg, vg), dout)
 
-    library_ms = _time_ms(torch, library, iters=10)
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=band,
+                                             scale=scale)
+    library_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), dout, retain_graph=True), iters=10)
+    library_fwd_bwd_ms = _time_ms(torch, library_fwd_bwd, iters=10)
+    del lib_out
     elem = q.element_size()
     pairs = batch * heads * _band_pairs(seq, window)
     rows_bytes = 2 * batch * heads * seq * 4            # lse, delta
-    common = {"phase": "kernels", "case": name, "shape": list(shape),
-              "window": window, "dtype": dname,
-              "tolerance": tolerance,
-              "library_ms": library_ms,
-              "library": "SDPA with the band mask, forward + backward"}
-    rows = []
+    library = {"library_bwd_ms": library_bwd_ms,
+               "library_fwd_bwd_ms": library_fwd_bwd_ms,
+               "library": "SDPA with the band mask: backward alone "
+                          "(library_bwd_ms), forward + backward "
+                          "(library_fwd_bwd_ms); both kernels together"}
     dq_fn = lambda: attention.flash_bwd_dq(  # noqa: E731
         q, k, v, dout, lse, delta, **kw)
     dkv_fn = lambda: attention.flash_bwd_dkv(  # noqa: E731
         q, k, v, dout, lse, delta, **kw)
-    e_dq, ok_dq = err(dq, ref[0], 0)
-    rows.append({**common, "kernel": "flash_bwd_dq", "max_abs_err": e_dq,
-                 "kernel_ms": _time_ms(torch, dq_fn),
-                 "kernel_call_ms": _time_ms(torch, dq_fn, host_ahead=False),
-                 "plain_ms": _time_ms(torch, lambda: attention._plain_dq(
-                     q, k, v, dout, lse, delta, True, scale, window),
-                     iters=10),
-                 # q, k, v, dO read, dQ written; S, dP, dQ products.
-                 **_bound(5 * q.numel() * elem + rows_bytes,
-                          6 * head_dim * pairs, dname),
-                 "launches": attention.launch_counts["flash_bwd_dq"]
-                 - before["flash_bwd_dq"], "ok": ok_dq})
-    e_dk, ok_dk = err(dk, ref[1], 1)
-    e_dv, ok_dv = err(dv, ref[2], 2)
-    rows.append({**common, "kernel": "flash_bwd_dkv",
-                 "max_abs_err": max(e_dk, e_dv),
-                 "kernel_ms": _time_ms(torch, dkv_fn),
-                 "kernel_call_ms": _time_ms(torch, dkv_fn, host_ahead=False),
-                 "plain_ms": _time_ms(torch, lambda: attention._plain_dkv(
-                     q, k, v, dout, lse, delta, True, scale, window),
-                     iters=10),
-                 # q, k, v, dO read, dK, dV written; S, dP, dV, dK products.
-                 **_bound(6 * q.numel() * elem + rows_bytes,
-                          8 * head_dim * pairs, dname),
-                 "launches": attention.launch_counts["flash_bwd_dkv"]
-                 - before["flash_bwd_dkv"], "ok": ok_dk and ok_dv})
+    rows[0].update({
+        **library, "kernel_ms": _time_ms(torch, dq_fn),
+        "kernel_call_ms": _time_ms(torch, dq_fn, host_ahead=False),
+        "host_us_per_call": _host_us(torch, dq_fn),
+        "plain_ms": _time_ms(torch, lambda: attention._plain_dq(
+            q, k, v, dout, lse, delta, causal, scale, window), iters=10),
+        # q, k, v, dO read, dQ written; S, dP, dQ products.
+        **_bound(5 * q.numel() * elem + rows_bytes, 6 * head_dim * pairs,
+                 dname)})
+    rows[1].update({
+        **library, "kernel_ms": _time_ms(torch, dkv_fn),
+        "kernel_call_ms": _time_ms(torch, dkv_fn, host_ahead=False),
+        "host_us_per_call": _host_us(torch, dkv_fn),
+        "plain_ms": _time_ms(torch, lambda: attention._plain_dkv(
+            q, k, v, dout, lse, delta, causal, scale, window), iters=10),
+        # q, k, v, dO read, dK, dV written; S, dP, dV, dK products.
+        **_bound(6 * q.numel() * elem + rows_bytes, 8 * head_dim * pairs,
+                 dname)})
     return rows
 
 
@@ -508,9 +579,28 @@ def phase_kernels(torch) -> list[dict]:
         dict(name="adam_f32", optimizer="adam", grad_dtype=torch.float32),
         dict(name="sgd_bf16", optimizer="sgd", grad_dtype=torch.bfloat16),
     ]
+    bf16 = torch.bfloat16
+    # Corners of the bf16 (wgmma + TMA) kernels, held and not timed: shorter
+    # than one tile, ragged tiles, each row seeing only itself, D = 64,
+    # non-causal with tq != tk, and more than 64 heads in the grid.
+    edge_cases = [
+        dict(name="t37_d64", batch=1, heads=1, seq=37, head_dim=64,
+             window=None, dtype=bf16),
+        dict(name="t130_window1", batch=2, heads=2, seq=130, head_dim=128,
+             window=1, dtype=bf16),
+        dict(name="t401_d64", batch=1, heads=2, seq=401, head_dim=64,
+             window=201, dtype=bf16),
+        dict(name="cross_100x257", batch=2, heads=2, seq=100, head_dim=64,
+             window=None, dtype=bf16, causal=False, kv_len=257),
+        dict(name="bh80_t130", batch=40, heads=2, seq=130, head_dim=128,
+             window=None, dtype=bf16),
+    ]
     rows = [check_flash_fwd(torch, **case) for case in fwd_cases]
     for case in bwd_cases:
         rows += check_flash_bwd(torch, **case)
+    for case in edge_cases:
+        rows.append(check_flash_fwd(torch, **case, timed=False))
+        rows += check_flash_bwd(torch, **case, timed=False)
     rows += [check_fused_update(torch, **case) for case in update_cases]
     return rows
 
@@ -524,19 +614,23 @@ FLAGSHIP = [
 ]
 
 
-#: Every kernel of the port: its source and the Pallas kernels it replaces.
+#: Every kernel of the port: its source, the Pallas kernels it replaces and
+#: its design per input dtype (the wrappers dispatch by dtype).
+_WGMMA = {"bfloat16": "wgmma+tma", "float32": "simt"}
+_SIMT = {"bfloat16": "simt", "float32": "simt"}
 KERNELS = {
     "flash_fwd": ("sharetrade_tpu_torch/csrc/flash_fwd.cu",
                   "sharetrade_tpu/ops/attention.py:88",
-                  ["sharetrade_tpu/ops/attention.py:284"]),
+                  ["sharetrade_tpu/ops/attention.py:284"], _WGMMA),
     "flash_bwd_dq": ("sharetrade_tpu_torch/csrc/flash_bwd.cu",
                      "sharetrade_tpu/ops/attention.py:375",
-                     ["sharetrade_tpu/ops/attention.py:476"]),
+                     ["sharetrade_tpu/ops/attention.py:476"], _SIMT),
     "flash_bwd_dkv": ("sharetrade_tpu_torch/csrc/flash_bwd.cu",
                       "sharetrade_tpu/ops/attention.py:423",
-                      ["sharetrade_tpu/ops/attention.py:514"]),
+                      ["sharetrade_tpu/ops/attention.py:514"], _WGMMA),
     "fused_update": ("sharetrade_tpu_torch/csrc/fused_update.cu",
-                     "sharetrade_tpu/ops/fused_update.py:102", []),
+                     "sharetrade_tpu/ops/fused_update.py:102", [],
+                     {"bfloat16": "elementwise", "float32": "elementwise"}),
 }
 #: The kernels-phase case each kernel's line reports: the main paths' shape.
 KERNEL_CASE = {"flash_fwd": "serving_bf16", "flash_bwd_dq": "replay_bf16",
@@ -547,9 +641,11 @@ KERNEL_CASE = {"flash_fwd": "serving_bf16", "flash_bwd_dq": "replay_bf16",
 def kernels_line(results: dict) -> dict:
     """Every kernel of the port, with the Pallas kernels it replaces, the
     numbers of its main-path case and its launches on the main paths (the
-    train and serve runs, each counted from 0)."""
+    train and serve runs, each counted from 0). ``library_ms`` of the
+    backward kernels is SDPA's backward alone; ``design`` is the kernel's
+    design for each input dtype."""
     entries = []
-    for name, (source, replaces, also) in KERNELS.items():
+    for name, (source, replaces, also, design) in KERNELS.items():
         row = next(r for r in results["kernels"]
                    if r["kernel"] == name and r["case"] == KERNEL_CASE[name])
         by_path = {path: results[path]["launches"].get(name, 0)
@@ -560,8 +656,9 @@ def kernels_line(results: dict) -> dict:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "case": row["case"],
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_bwd_ms", row.get("library_ms")),
+            "case": row["case"], "design": design,
         })
     return {"kernels": entries}
 

@@ -75,14 +75,19 @@ def _check(q, k, v, *, causal, window):
     ((1, 2, 1000, 128), 201),    # several band tiles per query tile
     ((2, 3, 130, 64), None),     # plain causal, ragged tiles
     ((1, 1, 23, 64), 12),        # shorter than one tile
+    ((1, 1, 37, 64), None),      # shorter than one tile, plain causal
+    ((2, 2, 130, 128), 1),       # each row sees only itself
+    ((1, 2, 401, 64), 201),      # the serving band at D = 64
+    ((40, 2, 130, 128), None),   # B*H = 80 > 64
 ])
 def test_kernel_matches_plain(cuda, dtype, shape, window):
     q, k, v = _qkv(shape, dtype, seed=shape[2])
     _check(q, k, v, causal=True, window=window)
 
 
-def test_noncausal_cross_attention(cuda):
-    q, k, v = _qkv((2, 2, 100, 64), torch.float32, kv_len=257)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noncausal_cross_attention(cuda, dtype):
+    q, k, v = _qkv((2, 2, 100, 64), dtype, kv_len=257)
     _check(q, k, v, causal=False, window=None)
 
 
@@ -157,33 +162,27 @@ def _bwd_inputs(shape, dtype, seed):
     return [torch.from_numpy(a).to("cuda", dtype) for a in arrays]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,window", [
-    ((1, 2, 1424, 128), 201),    # the training replay
-    ((2, 3, 130, 64), None),     # plain causal, ragged tiles
-    ((1, 1, 23, 64), 12),        # shorter than one tile
-    ((1, 2, 300, 128), 1),       # each row sees only itself
-])
-def test_backward_kernels_match_plain(cuda, dtype, shape, window):
-    q, k, v, dout = _bwd_inputs(shape, dtype, shape[2])
-    scale = shape[3] ** -0.5
+def _check_backward(q, k, v, dout, *, causal, window):
+    """Both backward kernels, one launch each, against the plain backward
+    in float32 (float32: atol 5e-5 + rtol 1e-5; bfloat16: at most twice the
+    plain bf16 backward's own error, plus 1e-3)."""
+    scale = q.shape[3] ** -0.5
     qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
-    out, lse = attention._plain_forward(qf, kf, vf, True, scale, window)
+    out, lse = attention._plain_forward(qf, kf, vf, causal, scale, window)
     delta = (df * out).sum(-1)
+    kw = dict(causal=causal, sm_scale=scale, window=window)
     attention.reset_launch_counts()
-    dq = attention.flash_bwd_dq(q, k, v, dout, lse, delta, sm_scale=scale,
-                                window=window)
-    dk, dv = attention.flash_bwd_dkv(q, k, v, dout, lse, delta,
-                                     sm_scale=scale, window=window)
+    dq = attention.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = attention.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     assert attention.launch_counts["flash_bwd_dq"] == 1
     assert attention.launch_counts["flash_bwd_dkv"] == 1
-    ref = attention._plain_backward(qf, kf, vf, df, lse, delta, True, scale,
-                                    window)
-    plain = attention._plain_backward(q, k, v, dout, lse, delta, True, scale,
-                                      window)
+    ref = attention._plain_backward(qf, kf, vf, df, lse, delta, causal,
+                                    scale, window)
+    plain = attention._plain_backward(q, k, v, dout, lse, delta, causal,
+                                      scale, window)
     for got, want, low in zip((dq, dk, dv), ref, plain):
-        assert got.dtype == dtype
-        if dtype == torch.float32:
+        assert got.dtype == q.dtype
+        if q.dtype == torch.float32:
             torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-5)
         else:
             plain_err = (low.float() - want).abs().max().item()
@@ -191,22 +190,32 @@ def test_backward_kernels_match_plain(cuda, dtype, shape, window):
                 <= 2.0 * plain_err + 1e-3
 
 
-def test_backward_noncausal_cross_attention(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window", [
+    ((1, 2, 1424, 128), 201),    # the training replay
+    ((2, 3, 130, 64), None),     # plain causal, ragged tiles
+    ((1, 1, 23, 64), 12),        # shorter than one tile
+    ((1, 2, 300, 128), 1),       # each row sees only itself
+    ((1, 1, 37, 64), None),      # shorter than one tile, plain causal
+    ((2, 2, 130, 128), 1),       # window 1 with ragged tiles
+    ((1, 2, 401, 64), 201),      # the serving band at D = 64
+    ((40, 2, 130, 128), None),   # B*H = 80 > 64
+])
+def test_backward_kernels_match_plain(cuda, dtype, shape, window):
+    q, k, v, dout = _bwd_inputs(shape, dtype, shape[2])
+    _check_backward(q, k, v, dout, causal=True, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_noncausal_cross_attention(cuda, dtype):
     rng = np.random.default_rng(9)
     q, dout = (torch.from_numpy(rng.standard_normal(
-        (2, 2, 100, 64), dtype=np.float32)).cuda() for _ in range(2))
+        (2, 2, 100, 64), dtype=np.float32)).to("cuda", dtype)
+        for _ in range(2))
     k, v = (torch.from_numpy(rng.standard_normal(
-        (2, 2, 257, 64), dtype=np.float32)).cuda() for _ in range(2))
-    out, lse = attention._plain_forward(q, k, v, False, 0.125, None)
-    delta = (dout * out).sum(-1)
-    dq = attention.flash_bwd_dq(q, k, v, dout, lse, delta, causal=False,
-                                sm_scale=0.125)
-    dk, dv = attention.flash_bwd_dkv(q, k, v, dout, lse, delta,
-                                     causal=False, sm_scale=0.125)
-    ref = attention._plain_backward(q, k, v, dout, lse, delta, False, 0.125,
-                                    None)
-    for got, want in zip((dq, dk, dv), ref):
-        torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-5)
+        (2, 2, 257, 64), dtype=np.float32)).to("cuda", dtype)
+        for _ in range(2))
+    _check_backward(q, k, v, dout, causal=False, window=None)
 
 
 @pytest.mark.parametrize("optimizer,grad_dtype,emit", [
