@@ -11,7 +11,8 @@ Phases, in order (any failure exits non-zero before the final line):
 2. build     — compile every CUDA source of the package (one ``nvcc`` per
                source, all started together); print the build time and each
                kernel's registers, spill bytes and static shared memory
-               from the ``-Xptxas -v`` log.
+               from the ``-Xptxas -v`` log (``flash_bwd_dq_wgmma``'s per
+               head dim and cluster size on their own).
 3. kernels   — hold each kernel against its plain PyTorch version (computed
                in float32 from the same inputs) at the shapes the main paths
                give it and the other shapes its TPU counterparts served;
@@ -19,7 +20,9 @@ Phases, in order (any failure exits non-zero before the final line):
                CUDA events (median device time, L2 flushed before every
                launch, the host one call ahead of the device); then, untimed,
                the bf16 edge cases (T < 64 and ragged T, window 1, D = 64,
-               non-causal tq != tk, B*H > 64); print one JSON line per case.
+               non-causal tq != tk, B*H > 64); print one JSON line per case
+               (``flash_bwd_dq``'s with the cluster size it launched and
+               whether a second call gave the same bits).
 4. train     — the training main path: PPO on the flagship episode
                transformer at full width (512 agents, unroll 1024, L=2,
                H=2, Dh=128, window 201, bf16_mixed, adagrad), seeded random
@@ -39,6 +42,8 @@ Phases, in order (any failure exits non-zero before the final line):
 6. cli       — ``python -m sharetrade_tpu_torch.cli serve`` for a few seconds.
 7. cli_train — ``python -m sharetrade_tpu_torch.cli train`` on the flagship
                config with a 2,249-price series (one 2-chunk episode).
+
+Opt-in: ``profile`` (a serving device-time breakdown).
 
 Then one ``{"kernels": [...]}`` line, and last the
 ``{"ok": true, "device": {...}}`` line. Imports nothing of JAX.
@@ -228,8 +233,15 @@ def phase_build() -> dict:
         usage = cuda_build.kernel_resources(name)
         for short, info in zip(_demangle(list(usage)), usage.values()):
             resources[f"{name}:{short}"] = info
+    # flash_bwd_dq's bf16 kernel per <head_dim, cluster size>.
+    dq_wgmma = {key.split(":", 1)[1]: {
+        k: info.get(k) for k in ("registers", "spill_stores", "spill_loads",
+                                 "stack")}
+        for key, info in resources.items()
+        if key.startswith("flash_bwd:flash_bwd_dq_wgmma")}
     return {"phase": "build", "seconds": seconds, "sources": per_source,
-            "nvcc": cuda_build.nvcc_path(), "ptxas": resources}
+            "nvcc": cuda_build.nvcc_path(), "flash_bwd_dq_wgmma": dq_wgmma,
+            "ptxas": resources}
 
 
 def _host_us(torch, fn, calls: int = 50) -> float:
@@ -339,6 +351,7 @@ def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
     before = dict(attention.launch_counts)
     dq = attention.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = attention.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    before_repeat = attention.launch_counts["flash_bwd_dq"]
     torch.cuda.synchronize()
     ref = attention._plain_backward(qf, kf, vf, df, lse, delta, causal, scale,
                                     window)
@@ -368,11 +381,18 @@ def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
               "kv_len": kv_shape[2], "causal": causal, "window": window,
               "dtype": dname, "tolerance": tolerance}
     e_dq, ok_dq = err(dq, ref[0], 0)
+    # dQ's sums run in a fixed order (bf16: a cluster's partial sums in
+    # rank order), so a second call gives the same bits.
+    repeat_equal = torch.equal(
+        dq, attention.flash_bwd_dq(q, k, v, dout, lse, delta, **kw))
+    ok_dq = ok_dq and repeat_equal
     e_dk, ok_dk = err(dk, ref[1], 1)
     e_dv, ok_dv = err(dv, ref[2], 2)
     rows = [{**common, "kernel": "flash_bwd_dq", "max_abs_err": e_dq,
-             "launches": attention.launch_counts["flash_bwd_dq"]
-             - before["flash_bwd_dq"], "ok": ok_dq},
+             "launches": before_repeat - before["flash_bwd_dq"],
+             "repeat_bitwise": repeat_equal, "ok": ok_dq,
+             "cluster": attention.flash_bwd_dq_cluster(
+                 q, k, causal=causal, window=window)},
             {**common, "kernel": "flash_bwd_dkv",
              "max_abs_err": max(e_dk, e_dv),
              "launches": attention.launch_counts["flash_bwd_dkv"]
@@ -582,7 +602,8 @@ def phase_kernels(torch) -> list[dict]:
     bf16 = torch.bfloat16
     # Corners of the bf16 (wgmma + TMA) kernels, held and not timed: shorter
     # than one tile, ragged tiles, each row seeing only itself, D = 64,
-    # non-causal with tq != tk, and more than 64 heads in the grid.
+    # non-causal with tq != tk, more than 64 heads in the grid, and a plain
+    # causal band of up to 8 key tiles (flash_bwd_dq over a cluster of 2).
     edge_cases = [
         dict(name="t37_d64", batch=1, heads=1, seq=37, head_dim=64,
              window=None, dtype=bf16),
@@ -593,6 +614,9 @@ def phase_kernels(torch) -> list[dict]:
         dict(name="cross_100x257", batch=2, heads=2, seq=100, head_dim=64,
              window=None, dtype=bf16, causal=False, kv_len=257),
         dict(name="bh80_t130", batch=40, heads=2, seq=130, head_dim=128,
+             window=None, dtype=bf16),
+        # Plain causal over 8 query tiles: rank 0 of a pair walks 4 tiles.
+        dict(name="t512_causal", batch=1, heads=2, seq=512, head_dim=128,
              window=None, dtype=bf16),
     ]
     rows = [check_flash_fwd(torch, **case) for case in fwd_cases]
@@ -617,14 +641,14 @@ FLAGSHIP = [
 #: Every kernel of the port: its source, the Pallas kernels it replaces and
 #: its design per input dtype (the wrappers dispatch by dtype).
 _WGMMA = {"bfloat16": "wgmma+tma", "float32": "simt"}
-_SIMT = {"bfloat16": "simt", "float32": "simt"}
 KERNELS = {
     "flash_fwd": ("sharetrade_tpu_torch/csrc/flash_fwd.cu",
                   "sharetrade_tpu/ops/attention.py:88",
                   ["sharetrade_tpu/ops/attention.py:284"], _WGMMA),
     "flash_bwd_dq": ("sharetrade_tpu_torch/csrc/flash_bwd.cu",
                      "sharetrade_tpu/ops/attention.py:375",
-                     ["sharetrade_tpu/ops/attention.py:476"], _SIMT),
+                     ["sharetrade_tpu/ops/attention.py:476"],
+                     {"bfloat16": "wgmma+tma+cluster", "float32": "simt"}),
     "flash_bwd_dkv": ("sharetrade_tpu_torch/csrc/flash_bwd.cu",
                       "sharetrade_tpu/ops/attention.py:423",
                       ["sharetrade_tpu/ops/attention.py:514"], _WGMMA),

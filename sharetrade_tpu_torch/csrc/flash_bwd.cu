@@ -36,6 +36,36 @@
 // tensor-core rate. So on paper it is memory-bound, and at this size
 // latency and the 46 blocks (2 x 23 tiles) on 132 SMs dominate.
 //
+// flash_bwd_dq, bf16 (the training path), wgmma + TMA (hopper.cuh), the
+// key loop split across a thread-block cluster:
+//   - one warpgroup (128 threads) per (bh, 64-row query tile, rank); Q and
+//     dO are loaded once by TMA; K and V go through a 2-stage ring (one
+//     mbarrier per tile), thread 0 issuing the next key tile's loads
+//     before the block computes on the current one; lse and delta of the
+//     thread's two fragment rows sit in registers;
+//   - S = Q K^T and dP = dO V^T are wgmmas (all operands K-major in shared
+//     memory), in flight together; P = exp(S * scale - lse) and
+//     dS = round(P (dP - delta) scale) are formed on the accumulator
+//     fragments (P is never rounded; the mask is on scores only, since TMA
+//     zero-fills ragged rows);
+//   - dQ += dS K is a wgmma with A = dS from registers (the fragments
+//     rounded to bf16 pairs) and B = the K tile read transposed (MN-major):
+//     no dS goes through shared memory, and dQ (D / 2 f32 a thread) stays
+//     in registers for the whole loop. 97 KB of shared memory at D = 128,
+//     two blocks per SM;
+//   - what bounds it at the replay shape is latency, not bytes or
+//     products: 46 query tiles for 132 SMs, each walking up to 5 key tiles
+//     of the 201-wide band one after another (~2.5 us each). So the
+//     launcher splits each tile's key loop over a cluster of c = 2 blocks
+//     where the widest band holds 2 key tiles or more and the whole grid
+//     stays resident at once (dq_cluster, by
+//     cudaOccupancyMaxActiveClusters), else c = 1: rank r takes key tiles
+//     r, r + c, ...; rank 1 parks its f32 dQ in its own K ring, and after a
+//     cluster barrier rank 0 reads it through distributed shared memory
+//     (mapa + ld.shared::cluster, 16 bytes a load), adds it, rounds and
+//     stores; a second barrier keeps the peer alive until it has read it.
+//     One launch, no atomics and no workspace: deterministic for a given
+//     shape and card.
 // flash_bwd_dkv, bf16 (the training path), wgmma + TMA (hopper.cuh):
 //   - one warpgroup (128 threads) per (bh, 64-row key tile); K and V are
 //     loaded once by TMA; for each query tile of the band, Q and dO go
@@ -53,15 +83,11 @@
 //   - each block owns its key rows, so no atomics: deterministic. 98 KB of
 //     shared memory at D = 128; dK and dV (64 + 64 f32 registers a thread
 //     at D = 128) stay in registers for the whole loop.
-// flash_bwd_dq (both dtypes) and flash_bwd_dkv in float32 run SIMT FMA
-// loops on f32 tiles in shared memory (one block of 256 threads per 64-row
-// tile); for f32, wgmma would be TF32, and the f32 backward is held bit for
-// bit to the plain one. Left on the table: wgmma for flash_bwd_dq's bf16
-// path (the design above carries over).
-// Also: at bh = 2 the replay gives only 2 x 23 blocks for 132
-// SMs (splitting the query loop of dkv or the key loop of dq across blocks,
-// with a reduction, would fill the card); warp-specialised persistent
-// blocks.
+// float32 runs SIMT FMA loops on f32 tiles in shared memory (one block of
+// 256 threads per 64-row tile) in both kernels: wgmma on f32 would be
+// TF32, and the f32 backward is held bit for bit to the plain one.
+// Left on the table: the same cluster split of dkv's query loop (46 blocks
+// at the replay shape too); warp-specialised persistent blocks.
 
 #include "hopper.cuh"
 
@@ -69,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -93,58 +121,22 @@ __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-// Copy rows [row0, row0 + 64) of a (rows, D) matrix into shared memory as
-// f32, zero-filling rows at or past `rows`. 16-byte vector loads.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ base, int row0,
-                                          int rows, float* __restrict__ tile) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
+// Copy rows [row0, row0 + 64) of a (rows, D) f32 matrix into shared memory,
+// zero-filling rows at or past `rows`. 16-byte vector loads.
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ base,
+                                          int row0, int rows,
+                                          float* __restrict__ tile) {
+  constexpr int kPerRow = D / 4;
   constexpr int kRow = Layout<D>::kRow;
   for (int v = threadIdx.x; v < kBlock * kPerRow; v += kThreads) {
     const int r = v / kPerRow;
-    const int c = (v % kPerRow) * kVec;
-    float vals[kVec];
-    if (row0 + r < rows) {
-      load_vec(base + static_cast<int64_t>(row0 + r) * D + c, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; i += 4) {
-      *reinterpret_cast<float4*>(tile + r * kRow + c + i) =
-          make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
-    }
+    const int c = (v % kPerRow) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows)
+      val = *reinterpret_cast<const float4*>(base + static_cast<int64_t>(row0 + r) * D + c);
+    *reinterpret_cast<float4*>(tile + r * kRow + c) = val;
   }
-}
-
-__device__ __forceinline__ float round_like(float x, const float*) { return x; }
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store4(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = packed;
 }
 
 __device__ __forceinline__ bool visible(int row, int col, int tq, int tk,
@@ -223,27 +215,29 @@ __device__ __forceinline__ void two_scores(const float* __restrict__ a_s,
   }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ out, int row0,
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ out, int row0,
                                            int rows, int ty, int tx,
                                            const float (&acc)[4][D / 16]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
     if (row >= rows) continue;
-    T* orow = out + static_cast<int64_t>(row) * D;
+    float* orow = out + static_cast<int64_t>(row) * D;
 #pragma unroll
-    for (int m = 0; m < D / 64; ++m) store4(orow + tx * 4 + 64 * m, &acc[i][4 * m]);
+    for (int m = 0; m < D / 64; ++m)
+      *reinterpret_cast<float4*>(orow + tx * 4 + 64 * m) = make_float4(
+          acc[i][4 * m], acc[i][4 * m + 1], acc[i][4 * m + 2], acc[i][4 * m + 3]);
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int tq, int tk, int causal, int window, float sm_scale) {
+flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int tq, int tk, int causal, int window, float sm_scale) {
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   constexpr int kTile = Layout<D>::kTile;
@@ -279,15 +273,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
   }
 
-  load_tile<T, D>(q + qoff * D, q0, tq, q_s);
-  load_tile<T, D>(dout + qoff * D, q0, tq, do_s);
+  load_tile<D>(q + qoff * D, q0, tq, q_s);
+  load_tile<D>(dout + qoff * D, q0, tq, do_s);
 
   if (k_lo <= k_hi) {
     for (int kt = k_lo / kBlock; kt <= k_hi / kBlock; ++kt) {
       const int k0 = kt * kBlock;
       __syncthreads();                 // previous tile's K, V, dS are free
-      load_tile<T, D>(k + koff * D, k0, tk, k_s);
-      load_tile<T, D>(v + koff * D, k0, tk, v_s);
+      load_tile<D>(k + koff * D, k0, tk, k_s);
+      load_tile<D>(v + koff * D, k0, tk, v_s);
       __syncthreads();
 
       float s[4][4], dp[4][4];
@@ -301,14 +295,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float p = visible(row, col, tq, tk, causal, window)
                               ? expf(__fmul_rn(s[i][j], sm_scale) - lse_i[i]) : 0.f;
           ds_s[(ty * 4 + i) * kPRow + tx + 16 * j] =
-              round_like(p * (dp[i][j] - delta_i[i]) * sm_scale, q);
+              p * (dp[i][j] - delta_i[i]) * sm_scale;
         }
       }
       __syncthreads();                 // dS ready
       accumulate<D>(ds_s, k_s, ty, tx, acc);
     }
   }
-  store_rows<T, D>(dq + qoff * D, q0, tq, ty, tx, acc);
+  store_rows<D>(dq + qoff * D, q0, tq, ty, tx, acc);
 }
 
 template <int D>
@@ -353,15 +347,15 @@ flash_bwd_dkv_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
-  load_tile<float, D>(k + koff * D, k0, tk, k_s);
-  load_tile<float, D>(v + koff * D, k0, tk, v_s);
+  load_tile<D>(k + koff * D, k0, tk, k_s);
+  load_tile<D>(v + koff * D, k0, tk, v_s);
 
   if (q_lo <= q_hi) {
     for (int qt = q_lo / kBlock; qt <= q_hi / kBlock; ++qt) {
       const int q0 = qt * kBlock;
       __syncthreads();                 // previous tile's Q, dO, P are free
-      load_tile<float, D>(q + qoff * D, q0, tq, q_s);
-      load_tile<float, D>(dout + qoff * D, q0, tq, do_s);
+      load_tile<D>(q + qoff * D, q0, tq, q_s);
+      load_tile<D>(dout + qoff * D, q0, tq, do_s);
       if (threadIdx.x < kBlock) {
         const int row = q0 + threadIdx.x;
         lse_s[threadIdx.x] = row < tq ? lse[qoff + row] : 0.f;
@@ -395,23 +389,24 @@ flash_bwd_dkv_simt(const float* __restrict__ q, const float* __restrict__ k,
       accumulate<D>(p_s, q_s, ty, tx, acc_k);
     }
   }
-  store_rows<float, D>(dk + koff * D, k0, tk, ty, tx, acc_k);
-  store_rows<float, D>(dv + koff * D, k0, tk, ty, tx, acc_v);
+  store_rows<D>(dk + koff * D, k0, tk, ty, tx, acc_k);
+  store_rows<D>(dv + koff * D, k0, tk, ty, tx, acc_v);
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq, int bh, int tq, int tk, int causal,
-                      int window, float sm_scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dq, int bh, int tq,
+                           int tk, int causal, int window, float sm_scale,
+                           cudaStream_t stream) {
   constexpr int kBytes = static_cast<int>(Layout<D>::kDqBytes);
-  cudaError_t err = hopper::set_smem_once<flash_bwd_dq_kernel<T, D>>(kBytes);
+  cudaError_t err = hopper::set_smem_once<flash_bwd_dq_simt<D>>(kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((tq + kBlock - 1) / kBlock, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), tq, tk, causal, window, sm_scale);
+  flash_bwd_dq_simt<D><<<grid, kThreads, kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), tq, tk, causal, window, sm_scale);
   return cudaGetLastError();
 }
 
@@ -658,12 +653,294 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- flash_bwd_dq, bfloat16: wgmma + TMA, the key loop over a cluster -------
+
+template <int D>
+struct DqSmem {
+  static constexpr int kTile = D * 64 * 2;      // a 64 x D bf16 tile
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kTile;
+  static constexpr int kK = 2 * kTile;          // K ring, 2 stages; then dQ
+  static constexpr int kV = 4 * kTile;          // V ring, 2 stages
+  static constexpr int kBytes = 6 * kTile + 1024;
+};
+
+// dQ of one 64-row query tile, computed by the C blocks of one cluster:
+// rank r takes the band's key tiles r, r + C, r + 2C, ... and the ranks'
+// f32 sums meet in rank 0's registers through distributed shared memory.
+// C = 1 is one block per tile, with no cluster code.
+template <int D, int C>
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int tq, int tk, int causal,
+                   int window, float sm_scale) {
+  using namespace hopper;
+  using L = DqSmem<D>;
+  constexpr int kTileBytes = L::kTile;
+  constexpr int kAcc = D / 2;                   // dQ fragment floats
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t bars[6];     // q, dO, k[2], v[2]
+  uint8_t* smem = align_1024(wg_smem);
+  const uint8_t* q_s = smem + L::kQ;
+  const uint8_t* do_s = smem + L::kDo;
+  uint64_t* bar_q = &bars[0];
+  uint64_t* bar_do = &bars[1];
+  uint64_t* bar_k = &bars[2];
+  uint64_t* bar_v = &bars[4];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int bh = blockIdx.y;
+  const int q0 = (blockIdx.x / C) * 64;
+  const int rank = C > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int64_t qoff = static_cast<int64_t>(bh) * tq;
+
+  // Key range this query tile can see, and this rank's share of its tiles.
+  const int q_last = min(q0 + 64, tq) - 1;
+  int k_lo = 0;
+  int k_hi = tk - 1;
+  if (causal) {
+    k_hi = min(k_hi, q_last);
+    k_lo = max(0, q0 - window + 1);
+  }
+  const int kt0 = k_lo / 64;
+  const int n_tiles = k_lo <= k_hi ? k_hi / 64 - kt0 + 1 : 0;
+  const int n_mine = n_tiles > rank ? (n_tiles - rank + C - 1) / C : 0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && n_mine > 0) {
+    const int k0 = (kt0 + rank) * 64;
+    mbar_expect_tx(bar_q, kTileBytes);
+    tma_load_tile<D>(smem + L::kQ, &tm_q, bar_q, q0, bh);
+    mbar_expect_tx(&bar_k[0], kTileBytes);
+    tma_load_tile<D>(smem + L::kK, &tm_k, &bar_k[0], k0, bh);
+    mbar_expect_tx(bar_do, kTileBytes);
+    tma_load_tile<D>(smem + L::kDo, &tm_do, bar_do, q0, bh);
+    mbar_expect_tx(&bar_v[0], kTileBytes);
+    tma_load_tile<D>(smem + L::kV, &tm_v, &bar_v[0], k0, bh);
+  }
+
+  // This thread's rows r0 and r0 + 8: their lse and delta, in registers.
+  const int r0 = q0 + warp * 16 + g;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lse_r[h] = row < tq ? lse[qoff + row] : 0.f;
+    delta_r[h] = row < tq ? delta[qoff + row] : 0.f;
+  }
+
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n_mine; ++i) {
+    const int st = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    const int k0 = (kt0 + rank + i * C) * 64;
+    const uint8_t* k_s = smem + L::kK + st * kTileBytes;
+    const uint8_t* v_s = smem + L::kV + st * kTileBytes;
+    if (tid == 0 && i + 1 < n_mine) {           // the other stage is free
+      const int nx = st ^ 1;
+      mbar_expect_tx(&bar_k[nx], kTileBytes);
+      tma_load_tile<D>(smem + L::kK + nx * kTileBytes, &tm_k, &bar_k[nx],
+                       k0 + 64 * C, bh);
+      mbar_expect_tx(&bar_v[nx], kTileBytes);
+      tma_load_tile<D>(smem + L::kV + nx * kTileBytes, &tm_v, &bar_v[nx],
+                       k0 + 64 * C, bh);
+    }
+
+    // S = Q K^T and dP = dO V^T, both in flight together.
+    float s[32], dp[32];
+    if (i == 0) mbar_wait(bar_q, 0);
+    mbar_wait(&bar_k[st], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor(q_s, kk), desc_kmajor(k_s, kk), kk > 0);
+    wgmma_commit();
+    if (i == 0) mbar_wait(bar_do, 0);
+    mbar_wait(&bar_v[st], parity);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_kmajor(do_s, kk), desc_kmajor(v_s, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // P over the visible (row, key) pairs, never rounded.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = r0 + 8 * h;
+          const int col = k0 + 8 * j + 2 * t + e;
+          bool ok = col < tk;
+          if (causal) ok = ok && col <= row && col > row - window;
+          float& x = s[4 * j + 2 * h + e];
+          x = ok ? expf(__fmul_rn(x, sm_scale) - lse_r[h]) : 0.f;
+        }
+      }
+    }
+
+    // dS = round(P (dP - delta) scale): S's k16 slices are the register A
+    // fragments of dQ += dS K.
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int idx = 8 * kk + 2 * r;
+        const float d = delta_r[r & 1];
+        da[kk][r] = pack_bf16(s[idx] * (dp[idx] - d) * sm_scale,
+                              s[idx + 1] * (dp[idx + 1] - d) * sm_scale);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn<D>(acc, da[kk], desc_mnmajor(k_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();                            // stage st may be refilled
+  }
+
+  if constexpr (C > 1) {
+    // Ranks 1 .. C-1 that took a key tile park their f32 fragment in their
+    // own K ring (its last product has been waited on), float4 v of thread
+    // tid at [v * 128 + tid]; rank 0 adds them to its own in rank order,
+    // reading each at its own fragment positions.
+    float4* park = reinterpret_cast<float4*>(smem + L::kK);
+    const int n_ranks = min(C, n_tiles);
+    if (rank > 0 && rank < n_ranks) {
+#pragma unroll
+      for (int v = 0; v < kAcc / 4; ++v)
+        park[v * kWgThreads + tid] =
+            make_float4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2], acc[4 * v + 3]);
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (rank == 0) {
+      for (int peer = 1; peer < n_ranks; ++peer) {
+        const uint32_t base = map_peer(smem_u32(park + tid), peer);
+#pragma unroll
+        for (int v = 0; v < kAcc / 4; ++v) {
+          const float4 x = load_peer_f4(base + v * kWgThreads * 16);
+          acc[4 * v] += x.x;
+          acc[4 * v + 1] += x.y;
+          acc[4 * v + 2] += x.z;
+          acc[4 * v + 3] += x.w;
+        }
+      }
+    }
+    cluster_arrive();                           // rank 0 is done reading
+  }
+
+  // Epilogue (rank 0): dQ rows inside the sequence, in bf16.
+  if (rank == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row >= tq) continue;
+      __nv_bfloat16* orow = dq + (qoff + row) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  if constexpr (C > 1) cluster_wait();          // peers outlive the reads
+}
+
+// Key tiles of the widest query tile's band (the most ranks that find work).
+inline int dq_band_tiles(int tq, int tk, int causal, int window) {
+  if (!causal) return (tk + 63) / 64;
+  int most = 0;
+  for (int q0 = 0; q0 < tq; q0 += 64) {
+    const int k_hi = std::min(tk - 1, std::min(q0 + 64, tq) - 1);
+    const int k_lo = std::max(0, q0 - window + 1);
+    if (k_lo <= k_hi) most = std::max(most, k_hi / 64 - k_lo / 64 + 1);
+  }
+  return most;
+}
+
+// The cluster size of a launch: 2 once the widest band holds 2 key tiles
+// and a cluster of 2 keeps the whole grid resident at once, else 1. On an
+// H100 a key tile costs a rank about 2.5 us and a cluster of 2 about 0.9 us
+// (launch, barriers and the DSMEM reads), so at the replay's 5-tile band
+// c = 2 beats c = 1; at T = 8192 the grid of pairs no longer fits.
+template <int D>
+cudaError_t dq_cluster(int bh, int tq, int tk, int causal, int window,
+                       int* cluster) {
+  *cluster = 1;
+  if (dq_band_tiles(tq, tk, causal, window) < 2) return cudaSuccess;
+  constexpr int kBytes = DqSmem<D>::kBytes;
+  cudaError_t err = hopper::set_smem_once<flash_bwd_dq_wgmma<D, 2>>(kBytes);
+  if (err != cudaSuccess) return err;
+  int most = 0;
+  err = hopper::max_active_clusters_once<flash_bwd_dq_wgmma<D, 2>>(
+      kWgThreads, kBytes, 2, &most);
+  if ((tq + 63) / 64 * bh <= most) *cluster = 2;
+  return err;
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, int bh, int tq,
+                            int tk, int causal, int window, float sm_scale,
+                            cudaStream_t stream) {
+  constexpr int kBytes = DqSmem<D>::kBytes;
+  int c = 1;
+  cudaError_t err = dq_cluster<D>(bh, tq, tk, causal, window, &c);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  // With no key (tk == 0) no K/V tile is loaded; any valid map will do.
+  const int k_rows = tk > 0 ? tk : tq;
+  if ((err = hopper::make_tile_map(&tm_q, q, D, tq, bh)) != cudaSuccess ||
+      (err = hopper::make_tile_map(&tm_k, tk > 0 ? k : q, D, k_rows, bh)) != cudaSuccess ||
+      (err = hopper::make_tile_map(&tm_v, tk > 0 ? v : q, D, k_rows, bh)) != cudaSuccess ||
+      (err = hopper::make_tile_map(&tm_do, dout, D, tq, bh)) != cudaSuccess)
+    return err;
+  const int q_tiles = (tq + 63) / 64;
+  auto* out = static_cast<__nv_bfloat16*>(dq);
+  if (c == 1) {
+    if ((err = hopper::set_smem_once<flash_bwd_dq_wgmma<D, 1>>(kBytes)) != cudaSuccess)
+      return err;
+    flash_bwd_dq_wgmma<D, 1><<<dim3(q_tiles, bh), kWgThreads, kBytes, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, lse, delta, out, tq, tk, causal, window, sm_scale);
+    return cudaGetLastError();
+  }
+  // dq_cluster has raised the shared-memory limit of the pair kernel.
+  err = hopper::launch_cluster(flash_bwd_dq_wgmma<D, 2>, dim3(q_tiles * 2, bh),
+                               kWgThreads, kBytes, stream, 2, tm_q, tm_k, tm_v,
+                               tm_do, lse, delta, out, tq, tk, causal, window,
+                               sm_scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). dtype: 0 = float32,
-// 1 = bfloat16 (dkv: wgmma + TMA). Each returns a cudaError_t; cudaErrorInvalidValue for a
-// dtype/head_dim the kernels are not built for (the Python wrappers refuse
-// those first).
+// Plain C entry points (loaded with ctypes). dtype: 0 = float32 (SIMT),
+// 1 = bfloat16 (wgmma + TMA; dq's key loop split over a cluster). Each
+// returns a cudaError_t; cudaErrorInvalidValue for a dtype/head_dim the
+// kernels are not built for (the Python wrappers refuse those first).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, int bh, int tq,
@@ -672,13 +949,28 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh == 0 || tq == 0) return static_cast<int>(cudaSuccess);
   if (dtype == 0 && head_dim == 64)
-    return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, window, sm_scale, s);
+    return launch_dq_simt<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, window, sm_scale, s);
   if (dtype == 0 && head_dim == 128)
-    return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, window, sm_scale, s);
+    return launch_dq_simt<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, window, sm_scale, s);
   if (dtype == 1 && head_dim == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, window, sm_scale, s);
+    return launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, window, sm_scale, s);
   if (dtype == 1 && head_dim == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, window, sm_scale, s);
+    return launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, window, sm_scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The cluster size flash_bwd_dq launches with for these arguments (1 for
+// float32, whose SIMT kernel has none), written to *cluster; returns a
+// cudaError_t like the entry points.
+extern "C" int flash_bwd_dq_cluster(int bh, int tq, int tk, int head_dim,
+                                    int dtype, int causal, int window,
+                                    int* cluster) {
+  *cluster = 1;
+  if (bh == 0 || tq == 0 || dtype == 0) return static_cast<int>(cudaSuccess);
+  if (head_dim == 64)
+    return dq_cluster<64>(bh, tq, tk, causal, window, cluster);
+  if (head_dim == 128)
+    return dq_cluster<128>(bh, tq, tk, causal, window, cluster);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

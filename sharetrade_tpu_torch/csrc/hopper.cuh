@@ -18,6 +18,12 @@
 //     128-byte row, 1024 bytes between 8-row groups) and MN-major (the tile
 //     read transposed: 2048 bytes per k16 step of rows, 1024 bytes between
 //     8-row groups, 8192 bytes between 64-column boxes).
+//   - Thread-block clusters: a launch with a cluster dimension
+//     (launch_cluster, cudaLaunchKernelEx), the most clusters the card
+//     holds at once, a block's rank in its cluster, the two halves of the
+//     cluster barrier (arrive with release, wait with acquire), and a
+//     16-byte load from a peer block's shared memory (distributed shared
+//     memory: mapa, then ld.shared::cluster).
 //
 // Fragment layouts (PTX ISA, wgmma): warp w of the warpgroup owns rows
 // 16w .. 16w+15 of a 64-row accumulator; lane l = 4g + t holds, for every
@@ -35,6 +41,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <utility>
 
 namespace hopper {
 
@@ -61,6 +68,61 @@ inline cudaError_t set_smem_once(int bytes) {
                              bytes);
   if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
   return err;
+}
+
+// The most clusters of `cluster` blocks of Kernel (`threads` threads and
+// `smem` bytes of dynamic shared memory a block, the limit raised with
+// set_smem_once first) that the device holds at once; asked once per device
+// (one cluster size per kernel: the template is keyed on the kernel).
+template <auto Kernel>
+inline cudaError_t max_active_clusters_once(int threads, int smem, int cluster,
+                                            int* clusters) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];      // clusters + 1; 0: not asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kDevices) return cudaErrorInvalidDevice;
+  const int seen = known[dev].load(std::memory_order_acquire);
+  if (seen > 0) {
+    *clusters = seen - 1;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(clusters, Kernel, &cfg);
+  if (err == cudaSuccess) known[dev].store(*clusters + 1, std::memory_order_release);
+  return err;
+}
+
+// Launches `kernel` with clusters of `cluster` blocks along x (gridDim.x a
+// multiple of it); one launch, checked like <<<>>> by the caller.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
+                                  int smem, cudaStream_t stream, int cluster,
+                                  Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -280,6 +342,46 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2], const uint32_t (&
                                             uint64_t b) {
   if constexpr (D == 64) wgmma_rs_n64(d, a, b);
   else wgmma_rs_n128(d, a, b);
+}
+
+// ---- clusters --------------------------------------------------------------
+
+// This block's rank in its cluster (0 .. cluster size - 1).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves, executed by every thread of every
+// block of the cluster: arrive releases this thread's shared-memory writes
+// to the cluster; wait returns once every thread has arrived and acquires
+// theirs. Work placed between the two overlaps the other blocks' arrival.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address, in the cluster's shared window, of the byte that sits at
+// shared address `addr` (smem_u32 of a local pointer) in block `rank`.
+__device__ __forceinline__ uint32_t map_peer(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes from a peer's shared memory (an address from map_peer; 16-byte
+// aligned). The peer must not exit or overwrite them before the reader is
+// done: the caller fences that with a cluster barrier.
+__device__ __forceinline__ float4 load_peer_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
 }
 
 }  // namespace hopper

@@ -16,7 +16,9 @@ heads, seq, head_dim)`` throughout, as there.
   kernel wrappers. On CUDA tensors they launch the hand-written kernels
   ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (built at first use) or
   raise; on CPU tensors they compute the plain versions. There is no
-  fallback between the two.
+  fallback between the two. :func:`flash_bwd_dq_cluster` reports over how
+  many blocks of a thread-block cluster ``flash_bwd_dq`` splits each query
+  tile's key loop.
 - The plain versions: :func:`_plain_forward` (dense scores in float32,
   masked softmax, probabilities cast to the input dtype before the product
   with V) and :func:`_plain_backward` (the same recomputation of P from lse,
@@ -146,6 +148,8 @@ def _library(name: str) -> ctypes.CDLL:
                          + [ctypes.c_float, ctypes.c_void_p]),
         "flash_bwd_dkv": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                           + [ctypes.c_float, ctypes.c_void_p]),
+        "flash_bwd_dq_cluster": ([ctypes.c_int] * 7
+                                 + [ctypes.POINTER(ctypes.c_int)]),
     }
     for fn_name, argtypes in signatures.items():
         if hasattr(lib, fn_name):
@@ -262,6 +266,24 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
             dout, lse, delta, dq, batch * heads, t_q, k.shape[2], head_dim,
             _DTYPE_CODES[q.dtype], int(causal), band, float(sm_scale))
     return dq
+
+
+def flash_bwd_dq_cluster(q, k, *, causal: bool = True,
+                         window: int | None = None) -> int:
+    """Blocks of the thread-block cluster over which :func:`flash_bwd_dq`
+    splits each query tile's key loop for these CUDA inputs (1 or 2; 1 for
+    float32). Launches nothing."""
+    _check_kernel_inputs("flash_bwd_dq", q, k, k)
+    band = _check_args("flash_bwd_dq", q, k, causal, window)
+    batch, heads, t_q, head_dim = q.shape
+    cluster = ctypes.c_int(0)
+    with torch.cuda.device(q.device):
+        err = _library("flash_bwd").flash_bwd_dq_cluster(
+            batch * heads, t_q, k.shape[2], head_dim, _DTYPE_CODES[q.dtype],
+            int(causal), band, ctypes.byref(cluster))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq_cluster failed: CUDA error {err}")
+    return cluster.value
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,

@@ -130,3 +130,12 @@ def test_no_grad_leaves_the_forward_alone():
     assert out.grad_fn is None
     with pytest.raises(ValueError, match="flash_attention"):
         tattn.flash_fwd(*args, sm_scale=0.125)
+
+
+def test_dq_cluster_query_refuses_cpu_tensors():
+    """``flash_bwd_dq_cluster`` asks the CUDA launcher; on CPU tensors, where
+    ``flash_bwd_dq`` runs its plain version, it raises and builds nothing."""
+    q, k, _, _ = (torch.from_numpy(x) for x in _inputs(5, (1, 2, 130, 64)))
+    with pytest.raises(ValueError, match="flash_bwd_dq: q is on cpu"):
+        tattn.flash_bwd_dq_cluster(q, k, window=20)
+    assert "flash_bwd" not in tattn.cuda_build._loaded

@@ -218,6 +218,51 @@ def test_backward_noncausal_cross_attention(cuda, dtype):
     _check_backward(q, k, v, dout, causal=False, window=None)
 
 
+@pytest.mark.parametrize("shape,kv_len,causal,window,cluster", [
+    # 40*2 heads x 3 query tiles = 240 clusters: only c = 1 keeps the grid
+    # resident at once.
+    ((40, 2, 130, 128), None, True, None, 1),
+    # A short causal grid: the widest band holds 3 key tiles, so c = 2.
+    ((1, 1, 130, 64), None, True, None, 2),
+    # The training replay: 2 x 23 query tiles, bands of up to 5 key tiles.
+    ((1, 2, 1424, 128), None, True, 201, 2),
+    # Plain causal over 8 query tiles: the widest band holds 8 key tiles.
+    ((1, 2, 512, 128), None, True, None, 2),
+    # Non-causal 100 x 600: every query tile sees 10 key tiles.
+    ((2, 2, 100, 64), 600, False, None, 2),
+])
+def test_dq_cluster_split_matches_plain(cuda, shape, kv_len, causal, window,
+                                        cluster):
+    """flash_bwd_dq in bf16 at grids that select each cluster size."""
+    rng = np.random.default_rng(shape[2] + cluster)
+    kv_shape = shape[:2] + (kv_len or shape[2], shape[3])
+    q, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .to("cuda", torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal(kv_shape, dtype=np.float32))
+            .to("cuda", torch.bfloat16) for _ in range(2))
+    assert attention.flash_bwd_dq_cluster(q, k, causal=causal,
+                                          window=window) == cluster
+    _check_backward(q, k, v, dout, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((1, 2, 1424, 128), 201),    # the training replay (c = 2)
+    ((1, 2, 512, 128), None),    # plain causal, 8 key tiles (c = 2)
+])
+def test_dq_repeats_bit_for_bit(cuda, shape, window):
+    """A cluster adds its ranks' partial dQs in a fixed order: two calls on
+    the same bf16 inputs give the same bits."""
+    q, k, v, dout = _bwd_inputs(shape, torch.bfloat16, 7)
+    scale = shape[3] ** -0.5
+    out, lse = attention._plain_forward(q.float(), k.float(), v.float(),
+                                        True, scale, window)
+    delta = (dout.float() * out).sum(-1)
+    kw = dict(causal=True, sm_scale=scale, window=window)
+    first = attention.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    second = attention.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("optimizer,grad_dtype,emit", [
     ("adagrad", torch.bfloat16, True),
     ("adam", torch.float32, False),
