@@ -42,6 +42,25 @@ Phases, in order (any failure exits non-zero before the final line):
 6. cli       — ``python -m sharetrade_tpu_torch.cli serve`` for a few seconds.
 7. cli_train — ``python -m sharetrade_tpu_torch.cli train`` on the flagship
                config with a 2,249-price series (one 2-chunk episode).
+8. resilience — checkpoints, supervision and evaluation at the flagship,
+               one save per chunk (``runtime.checkpoint_every_updates=16``),
+               the 2,249-price series: (a) two uninterrupted 2-chunk runs,
+               whose largest leaf difference is the nondeterminism floor
+               (ops named when it is not 0); (b) preempted after chunk 1,
+               resumed from ``tag_preempt``; (c) a fault in chunk 2 and a
+               supervised restart; (d) one agent's budget NaN after chunk 1,
+               healed in place; (e) one byte of the newest ``state.npz``
+               flipped, then resumed (quarantine and walk-back); (b), (c)
+               and (e) end within the floor of (a); (f) the greedy replay
+               on the 6,046-tick series, timed alone, then ``evaluate()``
+               with its ``tag_best`` save timed on its own: ``flash_fwd``
+               over the whole episode's trunk (its T printed) in each;
+               (g) ``cli train --eval``,
+               then ``cli serve`` from the same checkpoint directory boots
+               from ``tag_best``. Prints the checkpoint's bytes, the save's
+               loop-thread and writer-thread times, a verified restore's
+               time, and, in one 4-chunk run saving every 32 updates, the
+               chunk beside a save's writer against the chunks without.
 
 Opt-in: ``profile`` (a serving device-time breakdown).
 
@@ -61,7 +80,8 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "train", "serve", "cli", "cli_train")
+PHASES = ("build", "kernels", "train", "serve", "cli", "cli_train",
+          "resilience")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -138,6 +158,16 @@ FLAGSHIP_TRAIN = [
     "runtime.chunk_steps=1024",
 ]
 TRAIN_CHUNKS = 2
+
+#: The resilience phase: the training path at one save per chunk on the
+#: 2,249-price series (horizon 2,048: one episode of two chunks), with a
+#: short backoff so a restart does not wait seconds.
+RESILIENCE = FLAGSHIP_TRAIN + [
+    "data.synthetic_length=2249", "runtime.checkpoint_every_updates=16",
+    "runtime.backoff_initial_s=0.01", "runtime.backoff_max_s=0.05"]
+#: The loop thread's part of a save (host enqueue + the device copy it
+#: makes the next chunk wait for) may take at most this share of a chunk.
+SAVE_LOOP_SHARE = 0.10
 
 
 def _print(obj) -> None:
@@ -673,7 +703,8 @@ def kernels_line(results: dict) -> dict:
         row = next(r for r in results["kernels"]
                    if r["kernel"] == name and r["case"] == KERNEL_CASE[name])
         by_path = {path: results[path]["launches"].get(name, 0)
-                   for path in ("train", "serve") if path in results}
+                   for path in ("train", "serve", "resilience")
+                   if path in results}
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "also_replaces": also,
@@ -993,18 +1024,26 @@ def phase_serve(torch) -> dict:
     return row
 
 
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
 def phase_cli() -> dict:
     """``cli serve`` as a user runs it, on the flagship config."""
+    import tempfile
     cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "serve",
            "--duration", "3", "--sessions", "320"]
-    for item in FLAGSHIP:
-        cmd += ["--set", item]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    # An empty checkpoint directory: the seeded init, never a policy some
+    # earlier run left in the checkout.
+    with tempfile.TemporaryDirectory(prefix="cli-serve-") as ckpts:
+        for item in FLAGSHIP + [f"runtime.checkpoint_dir={ckpts}"]:
+            cmd += ["--set", item]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300, cwd=_ROOT)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     summary = json.loads(lines[-1]) if lines else {}
     ok = (proc.returncode == 0 and len(lines) >= 2
+          and json.loads(lines[0]).get("params_step") == 0
           and summary.get("completed", 0) > 0
           and summary.get("failed", 1) == 0
           and summary.get("flash_fwd_launches", 0) > 0)
@@ -1019,12 +1058,15 @@ def phase_cli() -> dict:
 def phase_cli_train() -> dict:
     """``cli train`` as a user runs it, on the flagship config with a
     series of 2,249 prices: horizon 2,048, one episode of two chunks."""
+    import tempfile
     cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train"]
-    for item in FLAGSHIP_TRAIN + ["data.synthetic_length=2249"]:
-        cmd += ["--set", item]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory(prefix="cli-train-") as ckpts:
+        for item in FLAGSHIP_TRAIN + ["data.synthetic_length=2249",
+                                      f"runtime.checkpoint_dir={ckpts}"]:
+            cmd += ["--set", item]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=_ROOT)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     summary = json.loads(lines[-1]) if lines else {}
     launches = summary.get("kernel_launches", {})
@@ -1037,6 +1079,349 @@ def phase_cli_train() -> dict:
            "ok": bool(ok)}
     if not ok:
         row["stderr_tail"] = proc.stderr[-2000:]
+    return row
+
+
+def _state_diff(a, b) -> dict:
+    """Largest |a - b| over the leaves of each part of two training states
+    (params, opt_state, carry, env_state), and whether the generators'
+    states are equal."""
+    from sharetrade_tpu_torch import convert
+    la, lb = convert.train_state_leaves(a), convert.train_state_leaves(b)
+    out = {"params": 0.0, "opt_state": 0.0, "carry": 0.0, "env_state": 0.0}
+    for name, x in la.items():
+        part = name.split(".")[0]
+        if part in out:
+            d = (x.float() - lb[name].float()).abs().max().item()
+            out[part] = max(out[part], d if d == d else float("inf"))
+    out["max"] = max(out.values())
+    out["rng_equal"] = bool((la["rng"] == lb["rng"]).all())
+    return out
+
+
+def _nondeterministic_ops(torch, cfg, prices) -> list[str]:
+    """The ops PyTorch names as nondeterministic in one flagship chunk (its
+    warn-only deterministic mode), each message once."""
+    import warnings
+    from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.env.trading import make_trading_env
+    env = make_trading_env(prices, window=cfg.env.window, device="cuda")
+    agent = build_agent(cfg, env, device="cuda")
+    ts = agent.init(cfg.seed)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            agent.step(ts)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).splitlines()[0][:200] for w in caught})
+
+
+def phase_resilience(torch) -> dict:
+    """Checkpoints, supervision and evaluation; see the module docstring."""
+    import shutil
+    import tempfile
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.data.service import PriceDataService
+    from sharetrade_tpu_torch.ops import attention
+    from sharetrade_tpu_torch.runtime import Orchestrator, Phase
+
+    base = FrameworkConfig().apply_overrides(RESILIENCE)
+    prices = PriceDataService(config=base.data).request(
+        "MSFT").series.prices
+    root = tempfile.mkdtemp(prefix="resilience-")
+    problems: list[str] = []
+    row: dict = {"phase": "resilience", "config": RESILIENCE,
+                 "prices": len(prices)}
+
+    def run(name, *extra, hook=None, resume=False, series=prices):
+        """One orchestrator over ``series``; returns it, the wall-clock
+        time of each chunk's hook call and the chunk rows."""
+        cfg = FrameworkConfig().apply_overrides(
+            RESILIENCE + [f"runtime.checkpoint_dir={os.path.join(root, name)}"]
+            + list(extra))
+        marks: list = []
+
+        def record(i, r):
+            marks.append((i, time.perf_counter(), dict(r)))
+            if hook is not None:
+                hook(orch, i, r)
+
+        orch = Orchestrator(cfg, device="cuda", fault_hook=record)
+        orch.send_training_data(series, resume=resume)
+        t0 = time.perf_counter()
+        orch.start_training(background=False)
+        orch.stop()
+        torch.cuda.synchronize()
+        marks.insert(0, (None, t0, {}))
+        return orch, marks
+
+    def completed(orch, name):
+        if orch.lifecycle.phase is not Phase.COMPLETED:
+            problems.append(f"{name}: ended {orch.lifecycle.phase.value} "
+                            f"({orch.last_error!r})")
+
+    _reset_launch_counts()
+    t_phase = time.perf_counter()
+    # (a) two uninterrupted runs: the nondeterminism floor.
+    a1, marks1 = run("a1")
+    a2, marks2 = run("a2", "runtime.checkpoint_every_updates=0")
+    completed(a1, "a1")
+    completed(a2, "a2")
+    floor = _state_diff(a1.train_state, a2.train_state)
+    row["a_floor"] = floor
+    if floor["max"] != 0.0 or not floor["rng_equal"]:
+        row["a_nondeterministic_ops"] = _nondeterministic_ops(
+            torch, base, prices)
+    shutil.rmtree(os.path.join(root, "a2"), ignore_errors=True)
+    saves = [s for s in a1.checkpoints.save_stats if "loop_ms" in s]
+
+    def chunk_ms(marks):
+        """Hook to hook: a chunk and the boundary actions before it."""
+        return [(t1 - t0) * 1e3 for (_, t0, _), (_, t1, _)
+                in zip(marks, marks[1:])]
+
+    # A 4-chunk episode saving every 32 updates: the writer of the save at
+    # chunk 2's boundary runs beside chunk 3, none beside chunks 2 and 4.
+    series = PriceDataService(config=FrameworkConfig().apply_overrides(
+        ["data.synthetic_length=4297"]).data).request("MSFT").series.prices
+    t_run, marks_t = run("t", "runtime.checkpoint_every_updates=32",
+                         series=series)
+    completed(t_run, "t")
+    t_ms = chunk_ms(marks_t)
+    shutil.rmtree(os.path.join(root, "t"), ignore_errors=True)
+    loop_ms = statistics.median(s["loop_ms"] for s in saves)
+    d2h_ms = statistics.median(s["d2h_ms"] for s in saves)
+    without = (t_ms[1] + t_ms[3]) / 2
+    row["save"] = {
+        "bytes": saves[-1]["bytes"], "async_saves": len(saves),
+        "loop_thread_host_ms_median": loop_ms,
+        "loop_thread_d2h_device_ms_median": d2h_ms,
+        "writer_thread_ms_median": statistics.median(
+            s["writer_ms"] for s in saves),
+        "per_save": list(a1.checkpoints.save_stats),
+        "chunk_ms_with_save": t_ms[2], "chunk_ms_without_save": without,
+        "chunk_ms_4_chunk_run": t_ms,
+        # Across runs: (a1) saves every chunk, (a2) never.
+        "chunk_ms_a1_saving": chunk_ms(marks1),
+        "chunk_ms_a2_not_saving": chunk_ms(marks2),
+    }
+    share = (loop_ms + d2h_ms) / without
+    row["save"]["loop_thread_share_of_chunk"] = share
+    if share > SAVE_LOOP_SHARE:
+        problems.append(f"the loop thread's part of a save is {share:.1%} of "
+                        f"a chunk (limit {SAVE_LOOP_SHARE:.0%})")
+    # A verified restore of the newest checkpoint: read, verify, H2D.
+    template = a1.agent.init(a1.cfg.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, step = a1.checkpoints.restore(template)
+    torch.cuda.synchronize()
+    row["restore"] = {"seconds": time.perf_counter() - t0, "step": step}
+    del restored, template
+
+    def within_floor(name, orch):
+        diff = _state_diff(a1.train_state, orch.train_state)
+        row[f"{name}_diff"] = diff
+        if diff["max"] > floor["max"] or (floor["rng_equal"]
+                                          and not diff["rng_equal"]):
+            problems.append(f"{name}: final state differs from (a) by "
+                            f"{diff['max']} (floor {floor['max']})")
+
+    # (b) preempted after chunk 1, resumed from tag_preempt.
+    b1, _ = run("b", hook=lambda o, i, r: o.request_preempt()
+                if i == 0 else None)
+    if not (b1.preempted and b1.preempt_saved):
+        problems.append("b: the preempted run wrote no tag_preempt")
+    b2, _ = run("b", resume=True)
+    completed(b2, "b")
+    row["b"] = {"preempt_meta": b1.checkpoints.tagged_metadata("preempt"),
+                "chunks_after_resume": b2.chunks}
+    within_floor("b", b2)
+    shutil.rmtree(os.path.join(root, "b"), ignore_errors=True)
+
+    # (c) a fault in chunk 2: one supervised restart from chunk 1's save.
+    fired: list = []
+
+    def fault(o, i, r):
+        if i == 1 and not fired:
+            fired.append(i)
+            raise RuntimeError("injected fault in chunk 2")
+
+    c, _ = run("c", hook=fault)
+    completed(c, "c")
+    row["c"] = {"restarts": c.restarts, "chunks": c.chunks}
+    if c.restarts != 1:
+        problems.append(f"c: {c.restarts} restarts, expected 1")
+    within_floor("c", c)
+    shutil.rmtree(os.path.join(root, "c"), ignore_errors=True)
+
+    # (d) agent 3's budget NaN after chunk 1: healed in place.
+    def poison(o, i, r):
+        if i == 0:
+            env = o._ts.env_state
+            budget = env.budget.clone()
+            budget[3] = float("nan")
+            o._ts = o._ts.replace(env_state=env.replace(budget=budget))
+
+    d, marks_d = run("d", hook=poison)
+    completed(d, "d")
+    cursors = d.train_state.env_state.t
+    losses = [m[2].get("loss") for m in marks_d[1:]]
+    row["d"] = {"agent_heals": d.agent_heals, "restarts": d.restarts,
+                "losses": losses,
+                "unhealthy_per_chunk": [m[2].get("unhealthy_workers")
+                                        for m in marks_d[1:]],
+                "healed_row_cursor": int(cursors[3]),
+                "survivor_cursor": int(cursors[0])}
+    if d.agent_heals != 1 or d.restarts != 0:
+        problems.append(f"d: {d.agent_heals} heals, {d.restarts} restarts; "
+                        "expected 1 and 0")
+    if not np.isfinite(losses).all():
+        problems.append("d: a non-finite loss")
+    if not bool((cursors == cursors[0]).all()):
+        problems.append("d: the healed row's cursor is not the survivors'")
+    shutil.rmtree(os.path.join(root, "d"), ignore_errors=True)
+
+    # (e) the newest state.npz of run (a1) with one byte flipped, resumed.
+    a_dir = os.path.join(root, "a1")
+    newest = max(a1.checkpoints.steps())
+    path = os.path.join(a_dir, f"ckpt_{newest:010d}", "state.npz")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    e, _ = run("a1", resume=True)
+    completed(e, "e")
+    quarantined = sorted(n for n in os.listdir(a_dir)
+                         if n.startswith("corrupt_"))
+    report = e.checkpoints.last_restore_report
+    row["e"] = {"flipped": path, "quarantined": quarantined,
+                "resumed_step": report.get("step"),
+                "skipped": report.get("skipped")}
+    if quarantined != [f"corrupt_{newest:010d}_state_checksum"] or \
+            report.get("step") != newest - 16:
+        problems.append("e: the corrupt newest checkpoint was not "
+                        "quarantined and walked back")
+    within_floor("e", e)
+    params = {k: v for k, v in a1.train_state.params.items()}
+    for orch in (a1, a2, b1, b2, c, d, e):
+        orch.stop()
+    shutil.rmtree(a_dir, ignore_errors=True)
+
+    # (f) greedy evaluation over the 6,046-tick series: the replay alone
+    # (twice: the first call meets the shape first), then evaluate(), whose
+    # tag_best save is timed on its own.
+    cfg = FrameworkConfig().apply_overrides(
+        FLAGSHIP_TRAIN + [f"runtime.checkpoint_dir={os.path.join(root, 'f')}"])
+    series = PriceDataService(config=cfg.data).request("MSFT").series.prices
+    f_orch = Orchestrator(cfg, device="cuda")
+    f_orch.send_training_data(series, params=params)
+    shapes: list = []
+    launch = attention._launch
+
+    def spy(name, fn, *args):
+        if name == "flash_fwd":
+            shapes.append(list(args[0].shape))
+        return launch(name, fn, *args)
+
+    save_s: list = []
+    save_tagged = f_orch.checkpoints.save_tagged
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return save_tagged(*args, **kwargs)
+        finally:
+            save_s.append(time.perf_counter() - t0)
+
+    f_orch.checkpoints.save_tagged = timed_save
+
+    def timed(fn, *args):
+        """(result, seconds, flash_fwd q shapes) of one call."""
+        shapes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, list(shapes)
+
+    attention._launch = spy
+    try:
+        replays = [timed(f_orch._evaluate_params, f_orch.train_state.params)
+                   for _ in range(2)]
+        result, eval_s, eval_shapes = timed(f_orch.evaluate)
+    finally:
+        attention._launch = launch
+    horizon = len(series) - cfg.env.window
+    row["f"] = {**result, "horizon": horizon,
+                "replay_seconds": [r[1] for r in replays],
+                "evaluate_seconds": eval_s,
+                "tag_best_save_seconds": save_s,
+                "replay_flash_fwd_q_shapes": replays[0][2],
+                "evaluate_flash_fwd_q_shapes": eval_shapes,
+                "tag_best": f_orch.checkpoints.tagged_metadata("best")}
+    f_orch.stop()
+    shutil.rmtree(os.path.join(root, "f"), ignore_errors=True)
+    trunk_t = (cfg.model.num_layers - 1) * (cfg.env.window - 1) \
+        + cfg.env.window + horizon
+    if not all(np.isfinite(r[0]["eval_portfolio"]) for r in replays) or \
+            not np.isfinite(result["eval_portfolio"]):
+        problems.append("f: non-finite eval_portfolio")
+    if any(r[0] != result for r in replays):
+        problems.append("f: the replay and evaluate() disagree")
+    if len(save_s) != 1:
+        problems.append(f"f: {len(save_s)} tag_best saves, expected 1")
+    for got in [r[2] for r in replays] + [eval_shapes]:
+        if len(got) != cfg.model.num_layers or any(
+                s[2] != trunk_t for s in got):
+            problems.append(f"f: flash_fwd launches {got}, expected "
+                            f"{cfg.model.num_layers} over T = {trunk_t}")
+    torch.cuda.synchronize()
+    row["launches"] = _all_launch_counts()
+    row["in_process_s"] = time.perf_counter() - t_phase
+
+    # (g) cli train --eval, then cli serve from the same directory.
+    g_dir = os.path.join(root, "g")
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train",
+           "--eval"]
+    for item in RESILIENCE + [f"runtime.checkpoint_dir={g_dir}"]:
+        cmd += ["--set", item]
+    t0 = time.perf_counter()
+    train = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=600, cwd=_ROOT)
+    lines = [ln for ln in train.stdout.splitlines() if ln.startswith("{")]
+    summary = json.loads(lines[-1]) if lines else {}
+    best_path = os.path.join(g_dir, "tag_best", "meta.json")
+    best = (json.load(open(best_path)) if os.path.exists(best_path)
+            else {})
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "serve",
+           "--duration", "2", "--sessions", "128"]
+    for item in FLAGSHIP + [f"runtime.checkpoint_dir={g_dir}"]:
+        cmd += ["--set", item]
+    serve = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=300, cwd=_ROOT)
+    served = [json.loads(ln) for ln in serve.stdout.splitlines()
+              if ln.startswith("{")]
+    row["g"] = {"train_rc": train.returncode, "train_summary": summary,
+                "tag_best": best, "serve_rc": serve.returncode,
+                "serving_ready": served[0] if served else None,
+                "serve_summary": served[-1] if served else None,
+                "seconds": time.perf_counter() - t0}
+    if (train.returncode != 0 or serve.returncode != 0 or not served
+            or not np.isfinite(summary.get("eval_portfolio", float("nan")))
+            or not best.get("updates")
+            or served[0].get("params_step") != best["updates"]
+            or served[-1].get("failed", 1) != 0):
+        problems.append("g: cli train --eval then cli serve did not boot "
+                        "from tag_best")
+        row["g"]["stderr_tail"] = (train.stderr[-1500:]
+                                   + serve.stderr[-1500:])
+    shutil.rmtree(root, ignore_errors=True)
+    row["problems"] = problems
     return row
 
 
@@ -1164,9 +1549,17 @@ def main(argv=None) -> int:
         if not row["ok"]:
             print("chip_smoke: cli train failed", file=sys.stderr)
             return 1
+    if "resilience" in phases:
+        results["resilience"] = phase_resilience(torch)
+        _print(results["resilience"])
+        if results["resilience"]["problems"]:
+            print(f"chip_smoke: resilience failed: "
+                  f"{results['resilience']['problems']}", file=sys.stderr)
+            return 1
     if "profile" in phases:
         _print(phase_profile(torch))
-    if "kernels" in phases and ("serve" in phases or "train" in phases):
+    if "kernels" in phases and {"serve", "train", "resilience"} & set(
+            phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

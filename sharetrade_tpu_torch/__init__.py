@@ -6,17 +6,23 @@ hand for NVIDIA Hopper (``sm_90a``). It imports neither ``jax`` nor anything
 of the JAX package: what it needs from modules there (the config schema, the
 data types, the logging setup) it keeps as its own copies.
 
-Ported so far — the serving path of the episode-mode transformer:
+Ported so far — serving and PPO training of the episode-mode transformer,
+with the training runtime's persistence and supervision:
 
 - ``config``        the whole config schema (copy)
 - ``data``          price series types, CSV + synthetic providers
-- ``env.trading``   action constants and the observation layout
+- ``env``           the trading env (reset, observe, step, portfolio value)
 - ``precision``     fp32 masters / bf16 compute policy
 - ``models``        ``build_model`` for the episode transformer
-- ``ops.attention`` banded causal flash attention; CUDA kernel ``flash_fwd``
-- ``convert``       JAX params pytree (as numpy) <-> port params
+- ``ops``           banded causal flash attention (CUDA ``flash_fwd``,
+                    ``flash_bwd_dq``, ``flash_bwd_dkv``) and the fused
+                    optimizer update (CUDA ``fused_update``)
+- ``agents``        PPO over the precomputed-trunk rollout; the greedy replay
+- ``runtime``       the supervised chunk-loop orchestrator
+- ``checkpoint``    atomic, checksummed, resumable checkpoints
+- ``convert``       JAX params / training states (as numpy) <-> the port's
 - ``serve``         continuous-batching engine over a session slot arena
-- ``cli``           ``python -m sharetrade_tpu_torch.cli serve``
+- ``cli``           ``python -m sharetrade_tpu_torch.cli train|serve``
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``); with no card and no such request they

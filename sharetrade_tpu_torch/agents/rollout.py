@@ -12,6 +12,9 @@ branch on a tensor's value, the representative chosen on the device.
 Trajectories are written into preallocated ``(T, B, ...)`` tensors. Making
 the loop one CUDA graph or one kernel is later work.
 
+:func:`greedy_rollout_precomputed` is the greedy evaluation's replay: one
+agent, argmax actions, the whole episode's trunk in one banded pass.
+
 Not yet ported: the generic per-step rollout (``collect_rollout`` raises
 for models without the precomputed-trunk pair), the folded stateless
 replay and the scanned recurrent replay.
@@ -200,6 +203,33 @@ def _collect_rollout_precomputed(model: Model, env: TradingEnv,
     new_ts = ts.replace(env_state=env_state, carry=new_carry,
                         env_steps=ts.env_steps + steps_taken)
     return new_ts, traj, bootstrap, init_carry
+
+
+def greedy_rollout_precomputed(model: Model, env: TradingEnv, params,
+                               *, horizon: int | None = None):
+    """Greedy (argmax) single-agent episode replay through the precomputed
+    trunk, the ``evaluate()`` path for trunk models: prices do not depend
+    on actions, so the whole episode's trunk is one banded pass (one
+    ``flash_fwd`` launch per layer over the history, the window and the
+    horizon), then a loop of the factored head and the env step. Returns
+    ``(final_env_state, rewards (T,))``; the state is batch-of-1."""
+    horizon = env.num_steps if horizon is None else horizon
+    with torch.no_grad():
+        state = env.reset().map(lambda x: x[None])
+        carry1 = {k: v[None] for k, v in model.init_carry().items()}
+        windows, trade_prices, hn_base, _ = _trunk_precompute(
+            model, env, params, state, carry1, horizon, horizon)
+        base_l, _, pf_fn = model.rollout_head_factored(params, hn_base)
+        rewards = torch.empty((horizon,), dtype=torch.float32,
+                              device=windows.device)
+        for i in range(horizon):
+            obs = torch.cat([windows[i][None], state.budget[:, None],
+                             state.shares[:, None]], dim=-1)
+            logits = base_l[i][None] + pf_fn(obs)[0]
+            action = torch.argmax(logits, dim=-1)
+            state, reward = env.step_priced(state, action, trade_prices[i])
+            rewards[i] = reward[0]
+    return state, rewards
 
 
 def replay_forward(model: Model, params: Any, traj: StepData, init_carry):

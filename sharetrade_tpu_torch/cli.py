@@ -2,7 +2,8 @@
 
     python -m sharetrade_tpu_torch.cli train [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
-        [--device cuda|cpu] [--params state.npz]
+        [--device cuda|cpu] [--params state.npz | --resume] [--eval]
+        [--eval-best]
     python -m sharetrade_tpu_torch.cli serve [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
         [--duration S] [--sessions N] [--device cuda|cpu] [--params p.npz]
@@ -12,26 +13,36 @@ symbol's prices until ``runtime.episodes`` episodes are done, as the JAX
 package's ``cli train`` does: the reference's final log line ("The average
 of the portfolios: ..."), then one JSON line with ``avg_portfolio``,
 ``std_portfolio``, ``env_steps``, ``updates``, ``agent_steps_per_sec``,
-``elapsed_s`` and ``restarts`` (always 0: supervision is not ported), and
-the run's CUDA kernel launches (``kernel_launches``; 0 on the CPU). The
-state comes from a seeded init (``seed``) or from ``--params``: an ``.npz``
-of a whole training state (``convert.save_train_state_npz``, from either
-package) or of a params tree alone (then the optimizer state starts fresh).
-SIGTERM/SIGINT stops at the next chunk boundary and exits 75.
+``elapsed_s``, ``restarts`` (the supervised restarts the run took), and the
+run's CUDA kernel launches (``kernel_launches``; 0 on the CPU). ``--eval``
+adds the greedy evaluation (``eval_portfolio``, ``eval_reward_sum``; under
+``runtime.keep_best_eval`` a better policy is kept as ``tag_best``),
+``--eval-best`` the evaluation of ``tag_best`` (``best_*``). Checkpoints go
+to ``runtime.checkpoint_dir``. The state comes from a seeded init
+(``seed``), from ``--resume`` (the newest intact checkpoint there, or
+``tag_preempt`` when it is at least as new; none is an error, exit 1), or
+from ``--params``: an ``.npz`` of a whole training state
+(``convert.save_train_state_npz``, from either package) or of a params tree
+alone (then the optimizer state starts fresh). SIGTERM/SIGINT stops at the
+next chunk boundary, writes ``tag_preempt`` and exits 75.
 
 ``serve`` runs the continuous-batching engine (serve/engine.py) on the
 configured model under synthetic closed-loop session load
 (serve/driver.py), as the JAX package's ``cli serve`` does: a
 ``serving_ready`` JSON line once the engine is warm, then one summary JSON
-line. Weights come from a seeded init (``seed``) or from ``--params``, an
-``.npz`` of a params tree (``convert.save_npz``, from either package).
-SIGTERM/SIGINT drains in-flight requests and exits 75.
+line. Weights come from ``--params``, an ``.npz`` of a params tree
+(``convert.save_npz``, from either package), else from the training run's
+checkpoints in ``runtime.checkpoint_dir``: ``tag_<serve.swap_tag>``
+(``tag_best``), then the newest intact step, then (loudly) a seeded fresh
+init. ``params_step`` in both lines is the checkpoint's update count (0
+for ``--params`` and a fresh init). SIGTERM/SIGINT drains in-flight
+requests and exits 75.
 
 The device is ``cuda`` unless ``--device`` says otherwise; without a GPU
 and without ``--device cpu`` the command fails with a message saying so.
 Not yet ported: ``query``, ``actor``, ``learner``, ``fleet``, ``obs``,
-checkpoint restore and ``--resume``, ``--eval``, ``--mesh``, the
-tuned-profile resolution, ``--rate`` and ``--listen``.
+``--mesh``, the tuned-profile resolution, the weight-swap watcher,
+``--rate`` and ``--listen``.
 """
 
 from __future__ import annotations
@@ -106,8 +117,12 @@ def cmd_train(args) -> int:
             if train_state is None:        # a bare params tree
                 params = load_npz(args.params, device=device)
         t0 = time.perf_counter()
-        orch.send_training_data(prices, train_state=train_state,
-                                params=params)
+        try:
+            orch.send_training_data(prices, resume=args.resume,
+                                    train_state=train_state, params=params)
+        except FileNotFoundError as exc:
+            log.error("--resume: %s (train without --resume first)", exc)
+            return 1
         orch.start_training(background=True)
         grace = cfg.runtime.preempt_grace_s
         while not orch.wait(timeout=cfg.runtime.poll_interval_s):
@@ -119,7 +134,11 @@ def cmd_train(args) -> int:
         done = orch.is_everything_done()
         if orch.preempted or (preempt_at
                               and done.state is not ReplyState.COMPLETED):
-            log.warning("run preempted after %d chunks", orch.chunks)
+            log.warning("run preempted after %d chunks; resume with --resume "
+                        "(emergency checkpoint: %s)", orch.chunks,
+                        "written" if orch.preempt_saved
+                        else "not confirmed — the latest cadence checkpoint "
+                             "is the resume point")
             return EXIT_PREEMPTED
         avg, std = orch.get_avg(), orch.get_std()
         if done.state is not ReplyState.COMPLETED or not avg.ok:
@@ -131,7 +150,7 @@ def cmd_train(args) -> int:
         # The reference's final log line (ShareTradeHelper.scala:46).
         log.info("The average of the portfolios: %.4f, the standard "
                  "deviation: %.4f", avg.value, std.value)
-        print(json.dumps({
+        result = {
             "avg_portfolio": avg.value,
             "std_portfolio": std.value,
             "env_steps": snap.get("env_steps"),
@@ -139,15 +158,56 @@ def cmd_train(args) -> int:
             "agent_steps_per_sec": agent_steps / max(elapsed, 1e-9),
             "elapsed_s": elapsed,
             "restarts": orch.restarts,
-            "kernel_launches": {**attention.launch_counts,
-                                **fused_update.launch_counts},
-        }), flush=True)
+        }
+        if args.eval:
+            result.update(orch.evaluate())
+        if args.eval_best:
+            try:
+                best = orch.evaluate_best()
+            except FileNotFoundError:
+                log.warning("--eval-best: no retained best checkpoint "
+                            "(enable runtime.keep_best_eval and run --eval)")
+            else:
+                result.update({f"best_{k}": v for k, v in best.items()})
+        result["kernel_launches"] = {**attention.launch_counts,
+                                     **fused_update.launch_counts}
+        print(json.dumps(result), flush=True)
         return 0
     finally:
         for s, h in prev_handlers.items():
             signal.signal(s, h)
         if orch is not None:
             orch.stop()
+
+
+def _serve_boot_params(cfg, template):
+    """Initial serving weights: the training run's tagged policy
+    (``serve.swap_tag``, ``tag_best``) when there is one, else its newest
+    intact step checkpoint, else ``template`` (a fresh init, loudly: an
+    untrained policy serves finite garbage). Returns ``(params, step)``,
+    ``step`` the checkpoint's update count."""
+    from sharetrade_tpu_torch.checkpoint import CheckpointManager
+    from sharetrade_tpu_torch.utils.logging import get_logger
+
+    directory = cfg.runtime.checkpoint_dir
+    if os.path.isdir(directory):
+        manager = CheckpointManager(
+            directory, keep=cfg.runtime.keep_checkpoints,
+            fsync=cfg.checkpoint.fsync, precision_mode=cfg.precision.mode)
+        try:
+            params, meta = manager.restore_tagged(template, cfg.serve.swap_tag)
+            return params, int(meta.get("updates", meta.get("step", 0)) or 0)
+        except FileNotFoundError:
+            pass
+        try:
+            params, step = manager.restore(template)
+            return params, int(step)
+        except FileNotFoundError:
+            pass
+    get_logger("cli").warning("no checkpoint under %s; serving a seeded "
+                              "fresh-initialised (UNTRAINED) policy",
+                              directory)
+    return template, 0
 
 
 def cmd_serve(args) -> int:
@@ -161,7 +221,6 @@ def cmd_serve(args) -> int:
     from sharetrade_tpu_torch.ops.attention import launch_counts
     from sharetrade_tpu_torch.precision import policy_from_config
     from sharetrade_tpu_torch.serve import ServeEngine
-    from sharetrade_tpu_torch.serve.engine import PARAMS_STEP
     from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
     from sharetrade_tpu_torch.utils.logging import get_logger
 
@@ -196,16 +255,15 @@ def cmd_serve(args) -> int:
                                  args.start, args.end).series.prices
         model = build_model(cfg.model, obs_dim(cfg.env.window), device=device)
         if args.params:
-            params = load_npz(args.params, device=device)
+            params, step = load_npz(args.params, device=device), 0
         else:
-            log.warning("no --params; serving a seeded fresh-initialised "
-                        "(UNTRAINED) policy")
-            params = model.init(torch.Generator().manual_seed(cfg.seed))
-        engine = ServeEngine(model, cfg.serve, params,
+            params, step = _serve_boot_params(
+                cfg, model.init(torch.Generator().manual_seed(cfg.seed)))
+        engine = ServeEngine(model, cfg.serve, params, params_step=step,
                              precision=policy_from_config(cfg.precision))
         engine.warmup()
         print(json.dumps({"event": "serving_ready",
-                          "params_step": PARAMS_STEP,
+                          "params_step": step,
                           "model": model.name, "device": str(device),
                           "max_batch": cfg.serve.max_batch,
                           "slots": cfg.serve.slots}), flush=True)
@@ -222,7 +280,7 @@ def cmd_serve(args) -> int:
         counters = dict(engine.counters)
         summary = {
             **stats,
-            "params_step": PARAMS_STEP,
+            "params_step": step,
             "device": str(device),
             "requests": counters["requests"],
             "prefills": counters["cold_rows"],
@@ -266,10 +324,18 @@ def main(argv=None) -> int:
     p = sub.add_parser("train", help="train the configured learner until "
                                      "runtime.episodes are done")
     _common(p)
-    p.add_argument("--params", default=None,
-                   help=".npz of a training state (convert."
-                        "save_train_state_npz) or of a params tree; default "
-                        "a seeded init")
+    boot = p.add_mutually_exclusive_group()
+    boot.add_argument("--params", default=None,
+                      help=".npz of a training state (convert."
+                           "save_train_state_npz) or of a params tree; "
+                           "default a seeded init")
+    boot.add_argument("--resume", action="store_true",
+                      help="continue from the newest intact checkpoint in "
+                           "runtime.checkpoint_dir (or tag_preempt)")
+    p.add_argument("--eval", action="store_true",
+                   help="greedy evaluation of the final policy")
+    p.add_argument("--eval-best", action="store_true",
+                   help="greedy evaluation of the retained tag_best policy")
     p.set_defaults(fn=cmd_train)
     p = sub.add_parser("serve", help="continuous-batching inference under "
                                      "synthetic closed-loop load")
@@ -281,7 +347,8 @@ def main(argv=None) -> int:
                    help="synthetic user sessions to replay")
     p.add_argument("--params", default=None,
                    help=".npz of a params tree (convert.save_npz); default "
-                        "a seeded init")
+                        "the run's checkpoints (tag_best, then the newest "
+                        "step), else a seeded init")
     p.set_defaults(fn=cmd_serve)
     args = parser.parse_args(argv)
     from sharetrade_tpu_torch.utils.logging import configure

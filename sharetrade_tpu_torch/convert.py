@@ -28,10 +28,19 @@ names (``ops/fused_update.py``); the batched env state
 bitwise. The JAX random key has no torch counterpart: the port's state gets
 a fresh generator. :func:`save_train_state_npz` writes such a state as one
 ``.npz`` (``cli train --params`` boots from it).
+
+On disk (:func:`encode_train_state`, shared with the checkpoint manager) a
+bfloat16 leaf is stored as its ``uint16`` bits with its dtype recorded
+beside the arrays, so the round trip is bitwise at half the bytes of a
+float32 upcast, and a port state's generator is stored as its
+``get_state()`` bytes (``rng``, ``uint8``), so a resumed run draws the same
+permutations and noise as the run it continues. Every file is read with
+``allow_pickle=False``.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any
 
 import numpy as np
@@ -54,7 +63,10 @@ def params_from_jax(tree: Any, *, device: torch.device | str = "cpu") -> Any:
 
 def _tensor(x, device) -> torch.Tensor:
     """A numpy leaf as a tensor on ``device``, dtype and bytes kept
-    (bfloat16 arrays — ml_dtypes' — travel as their uint16 bits)."""
+    (bfloat16 arrays — ml_dtypes' — travel as their uint16 bits); a tensor
+    is moved as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(
@@ -84,17 +96,18 @@ def params_to_numpy(params: Any) -> Any:
     return _numpy(params)
 
 
-def flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
-    """Nested dict/list -> ``{"dotted.path": array}``."""
+def flatten(tree: Any, prefix: str = "", leaf=np.asarray) -> dict[str, Any]:
+    """Nested dict/list -> ``{"dotted.path": leaf(x)}``."""
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = ((str(i), v) for i, v in enumerate(tree))
     else:
-        return {prefix: np.asarray(tree)}
-    out: dict[str, np.ndarray] = {}
+        return {prefix: leaf(tree)}
+    out: dict[str, Any] = {}
     for key, value in items:
-        out.update(flatten(value, f"{prefix}.{key}" if prefix else str(key)))
+        out.update(flatten(value, f"{prefix}.{key}" if prefix else str(key),
+                           leaf))
     return out
 
 
@@ -128,7 +141,7 @@ def save_npz(path: str, tree: Any) -> None:
 def load_npz(path: str, *, device: torch.device | str = "cpu") -> Any:
     """Read a ``.npz`` written by :func:`save_npz` (from either package's
     params) into port parameters on ``device``."""
-    with np.load(path) as data:
+    with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     return params_from_jax(unflatten(flat), device=device)
 
@@ -212,52 +225,121 @@ def train_state_to_numpy(ts: Any) -> dict:
     }
 
 
+#: The ``.npz`` entry that records which leaves are stored as bf16 bits.
+_DTYPES_KEY = "__dtypes__"
+
+
+def _encode(x) -> tuple[np.ndarray, str | None]:
+    """A leaf (tensor or numpy) as host bytes numpy can store, and the dtype
+    to record when they are not the leaf's own (bfloat16 as uint16 bits).
+    A CPU tensor's array shares its memory."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        return x.numpy(), None
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return a.view(np.uint16), "bfloat16"
+    return a, None
+
+
+def decode_leaf(a: np.ndarray, dtype: str | None) -> torch.Tensor:
+    """Inverse of :func:`_encode`, as a CPU tensor."""
+    a = a if a.flags.writeable else a.copy()
+    if dtype == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    if dtype is not None:
+        raise ValueError(f"unknown stored dtype {dtype!r}")
+    return torch.from_numpy(a)
+
+
+def train_state_leaves(ts: Any) -> dict[str, Any]:
+    """A training state (the port's, or a JAX one with numpy leaves) as
+    ``{"dotted.path": leaf}``, leaves as they are: ``params.*``,
+    ``opt_state.*`` (the first optax element's fields), ``carry.*``,
+    ``env_state.*``, ``env_steps``, ``updates`` and, for a port state,
+    ``rng`` (the generator's ``get_state()``, a CPU ``uint8`` tensor)."""
+    env = ts.env_state
+    tree = {
+        "params": ts.params,
+        "opt_state": _fields(ts.opt_state[0]),
+        "carry": ts.carry,
+        "env_state": {f: getattr(env, f) for f in _ENV_FIELDS},
+        "env_steps": ts.env_steps,
+        "updates": ts.updates,
+    }
+    flat = flatten(tree, leaf=lambda x: x)
+    if isinstance(ts.rng, torch.Generator):
+        flat["rng"] = ts.rng.get_state()
+    return flat
+
+
+def encode_train_state(leaves: dict[str, Any]
+                       ) -> tuple[dict[str, np.ndarray], dict[str, str]]:
+    """:func:`train_state_leaves`' output as host arrays, and the dtypes
+    of the leaves stored as other bits (``{"carry.k": "bfloat16"}``)."""
+    arrays, dtypes = {}, {}
+    for name, leaf in leaves.items():
+        arrays[name], dtype = _encode(leaf)
+        if dtype is not None:
+            dtypes[name] = dtype
+    return arrays, dtypes
+
+
+def _generator(device, state: np.ndarray | None, seed: int):
+    """A generator on ``device`` with the stored state, or seeded from
+    ``seed`` when none was stored. A state of another device's generator
+    raises ``RuntimeError``."""
+    generator = torch.Generator(device=device)
+    if state is None:
+        return generator.manual_seed(seed)
+    generator.set_state(torch.from_numpy(np.array(state, np.uint8)))
+    return generator
+
+
+def decode_train_state(arrays: dict[str, np.ndarray], dtypes: dict[str, str],
+                       *, device: torch.device | str = "cpu", seed: int = 0):
+    """Inverse of :func:`encode_train_state`: a port ``TrainState`` on
+    ``device``, its generator seeded from ``seed`` when none was stored."""
+    from sharetrade_tpu_torch.agents.base import TrainState
+    from sharetrade_tpu_torch.env.trading import EnvState
+
+    tensors = {k: decode_leaf(a, dtypes.get(k)).to(device)
+               for k, a in arrays.items() if k != "rng"}
+    tree = unflatten(tensors)
+    return TrainState(
+        params=tree["params"],
+        opt_state=_opt_state_from_fields(tree.get("opt_state", {}), device),
+        carry=tree["carry"],
+        env_state=EnvState(*(tree["env_state"][f] for f in _ENV_FIELDS)),
+        rng=_generator(device, arrays.get("rng"), seed),
+        env_steps=tree["env_steps"], updates=tree["updates"])
+
+
 def save_train_state_npz(path: str, ts: Any) -> None:
     """Write a training state (the port's, or a JAX one with numpy leaves)
-    as a flat ``.npz``: ``params.*``, ``opt_state.*`` (the first optax
-    element's fields), ``carry.*``, ``env_state.*``, ``env_steps``,
-    ``updates``. A bfloat16 carry leaf is stored as float32 (exactly: npz
-    has no bfloat16); the precision policy's ``cast_carry`` restores it."""
-    env = ts.env_state
-
-    def carry_leaf(x):
-        x = params_to_numpy(x)
-        return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
-
-    tree = {
-        "params": params_to_numpy(ts.params),
-        "opt_state": {k: params_to_numpy(v)
-                      for k, v in _fields(ts.opt_state[0]).items()},
-        "carry": {k: carry_leaf(v) for k, v in ts.carry.items()},
-        "env_state": {f: params_to_numpy(getattr(env, f))
-                      for f in _ENV_FIELDS},
-        "env_steps": params_to_numpy(ts.env_steps),
-        "updates": params_to_numpy(ts.updates),
-    }
-    np.savez(path, **flatten(tree))
+    as a flat ``.npz`` (:func:`train_state_leaves`' names), bf16 leaves as
+    their bits with the dtypes in the ``__dtypes__`` entry (JSON bytes)."""
+    arrays, dtypes = encode_train_state(train_state_leaves(ts))
+    arrays[_DTYPES_KEY] = np.frombuffer(json.dumps(dtypes).encode(),
+                                        np.uint8)
+    np.savez(path, **arrays)
 
 
 def load_train_state_npz(path: str, *, device: torch.device | str = "cpu",
                          seed: int = 0):
     """Read :func:`save_train_state_npz`'s file into a port
     ``TrainState``; returns None when the file holds a bare params tree
-    (:func:`save_npz`) instead."""
-    from sharetrade_tpu_torch.agents.base import TrainState
-    from sharetrade_tpu_torch.env.trading import EnvState
-
-    with np.load(path) as data:
-        tree = unflatten({k: data[k] for k in data.files})
-    if "env_steps" not in tree:
+    (:func:`save_npz`) instead. A file with no generator state (a JAX
+    state's) gives a generator seeded from ``seed``; one saved from another
+    device's generator raises ``RuntimeError``. Files written before bf16
+    bits were kept hold a float32 carry, which the precision policy's
+    ``cast_carry`` brings back."""
+    with np.load(path, allow_pickle=False) as data:
+        arrays = {k: data[k] for k in data.files}
+    if "env_steps" not in arrays:
         return None
-
-    def tensor(x):
-        return _tensor(x, device)
-
-    return TrainState(
-        params=params_from_jax(tree["params"], device=device),
-        opt_state=_opt_state_from_fields(tree.get("opt_state", {}), device),
-        carry={k: tensor(v) for k, v in tree["carry"].items()},
-        env_state=EnvState(*(tensor(tree["env_state"][f])
-                             for f in _ENV_FIELDS)),
-        rng=torch.Generator(device=device).manual_seed(seed),
-        env_steps=tensor(tree["env_steps"]), updates=tensor(tree["updates"]))
+    dtypes = json.loads(arrays.pop(_DTYPES_KEY).tobytes().decode()
+                        if _DTYPES_KEY in arrays else "{}")
+    return decode_train_state(arrays, dtypes, device=device, seed=seed)

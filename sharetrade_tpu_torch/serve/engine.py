@@ -32,8 +32,9 @@ Inference runs under ``torch.inference_mode()``.
 Not yet ported (refused when configured, see :func:`_refuse_unported`):
 per-request deadlines, ``shed_policy="oldest"``, supervised restarts, the
 warm host tier and the spill tier. Also absent: the weight-swap watcher
-(there are no checkpoints in the port yet; ``serve.swap_poll_s`` is unused),
-SLO burn gauges, exemplars, histograms and live knobs.
+(``serve.swap_poll_s`` is unused: the weights are those the engine was built
+with, ``params_step`` names their checkpoint), SLO burn gauges, exemplars,
+histograms and live knobs.
 """
 
 from __future__ import annotations
@@ -57,9 +58,6 @@ log = get_logger("serve")
 _SHUTDOWN = object()
 #: Dispatched ticks the consumer may lag behind (bounds in-flight buffers).
 _DONE_DEPTH = 4
-#: Checkpoint step of the served weights: checkpoints are not ported yet,
-#: so every response comes from the weights the engine was built with.
-PARAMS_STEP = 0
 
 
 class ServeRejected(RuntimeError):
@@ -203,7 +201,7 @@ class ServeEngine:
     """Construct, :meth:`warmup`, submit from any thread, :meth:`stop`."""
 
     def __init__(self, model: Any, cfg: ServeConfig, params: Any, *,
-                 precision: PrecisionPolicy = FP32):
+                 params_step: int = 0, precision: PrecisionPolicy = FP32):
         if cfg.max_batch < 1:
             raise ConfigError(
                 f"serve.max_batch must be >= 1, got {cfg.max_batch}")
@@ -224,6 +222,9 @@ class ServeEngine:
                               "(apply_prefill / apply_serve_batch)")
         self.model = model
         self.cfg = cfg
+        #: Update count of the checkpoint the weights came from (0: none);
+        #: every response carries it.
+        self.params_step = int(params_step)
         self.device = model.device        # params and arena live with it
         self._pin = self.device.type == "cuda"
         with torch.inference_mode():
@@ -520,7 +521,7 @@ class ServeEngine:
                     result = ServeResult(
                         session_id=req.session_id, action=int(actions[i]),
                         logits=logits[i], value=float(values[i]),
-                        params_step=PARAMS_STEP,
+                        params_step=self.params_step,
                         latency_ms=(now - req.t_enq) * 1e3, stages=stages)
                     req.result = result
                     req._event.set()

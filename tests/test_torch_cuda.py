@@ -19,6 +19,9 @@ bf16 compute copy exact; one PPO minibatch as ``chip_smoke.py`` holds the
 flagship's (``MB_FACTOR`` there): against the fp32 model, the kernel path's
 error at most twice the plain bf16 path's plus 2^-8 of the reference's
 size, and the policy term within the bound its formula gives.
+Checkpoints on the card: a CUDA generator's state and every leaf round-trip
+bit for bit, and ``save_async``'s pinned side-stream copy holds the bits of
+the state it was handed while the caller's stream updates it in place.
 """
 
 import numpy as np
@@ -397,3 +400,65 @@ def test_ppo_minibatch_through_kernels_matches_plain(cuda):
     bound = (normalize_advantages_masked(adv, w, denom).abs() * d_ratio
              * w).sum() / denom + 1e-6
     assert (got["kernel"][1] - got["plain"][1]).abs() <= bound
+
+
+def _small_cuda_agent(cuda):
+    from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.env.trading import make_trading_env
+
+    cfg = FrameworkConfig().apply_overrides([
+        "learner.algo=ppo", "model.kind=transformer", "model.seq_mode=episode",
+        "model.num_heads=2", "model.head_dim=64", "env.window=33",
+        "parallel.num_workers=8", "runtime.chunk_steps=16",
+        "precision.mode=bf16_mixed"])
+    rng = np.random.default_rng(0)
+    prices = (50 * np.exp(np.cumsum(rng.uniform(-0.02, 0.02, 120)))).astype(
+        np.float32)
+    return build_agent(cfg, make_trading_env(prices, window=33, device=cuda),
+                       device=cuda)
+
+
+def _same_bits(a, b):
+    from sharetrade_tpu_torch import convert
+    la, lb = convert.train_state_leaves(a), convert.train_state_leaves(b)
+    assert set(la) == set(lb)
+    for name in la:
+        x, y = la[name], lb[name]
+        assert x.device == y.device and x.dtype == y.dtype, name
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        assert torch.equal(x, y), name
+
+
+def test_checkpoint_round_trips_cuda_generator_bitwise(cuda, tmp_path):
+    from sharetrade_tpu_torch.checkpoint import CheckpointManager
+
+    agent = _small_cuda_agent(cuda)
+    ts, _ = agent.step(agent.init(0))
+    torch.rand(5, generator=ts.rng, device=cuda)     # move the stream on
+    mgr = CheckpointManager(str(tmp_path), precision_mode="bf16_mixed")
+    mgr.save(int(ts.updates), ts)
+    restored, _ = mgr.restore(agent.init(7))
+    assert restored.rng.device.type == "cuda"
+    assert torch.equal(restored.rng.get_state(), ts.rng.get_state())
+    _same_bits(ts, restored)
+    assert torch.equal(torch.rand(64, generator=ts.rng, device=cuda),
+                       torch.rand(64, generator=restored.rng, device=cuda))
+
+
+def test_pinned_async_save_then_restore_gives_the_same_bits(cuda, tmp_path):
+    from sharetrade_tpu_torch.checkpoint import CheckpointManager
+    from sharetrade_tpu_torch.runtime.orchestrator import _clone_state
+
+    agent = _small_cuda_agent(cuda)
+    ts, _ = agent.step(agent.init(0))
+    want = _clone_state(ts)
+    mgr = CheckpointManager(str(tmp_path), precision_mode="bf16_mixed")
+    mgr.save_async(int(ts.updates), ts)
+    agent.step(ts)          # updates params and moments in place, at once
+    assert mgr.wait_pending(timeout=60)
+    restored, _ = mgr.restore(agent.init(7))
+    _same_bits(want, restored)
+    stats = mgr.save_stats[-1]
+    assert stats["d2h_ms"] > 0 and stats["writer_ms"] > 0

@@ -2,8 +2,10 @@
 
 - Importing the port's modules in a fresh interpreter leaves ``jax`` and
   ``sharetrade_tpu`` out of ``sys.modules``.
-- A source scan of the package and ``chip_smoke.py`` finds no import of
-  ``jax`` and no reference to the JAX package's modules.
+- A source scan of the package (its ``checkpoint/`` included),
+  ``chip_smoke.py`` and ``tools/torch_*.py`` finds no import of ``jax``, ``flax``, ``optax`` or
+  ``msgpack`` (the machine with the card has none of them) and no reference
+  to the JAX package's modules.
 - Without a GPU and without ``--device cpu``, ``cli serve`` and ``cli
   train`` fail with a message that says so instead of running on the CPU.
 """
@@ -20,8 +22,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "sharetrade_tpu_torch"
 
-_JAX_IMPORT = re.compile(r"^\s*(import\s+(jax|jaxlib|flax|optax)\b|"
-                         r"from\s+(jax|jaxlib|flax|optax)\b)", re.M)
+_JAX_IMPORT = re.compile(r"^\s*(import\s+(jax|jaxlib|flax|optax|msgpack)\b|"
+                         r"from\s+(jax|jaxlib|flax|optax|msgpack)\b)", re.M)
 _JAX_PACKAGE = re.compile(r"sharetrade_tpu\.|from\s+sharetrade_tpu\s|"
                           r"import\s+sharetrade_tpu\b(?!_)")
 
@@ -34,8 +36,11 @@ def _env(**extra):
 
 
 def _sources():
-    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "tools").glob("torch_*.py")))
     assert len(files) > 10
+    assert PACKAGE / "checkpoint" / "manager.py" in files
+    assert REPO / "tools" / "torch_train_ab.py" in files
     return files
 
 
@@ -46,7 +51,8 @@ def test_import_leaves_jax_and_the_jax_package_out(tmp_path):
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'sharetrade_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
+            "'sharetrade_tpu')]\n"
             "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=tmp_path, env=_env())

@@ -6,6 +6,11 @@ chunks) trains PPO through ``python -m sharetrade_tpu_torch.cli train
 ``Orchestrator`` in process (the episode gate, the re-arm between episodes,
 GetAvg/GetStd in both their progressive and trained-only forms, the
 stashed StartTraining), and under SIGTERM (exit 75 at a chunk boundary).
+The checkpoint chain: ``train --eval`` preempted by SIGTERM (exit 75,
+``tag_preempt`` written), ``train --resume --eval`` (completes, keeps
+``tag_best``), then ``serve`` from the same directory boots from
+``tag_best`` (``params_step`` its update count); ``--resume`` with nothing
+to resume from exits 1.
 """
 
 import json
@@ -60,7 +65,8 @@ def test_cli_train_on_cpu(tmp_path):
     # On the CPU every kernel wrapper takes its plain version.
     assert set(summary["kernel_launches"].values()) == {0}
     assert "The average of the portfolios" in out.stderr
-    assert list(tmp_path.iterdir()) == []     # writes nothing around it
+    # Nothing around it but the run's checkpoints (runtime.checkpoint_dir).
+    assert [p.name for p in tmp_path.iterdir()] == ["checkpoints"]
 
 
 def test_cli_train_sigterm_exits_75(tmp_path):
@@ -81,8 +87,9 @@ def test_cli_train_sigterm_exits_75(tmp_path):
     assert proc.returncode == 75, err[-2000:]
 
 
-def _orchestrator(*extra):
-    cfg = FrameworkConfig().apply_overrides(SMALL + list(extra))
+def _orchestrator(tmp_path, *extra):
+    cfg = FrameworkConfig().apply_overrides(
+        SMALL + [f"runtime.checkpoint_dir={tmp_path / 'ckpts'}"] + list(extra))
     return Orchestrator(cfg, device="cpu")
 
 
@@ -92,8 +99,8 @@ def _prices(length):
             ).astype(np.float32)
 
 
-def test_orchestrator_episodes_rearm_and_queries():
-    orch = _orchestrator("runtime.episodes=2")
+def test_orchestrator_episodes_rearm_and_queries(tmp_path):
+    orch = _orchestrator(tmp_path, "runtime.episodes=2")
     assert orch.get_avg().state is ReplyState.NO_TRAINING_DATA
     assert orch.is_everything_done().state is ReplyState.NO_TRAINING_DATA
     orch.start_training(background=False)          # stashed until data
@@ -115,8 +122,8 @@ def test_orchestrator_episodes_rearm_and_queries():
     assert int(orch.train_state.env_state.t.max()) == 40
 
 
-def test_preempt_mid_episode_and_trained_only_not_computed():
-    orch = _orchestrator()
+def test_preempt_mid_episode_and_trained_only_not_computed(tmp_path):
+    orch = _orchestrator(tmp_path)
     orch.send_training_data(_prices(12 + 4000))
     orch.start_training(background=True)
     deadline = time.monotonic() + 120
@@ -132,11 +139,73 @@ def test_preempt_mid_episode_and_trained_only_not_computed():
 
 
 @pytest.mark.parametrize("knob", ["runtime.megachunk_factor=2",
-                                  "runtime.eval_every_updates=5",
+                                  "runtime.pipeline_depth=3",
                                   "learner.remat=true",
                                   "model.remat_blocks=true",
                                   "learner.algo=dqn"])
-def test_unported_knobs_are_refused(knob):
+def test_unported_knobs_are_refused(knob, tmp_path):
     with pytest.raises(ConfigError, match="not yet ported"):
-        orch = _orchestrator(knob)
+        orch = _orchestrator(tmp_path, knob)
         orch.send_training_data(_prices(60))
+
+
+def _serve_cmd(*extra):
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "serve",
+           "--device", "cpu", "--duration", "1", "--sessions", "8"]
+    for item in SMALL + ["serve.max_batch=4", "serve.slots=8"] + list(extra):
+        cmd += ["--set", item]
+    return cmd
+
+
+def test_cli_train_preempt_resume_then_serve_from_tag_best(tmp_path):
+    env = _env()
+    # Nothing to resume from yet: the JAX package's message, exit 1.
+    out = subprocess.run(_cmd("data.synthetic_length=44") + ["--resume"],
+                         capture_output=True, text=True, timeout=180,
+                         cwd=tmp_path, env=env)
+    assert out.returncode == 1 and "--resume:" in out.stderr
+
+    # A run of many 2-chunk episodes, preempted once the first re-arms.
+    proc = subprocess.Popen(
+        _cmd("data.synthetic_length=44", "runtime.episodes=100000")
+        + ["--eval"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=tmp_path, env=env)
+    try:
+        deadline = time.monotonic() + 120
+        for line in proc.stderr:
+            if "re-arming" in line or time.monotonic() > deadline:
+                break
+        proc.send_signal(signal.SIGTERM)
+        _out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 75, err[-2000:]
+    assert "emergency checkpoint: written" in err
+    ckpts = tmp_path / "checkpoints"
+    preempt = json.loads((ckpts / "tag_preempt" / "meta.json").read_text())
+    assert preempt["preempted"] and preempt["updates"] >= 4
+
+    out = subprocess.run(
+        _cmd("data.synthetic_length=44", "runtime.episodes=1")
+        + ["--resume", "--eval", "--eval-best"], capture_output=True,
+        text=True, timeout=180, cwd=tmp_path, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["restarts"] == 0
+    assert summary["updates"] > preempt["updates"]
+    assert np.isfinite(summary["eval_portfolio"])
+    assert np.isfinite(summary["eval_reward_sum"])
+    assert summary["best_eval_updates"] == summary["updates"]
+    best = json.loads((ckpts / "tag_best" / "meta.json").read_text())
+    assert best["updates"] == summary["updates"]
+
+    out = subprocess.run(_serve_cmd(), capture_output=True, text=True,
+                         timeout=180, cwd=tmp_path, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    assert lines[0]["event"] == "serving_ready"
+    assert lines[0]["params_step"] == best["updates"] > 0
+    assert lines[-1]["params_step"] == best["updates"]
+    assert lines[-1]["completed"] > 0 and lines[-1]["failed"] == 0

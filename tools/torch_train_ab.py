@@ -1,0 +1,196 @@
+"""What checkpoints cost the port's ``cli train`` at the flagship, on one card.
+
+    python3 tools/torch_train_ab.py --parent DIR [--pairs 3] [--repeats 3]
+
+Part 1, end to end: ``python -m sharetrade_tpu_torch.cli train`` on the
+flagship config (``chip_smoke.FLAGSHIP_TRAIN``) with the 2,249-price
+series, one 2-chunk episode, run in the checkout at ``--parent`` and in
+this one. Each tree first runs once to build its kernels (reported, not
+counted); then ``--pairs`` pairs in the order parent, this, this, parent,
+parent, this, ...; this checkout's runs each write their checkpoints into
+a fresh directory (a checkout from before checkpoints were ported refuses
+``runtime.checkpoint_dir`` and writes none). One JSON line
+per run (``elapsed_s``, ``agent_steps_per_sec``, ``avg_portfolio``), then
+the medians of each tree.
+
+Part 2, the split, in this process and this checkout: the same training
+through the ``Orchestrator``, ``--repeats`` times each with checkpoints as
+the default config writes them (a baseline ``save_async`` before chunk 0,
+then the synchronous final save) and with
+``runtime.checkpoint_every_updates=0`` (no baseline; the final save
+stays), alternating, after one warm-up run. Each run gives the baseline
+``save_async`` call's host time and its ``save_stats``, each chunk's step
+time (``chunk_seconds``: the writer of the baseline runs beside chunk 0),
+the wait for that writer before the final save, the final save's time, and
+the run's wall time. Then the medians of each setting.
+
+Needs a card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import FLAGSHIP_TRAIN  # noqa: E402
+
+CONFIG = FLAGSHIP_TRAIN + ["data.synthetic_length=2249"]
+
+
+def _print(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cli_train(tree: str, *, checkpoints: bool) -> dict:
+    """One ``cli train`` run in ``tree``: its summary line; with
+    ``checkpoints``, into a fresh checkpoint directory."""
+    with tempfile.TemporaryDirectory(prefix="train-ab-") as ckpts:
+        cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train"]
+        extra = [f"runtime.checkpoint_dir={ckpts}"] if checkpoints else []
+        for item in CONFIG + extra:
+            cmd += ["--set", item]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=tree)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"cli train in {tree} exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def part1(parent: str, pairs: int) -> dict:
+    trees = {"parent": parent, "change": ROOT}
+    for name, tree in trees.items():
+        _print({"part": 1, "warmup": name,
+                **cli_train(tree, checkpoints=name == "change")})
+    order = []
+    for i in range(pairs):
+        order += (["parent", "change"] if i % 2 == 0
+                  else ["change", "parent"])
+    runs: dict[str, list] = {"parent": [], "change": []}
+    for name in order:
+        out = cli_train(trees[name], checkpoints=name == "change")
+        runs[name].append(out)
+        _print({"part": 1, "tree": name,
+                **{k: out[k] for k in ("elapsed_s", "agent_steps_per_sec",
+                                       "avg_portfolio")}})
+    summary = {name: {key: statistics.median(r[key] for r in rows)
+                      for key in ("elapsed_s", "agent_steps_per_sec")}
+               for name, rows in runs.items()}
+    summary["order"] = order
+    return summary
+
+
+def _timed(record: list, fn):
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            record.append(time.perf_counter() - t0)
+    return wrapped
+
+
+def one_run(torch, prices, extra: list[str]) -> dict:
+    """One in-process training run with the saves' calls timed."""
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.runtime import Orchestrator
+
+    with tempfile.TemporaryDirectory(prefix="train-ab-") as ckpts:
+        cfg = FrameworkConfig().apply_overrides(
+            CONFIG + [f"runtime.checkpoint_dir={ckpts}"] + extra)
+        chunks: list = []
+        orch = Orchestrator(cfg, device="cuda",
+                            fault_hook=lambda i, row: chunks.append(
+                                row["chunk_seconds"]))
+        manager = orch.checkpoints
+        calls: dict[str, list] = {"save_async": [], "wait_pending": [],
+                                  "save": []}
+        for name, record in calls.items():
+            setattr(manager, name, _timed(record, getattr(manager, name)))
+        orch.send_training_data(prices)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orch.start_training(background=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        orch.stop()
+        return {"wall_s": wall, "chunk_s": chunks,
+                "save_async_s": calls["save_async"],
+                "wait_pending_before_final_s": calls["wait_pending"][:1],
+                "final_save_s": calls["save"],
+                "save_stats": list(manager.save_stats)}
+
+
+def part2(repeats: int) -> dict:
+    import torch
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.data.service import PriceDataService
+
+    cfg = FrameworkConfig().apply_overrides(CONFIG)
+    prices = PriceDataService(config=cfg.data).request("MSFT").series.prices
+    settings = {"baseline_save": [],
+                "no_baseline_save": ["runtime.checkpoint_every_updates=0"]}
+    _print({"part": 2, "warmup": one_run(torch, prices, [])})
+    runs: dict[str, list] = {name: [] for name in settings}
+    for _ in range(repeats):
+        for name, extra in settings.items():
+            out = one_run(torch, prices, extra)
+            runs[name].append(out)
+            _print({"part": 2, "setting": name, **out})
+
+    def med(rows, fn):
+        values = [fn(r) for r in rows]
+        values = [v for v in values if v is not None]
+        return statistics.median(values) if values else None
+
+    summary = {}
+    for name, rows in runs.items():
+        summary[name] = {
+            "wall_s": med(rows, lambda r: r["wall_s"]),
+            "chunk0_s": med(rows, lambda r: r["chunk_s"][0]),
+            "chunk1_s": med(rows, lambda r: r["chunk_s"][1]),
+            "baseline_save_async_s": med(
+                rows, lambda r: r["save_async_s"][0]
+                if r["save_async_s"] else None),
+            "baseline_writer_ms": med(
+                rows, lambda r: r["save_stats"][0].get("writer_ms")
+                if r["save_async_s"] else None),
+            "wait_pending_before_final_s": med(
+                rows, lambda r: r["wait_pending_before_final_s"][0]
+                if r["wait_pending_before_final_s"] else None),
+            "final_save_s": med(rows, lambda r: r["final_save_s"][0]),
+        }
+    return summary
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", required=True,
+                        help="a checkout of the parent commit")
+    parser.add_argument("--pairs", type=int, default=3)
+    parser.add_argument("--repeats", type=int, default=3)
+    args = parser.parse_args()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+    result = {"card": card, "part1": part1(os.path.abspath(args.parent),
+                                            args.pairs),
+              "part2": part2(args.repeats)}
+    _print(result)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
