@@ -62,6 +62,24 @@ Phases, in order (any failure exits non-zero before the final line):
                time, and, in one 4-chunk run saving every 32 updates, the
                chunk beside a save's writer against the chunks without.
 
+9. reference — the reference workload, the JAX package's defaults at full
+               width (the 203 -> 200 -> 3 Q-network, Q-learning, 10 workers,
+               200-step chunks, adagrad, the 6,046-tick series): (a) one
+               whole episode through the orchestrator, its final partial
+               chunk included, then the greedy eval; (b) one more chunk
+               split by CUDA events (selection + env, TD forward, backward,
+               update), and one under ``torch.profiler`` (the device's busy
+               share); (c) two chunks each of DQN (uniform and PER), PG and
+               A2C; (d) DQN preempted after chunk 2 and resumed, against
+               two uninterrupted runs. Counts reset before (a) and read
+               after (c): ``fused_update`` once per env step of the
+               Q-learners and once per PG/A2C update. Prints agent-steps/s,
+               chunk ms, launches per chunk, the DQN save's bytes and time.
+10. cli_defaults — ``cli train --eval`` and ``cli serve`` with no ``--set``
+               but the checkpoint directory; serve boots from train's
+               ``tag_best`` and warns once that ``serve.swap_poll_s`` is not
+               ported.
+
 Opt-in: ``profile`` (a serving device-time breakdown).
 
 Then one ``{"kernels": [...]}`` line, and last the
@@ -81,7 +99,7 @@ import time
 import numpy as np
 
 PHASES = ("build", "kernels", "train", "serve", "cli", "cli_train",
-          "resilience")
+          "resilience", "reference", "cli_defaults")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -484,18 +502,26 @@ def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
     return rows
 
 
-def _flagship_params(torch):
-    """The flagship model's parameter tree on the card (34 leaves)."""
+def _model_params(torch, model: str = "flagship"):
+    """A parameter tree on the card: the flagship's (34 leaves), the
+    reference Q-network's (``q_mlp``, 203 -> 200 -> 3: 4 leaves, 41,403
+    parameters) or the actor-critic MLP's (``ac_mlp``: 8 leaves, 81,804
+    parameters)."""
+    from sharetrade_tpu_torch.models.mlp import ac_mlp, q_mlp
     from sharetrade_tpu_torch.models.transformer_episode import (
         episode_transformer_policy)
-    model = episode_transformer_policy(203, 3, num_layers=2, num_heads=2,
-                                       head_dim=128, device="cuda")
-    return model.init(torch.Generator().manual_seed(0))
+    build = {
+        "flagship": lambda: episode_transformer_policy(
+            203, 3, num_layers=2, num_heads=2, head_dim=128, device="cuda"),
+        "q_mlp": lambda: q_mlp(203, 200, 3, parity=False, device="cuda"),
+        "ac_mlp": lambda: ac_mlp(203, 200, 3, device="cuda"),
+    }[model]
+    return build().init(torch.Generator().manual_seed(0))
 
 
 def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype,
-                       emit: bool = False) -> dict:
-    """fused_update over the flagship's leaf set against the plain per-leaf
+                       emit: bool = False, model: str = "flagship") -> dict:
+    """fused_update over a model's leaf set against the plain per-leaf
     math on the same leaves, one step from a state three steps in; with
     ``emit`` the bf16 compute copy it writes must be the exact recast of
     the new masters."""
@@ -503,7 +529,7 @@ def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype,
     from sharetrade_tpu_torch.ops import fused_update as fu
 
     gen = torch.Generator(device="cuda").manual_seed(len(name))
-    params = tree_leaves(_flagship_params(torch))
+    params = tree_leaves(_model_params(torch, model))
     grads = [(torch.randn(p.shape, generator=gen, device="cuda") * 0.05)
              .to(grad_dtype) for p in params]
     n_state = {"adagrad": 1, "adam": 2, "sgd": 0}[optimizer]
@@ -573,7 +599,7 @@ def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype,
     nbytes = n * (8 + g_bytes + 8 * n_state + (2 if emit else 0))
     flops = n * {"adagrad": 7, "adam": 16, "sgd": 2}[optimizer]
     return {"phase": "kernels", "kernel": "fused_update", "case": name,
-            "optimizer": optimizer,
+            "model": model, "optimizer": optimizer,
             "grad_dtype": str(grad_dtype).removeprefix("torch."),
             "emit_compute": emit,
             "leaves": len(params), "parameters": n,
@@ -585,6 +611,48 @@ def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype,
                 " (fused)" if optimizer == "adam" else " (foreach)"),
             **_bound(nbytes, flops, "float32"),
             "launches": launches, "ok": ok}
+
+
+def check_fused_update_gate(torch) -> dict:
+    """``fused_apply``'s gate at the reference Q-network's leaves, adam
+    (its count is the state a gate most easily forgets): a gate that is
+    off leaves params, moments and count as they were, bit for bit, and
+    writes the bf16 compute copy as the recast of the unchanged masters; a
+    gate that is on gives what the ungated update gives, bit for bit.
+    Held, not timed."""
+    from sharetrade_tpu_torch.models.core import tree_leaves
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = _model_params(torch, "q_mlp")
+    grads = [torch.randn(p.shape, generator=gen, device="cuda")
+             for p in tree_leaves(params)]
+    results = {}
+    for label, flag in (("off", False), ("on", True), ("none", None)):
+        p = {k: {n: x.clone() for n, x in v.items()}
+             for k, v in params.items()}
+        state = fu.init_state("adam", p)
+        state[0].count.fill_(3)
+        gate = (None if flag is None
+                else torch.tensor(flag, device="cuda"))
+        _, _, compute = fu.fused_apply("adam", 0.01, grads, state, p,
+                                       emit_compute=True, gate=gate)
+        torch.cuda.synchronize()
+        results[label] = (tree_leaves(p), tree_leaves(state[0].mu),
+                          tree_leaves(state[0].nu), int(state[0].count),
+                          tree_leaves(compute))
+    orig = tree_leaves(params)
+    off, on, plain = results["off"], results["on"], results["none"]
+    ok = (off[3] == 3 and on[3] == 4 and plain[3] == 4
+          and all(torch.equal(a, b) for a, b in zip(off[0], orig))
+          and all(not bool(x.any()) for x in off[1] + off[2])
+          and all(torch.equal(c, a.to(torch.bfloat16))
+                  for c, a in zip(off[4], orig))
+          and all(torch.equal(a, b) for part in (0, 1, 2, 4)
+                  for a, b in zip(on[part], plain[part])))
+    return {"phase": "kernels", "kernel": "fused_update", "case": "q_mlp_gate",
+            "model": "q_mlp", "optimizer": "adam",
+            "count_after": {k: v[3] for k, v in results.items()}, "ok": ok}
 
 
 def phase_kernels(torch) -> list[dict]:
@@ -628,6 +696,18 @@ def phase_kernels(torch) -> list[dict]:
              grad_dtype=torch.bfloat16, emit=True),
         dict(name="adam_f32", optimizer="adam", grad_dtype=torch.float32),
         dict(name="sgd_bf16", optimizer="sgd", grad_dtype=torch.bfloat16),
+        # The reference workload's shapes: the Q-network's 4 leaves (a
+        # 3-element bias among them) at every env step, and the
+        # actor-critic MLP's 8 (a 1-element bias) at every PG/A2C update;
+        # fp32 (the default) and bf16_mixed.
+        dict(name="q_mlp_adagrad_f32", optimizer="adagrad",
+             grad_dtype=torch.float32, model="q_mlp"),
+        dict(name="q_mlp_adagrad_bf16", optimizer="adagrad",
+             grad_dtype=torch.bfloat16, emit=True, model="q_mlp"),
+        dict(name="ac_mlp_adagrad_f32", optimizer="adagrad",
+             grad_dtype=torch.float32, model="ac_mlp"),
+        dict(name="ac_mlp_adagrad_bf16", optimizer="adagrad",
+             grad_dtype=torch.bfloat16, emit=True, model="ac_mlp"),
     ]
     bf16 = torch.bfloat16
     # Corners of the bf16 (wgmma + TMA) kernels, held and not timed: shorter
@@ -656,12 +736,13 @@ def phase_kernels(torch) -> list[dict]:
         rows.append(check_flash_fwd(torch, **case, timed=False))
         rows += check_flash_bwd(torch, **case, timed=False)
     rows += [check_fused_update(torch, **case) for case in update_cases]
+    rows.append(check_fused_update_gate(torch))
     return rows
 
 
 FLAGSHIP = [
     # ppo_tr_episode_b512_u1024_bf16 (benchmarks/run_all.py), served.
-    "model.kind=transformer", "model.seq_mode=episode",
+    "learner.algo=ppo", "model.kind=transformer", "model.seq_mode=episode",
     "model.num_layers=2", "model.num_heads=2", "model.head_dim=128",
     "env.window=201", "precision.mode=bf16_mixed",
     "serve.max_batch=64", "serve.slots=256",
@@ -703,7 +784,7 @@ def kernels_line(results: dict) -> dict:
         row = next(r for r in results["kernels"]
                    if r["kernel"] == name and r["case"] == KERNEL_CASE[name])
         by_path = {path: results[path]["launches"].get(name, 0)
-                   for path in ("train", "serve", "resilience")
+                   for path in ("train", "serve", "resilience", "reference")
                    if path in results}
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -1084,11 +1165,12 @@ def phase_cli_train() -> dict:
 
 def _state_diff(a, b) -> dict:
     """Largest |a - b| over the leaves of each part of two training states
-    (params, opt_state, carry, env_state), and whether the generators'
-    states are equal."""
+    (params, opt_state, carry, env_state, DQN's extras), and whether the
+    generators' states are equal."""
     from sharetrade_tpu_torch import convert
     la, lb = convert.train_state_leaves(a), convert.train_state_leaves(b)
-    out = {"params": 0.0, "opt_state": 0.0, "carry": 0.0, "env_state": 0.0}
+    out = {"params": 0.0, "opt_state": 0.0, "carry": 0.0, "env_state": 0.0,
+           "extras": 0.0}
     for name, x in la.items():
         part = name.split(".")[0]
         if part in out:
@@ -1425,6 +1507,316 @@ def phase_resilience(torch) -> dict:
     return row
 
 
+#: The reference workload: the JAX package's defaults, which are the source
+#: system (SURVEY.md): the 203 -> 200 -> 3 Q-network (q_mlp), online
+#: Q-learning, 10 workers, 200 steps per chunk, adagrad lr 0.01, window 201,
+#: the synthetic 6,046-tick MSFT series (horizon 5,845). Nothing is cut: no
+#: override.
+REFERENCE: list[str] = []
+REFERENCE_OTHERS = {
+    "dqn": ["learner.algo=dqn"],
+    "dqn_per": ["learner.algo=dqn", "learner.replay_priority=per"],
+    "pg": ["learner.algo=pg"],
+    "a2c": ["learner.algo=a2c"],
+}
+#: fused_update launches per chunk of each learner: one per env step for
+#: the Q-learners (gated, not skipped, when nothing may update), one per
+#: unroll for PG and A2C.
+REFERENCE_LAUNCHES = {"qlearn": 200, "dqn": 200, "dqn_per": 200, "pg": 1,
+                      "a2c": 1}
+#: The DQN preempt/resume check: 1,001 prices (horizon 800, four chunks),
+#: preempted after chunk 2.
+DQN_RESUME = ["learner.algo=dqn", "data.synthetic_length=1001",
+              "runtime.backoff_initial_s=0.01"]
+
+
+def _chunk_rows(torch, agent, ts, chunks: int):
+    """``chunks`` steps of ``agent`` from ``ts``: per chunk the wall ms
+    (ending in a readback of the metrics), the fused_update launches and the
+    metrics."""
+    from sharetrade_tpu_torch.ops import fused_update
+    rows = []
+    for _ in range(chunks):
+        before = fused_update.launch_counts["fused_update"]
+        t0 = time.perf_counter()
+        ts, metrics = agent.step(ts)
+        row = {k: float(v) for k, v in metrics.items()}   # syncs
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": fused_update.launch_counts["fused_update"]
+                     - before, "metrics": row})
+    return ts, rows
+
+
+def _device_busy(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the kernels' device
+    time (self time of the CUDA events), the wall time of the call, the
+    device's busy share of it, the kernel launches, and the five kernels
+    with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            stats.append((dev_us, ev.key, ev.count))
+    stats.sort(reverse=True)
+    device_ms = sum(us for us, _, _ in stats) / 1e3
+    return {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "device_kernels": sum(c for _, _, c in stats),
+            "device_top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c}
+                           for us, k, c in stats[:5]]}
+
+
+def phase_reference(torch) -> dict:
+    """The reference workload on the card; see the module docstring."""
+    import shutil
+    import tempfile
+    from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.data.service import PriceDataService
+    from sharetrade_tpu_torch.env.trading import make_trading_env
+    from sharetrade_tpu_torch.ops import fused_update
+    from sharetrade_tpu_torch.runtime import Orchestrator, Phase
+
+    base = FrameworkConfig().apply_overrides(REFERENCE)
+    prices = PriceDataService(config=base.data).request("MSFT").series.prices
+    horizon = len(prices) - base.env.window
+    workers, steps = base.parallel.num_workers, base.runtime.chunk_steps
+    root = tempfile.mkdtemp(prefix="reference-")
+    problems: list[str] = []
+    row: dict = {"phase": "reference", "prices": len(prices),
+                 "horizon": horizon, "agents": workers, "chunk_steps": steps}
+
+    # ---- the counted window: counts reset just before, read just after.
+    _reset_launch_counts()
+    # (a) one episode of the default Q-learning through the orchestrator,
+    # the final partial chunk included, then the greedy eval.
+    marks: list = []
+
+    def record(i, r):
+        marks.append((time.perf_counter(),
+                      fused_update.launch_counts["fused_update"], dict(r)))
+
+    cfg = FrameworkConfig().apply_overrides(
+        REFERENCE + [f"runtime.checkpoint_dir={os.path.join(root, 'qlearn')}"])
+    orch = Orchestrator(cfg, device="cuda", fault_hook=record)
+    orch.send_training_data(prices)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks.append((t0, fused_update.launch_counts["fused_update"], {}))
+    orch.start_training(background=False)
+    episode_s = time.perf_counter() - t0
+    chunk_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    per_chunk = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
+    losses = [m[2].get("loss") for m in marks[1:]]
+    last = marks[-1][2]
+    t0 = time.perf_counter()
+    evaluation = orch.evaluate()
+    eval_s = time.perf_counter() - t0
+    orch.stop()
+    chunks = -(-horizon // steps)
+    row["qlearn"] = {
+        "chunks": len(chunk_ms), "episode_s": episode_s,
+        "agent_steps_per_s": workers * horizon / episode_s,
+        "chunk_ms_median": statistics.median(chunk_ms),
+        "chunk_ms_first": chunk_ms[0], "chunk_ms_last": chunk_ms[-1],
+        "fused_update_per_chunk": sorted(set(per_chunk)),
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "env_steps": last.get("env_steps"), "updates": last.get("updates"),
+        "avg_portfolio": last.get("portfolio_mean"),
+        "std_portfolio": last.get("portfolio_std"),
+        "eval": evaluation, "eval_s": eval_s}
+    if orch.lifecycle.phase is not Phase.COMPLETED:
+        problems.append(f"qlearn: ended {orch.lifecycle.phase.value} "
+                        f"({orch.last_error!r})")
+    if len(chunk_ms) != chunks or last.get("env_steps") != horizon \
+            or last.get("updates") != horizon:
+        problems.append(f"qlearn: {len(chunk_ms)} chunks, env_steps "
+                        f"{last.get('env_steps')}, updates "
+                        f"{last.get('updates')}; expected {chunks} chunks "
+                        f"and {horizon} steps")
+    if set(per_chunk) != {REFERENCE_LAUNCHES["qlearn"]}:
+        problems.append(f"qlearn: fused_update launches per chunk {per_chunk}")
+    if not (row["qlearn"]["losses_finite"]
+            and np.isfinite(evaluation["eval_portfolio"])):
+        problems.append("qlearn: a non-finite loss or eval_portfolio")
+
+    # One more chunk split by CUDA events: per step the selection forward
+    # and env step, the TD forward, the backward and the update.
+    agent = orch.agent
+    ts = agent.init(cfg.seed)
+    ts, _ = agent.step(ts)
+    events: list = []
+
+    def marker(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((label, ev))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marker("start")
+    ts, metrics = agent.step(ts, marker=marker)
+    float(metrics["loss"])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    breakdown: dict = {}
+    for (_, a), (label, b) in zip(events, events[1:]):
+        breakdown[label] = breakdown.get(label, 0.0) + a.elapsed_time(b)
+    total = sum(breakdown.values())
+    row["qlearn_breakdown"] = {
+        "chunk_ms": wall_ms, "events_ms": total, "ms": breakdown,
+        "share": {k: v / total for k, v in breakdown.items()},
+        "agent_steps_per_s": workers * steps / wall_ms * 1e3,
+        **_device_busy(torch, lambda: float(agent.step(ts)[1]["loss"]))}
+
+    # (b) two chunks of each other learner, the second one timed.
+    for name, extra in REFERENCE_OTHERS.items():
+        c = FrameworkConfig().apply_overrides(REFERENCE + extra)
+        env = make_trading_env(prices, window=c.env.window, device="cuda")
+        learner = build_agent(c, env, device="cuda")
+        _, rows = _chunk_rows(torch, learner, learner.init(c.seed), 2)
+        m = rows[-1]["metrics"]
+        row[name] = {
+            "chunk_ms": [r["ms"] for r in rows],
+            "agent_steps_per_s": workers * steps / rows[-1]["ms"] * 1e3,
+            "fused_update_per_chunk": [r["launches"] for r in rows],
+            "loss": m["loss"], "env_steps": m["env_steps"],
+            "updates": m["updates"],
+            **{k: m[k] for k in ("replay_size", "per_max_priority")
+               if k in m}}
+        if any(r["launches"] != REFERENCE_LAUNCHES[name] for r in rows):
+            problems.append(f"{name}: fused_update launches per chunk "
+                            f"{[r['launches'] for r in rows]}")
+        if not all(np.isfinite(list(r["metrics"].values())).all()
+                   for r in rows):
+            problems.append(f"{name}: non-finite chunk metrics")
+        del learner, env
+    torch.cuda.synchronize()
+    row["launches"] = _all_launch_counts()
+    # ---- end of the counted window.
+
+    # (c) DQN preempted after chunk 2 and resumed from tag_preempt, against
+    # two uninterrupted runs (their difference is the floor).
+    def dqn_run(name, hook=None, resume=False):
+        c = FrameworkConfig().apply_overrides(
+            REFERENCE + DQN_RESUME
+            + [f"runtime.checkpoint_dir={os.path.join(root, name)}"])
+        series = PriceDataService(config=c.data).request(
+            "MSFT").series.prices
+        o = Orchestrator(c, device="cuda",
+                         fault_hook=None if hook is None
+                         else lambda i, r: hook(o, i, r))
+        o.send_training_data(series, resume=resume)
+        o.start_training(background=False)
+        o.stop()
+        torch.cuda.synchronize()
+        return o
+
+    save_s: list = []
+
+    def preempt(o, i, r):
+        if i == 1:
+            save_tagged = o.checkpoints.save_tagged
+
+            def timed(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return save_tagged(*args, **kwargs)
+                finally:
+                    save_s.append(time.perf_counter() - t)
+
+            o.checkpoints.save_tagged = timed
+            o.request_preempt()
+
+    u1, u2 = dqn_run("u1"), dqn_run("u2")
+    floor = _state_diff(u1.train_state, u2.train_state)
+    p1 = dqn_run("p", hook=preempt)
+    p2 = dqn_run("p", resume=True)
+    diff = _state_diff(u1.train_state, p2.train_state)
+    state_npz = os.path.join(root, "p", "tag_preempt", "state.npz")
+    row["dqn_resume"] = {
+        "floor": floor, "diff": diff, "preempted": p1.preempted,
+        "chunks_after_resume": p2.chunks,
+        "save_bytes": (os.path.getsize(state_npz)
+                       if os.path.exists(state_npz) else None),
+        "save_s": save_s}
+    for o, name in ((u1, "u1"), (u2, "u2"), (p2, "p2")):
+        if o.lifecycle.phase is not Phase.COMPLETED:
+            problems.append(f"dqn {name}: ended {o.lifecycle.phase.value} "
+                            f"({o.last_error!r})")
+    if not (p1.preempted and p1.preempt_saved):
+        problems.append("dqn: the preempted run wrote no tag_preempt")
+    if diff["max"] > floor["max"] or (floor["rng_equal"]
+                                      and not diff["rng_equal"]):
+        problems.append(f"dqn: the resumed run differs from the "
+                        f"uninterrupted one by {diff['max']} (floor "
+                        f"{floor['max']})")
+    shutil.rmtree(root, ignore_errors=True)
+    row["problems"] = problems
+    return row
+
+
+def phase_cli_defaults() -> dict:
+    """``cli train --eval`` and then ``cli serve`` as a user runs them, at
+    the JAX package's defaults (the reference workload), with no ``--set``
+    but the checkpoint directory: serve boots from train's ``tag_best``."""
+    import tempfile
+    row: dict = {"phase": "cli_defaults"}
+    with tempfile.TemporaryDirectory(prefix="cli-defaults-") as ckpts:
+        where = ["--set", f"runtime.checkpoint_dir={ckpts}"]
+        t0 = time.perf_counter()
+        train = subprocess.run(
+            [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train",
+             "--eval"] + where, capture_output=True, text=True, timeout=600,
+            cwd=_ROOT)
+        row["train_seconds"] = time.perf_counter() - t0
+        lines = [ln for ln in train.stdout.splitlines() if ln.startswith("{")]
+        summary = json.loads(lines[-1]) if lines else {}
+        best_path = os.path.join(ckpts, "tag_best", "meta.json")
+        best = (json.load(open(best_path)) if os.path.exists(best_path)
+                else {})
+        t0 = time.perf_counter()
+        serve = subprocess.run(
+            [sys.executable, "-m", "sharetrade_tpu_torch.cli", "serve",
+             "--duration", "3"] + where, capture_output=True, text=True,
+            timeout=300, cwd=_ROOT)
+        row["serve_seconds"] = time.perf_counter() - t0
+    served = [json.loads(ln) for ln in serve.stdout.splitlines()
+              if ln.startswith("{")]
+    row.update(train_rc=train.returncode, train_summary=summary,
+               serve_rc=serve.returncode,
+               serving_ready=served[0] if served else None,
+               serve_summary=served[-1] if served else None,
+               swap_warnings=serve.stderr.count("serve.swap_poll_s"))
+    ok = (train.returncode == 0 and serve.returncode == 0 and len(served) >= 2
+          and set(summary) >= {"avg_portfolio", "std_portfolio", "env_steps",
+                               "agent_steps_per_sec", "restarts"}
+          and np.isfinite(summary.get("avg_portfolio", float("nan")))
+          and np.isfinite(summary.get("eval_portfolio", float("nan")))
+          and summary.get("kernel_launches", {}).get("fused_update", 0) > 0
+          and best.get("updates")
+          and served[0].get("params_step") == best["updates"]
+          and served[0].get("model") == "q_mlp"
+          and served[-1].get("completed", 0) > 0
+          and served[-1].get("failed", 1) == 0
+          and row["swap_warnings"] == 1)
+    row["ok"] = bool(ok)
+    if not ok:
+        row["stderr_tail"] = train.stderr[-1500:] + serve.stderr[-1500:]
+    return row
+
+
 def phase_profile(torch, *, ticks: int = 20) -> dict:
     """Where a serving tick's device time goes, at the flagship width: the
     cold program (prefill of a full 64-row batch) and the warm program
@@ -1556,10 +1948,24 @@ def main(argv=None) -> int:
             print(f"chip_smoke: resilience failed: "
                   f"{results['resilience']['problems']}", file=sys.stderr)
             return 1
+    if "reference" in phases:
+        results["reference"] = phase_reference(torch)
+        _print(results["reference"])
+        if results["reference"]["problems"]:
+            print(f"chip_smoke: reference workload failed: "
+                  f"{results['reference']['problems']}", file=sys.stderr)
+            return 1
+    if "cli_defaults" in phases:
+        row = phase_cli_defaults()
+        _print(row)
+        if not row["ok"]:
+            print("chip_smoke: cli train / serve at the defaults failed",
+                  file=sys.stderr)
+            return 1
     if "profile" in phases:
         _print(phase_profile(torch))
-    if "kernels" in phases and {"serve", "train", "resilience"} & set(
-            phases):
+    if "kernels" in phases and {"serve", "train", "resilience",
+                                "reference"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,8 +26,10 @@ from sharetrade_tpu_torch.precision import FP32, PrecisionPolicy
 @dataclass
 class TrainState:
     """Everything a learner threads between chunks: parameters, optimizer
-    state, the batched model carry and env state, the random generator and
-    the counters (``env_steps``, ``updates``: int32 device scalars)."""
+    state, the batched model carry and env state, the random generator, the
+    counters (``env_steps``, ``updates``: int32 device scalars) and the
+    learner's own state (``extras``: DQN's target network, replay and
+    sum-tree, ``agents/dqn.py``; None for every other learner)."""
 
     params: Any
     opt_state: Any
@@ -36,6 +38,7 @@ class TrainState:
     rng: torch.Generator
     env_steps: torch.Tensor
     updates: torch.Tensor
+    extras: Any = None
 
     def replace(self, **changes) -> "TrainState":
         return replace(self, **changes)
@@ -92,19 +95,83 @@ def make_update_fn(optimizer: Optimizer, precision: PrecisionPolicy = FP32):
     pins the optax pair and the fused pass bit-identical in fp32
     (tests/test_precision.py), and the port has no optax. The update is IN
     PLACE: the master parameters and the moments are written where they
-    were read, and the same objects are returned."""
+    were read, and the same objects are returned. ``gate``, a one-element
+    device tensor, keeps everything as it was where it is false: the JAX
+    learners' ``where(any_active, new, old)`` over params and optimizer
+    state, without a host synchronisation."""
     name, lr = optimizer.name, optimizer.learning_rate
 
     if precision.mixed:
-        def update(grads, opt_state, params):
+        def update(grads, opt_state, params, gate=None):
             return fused_apply(name, lr, grads, opt_state, params,
-                               emit_compute=True)
+                               emit_compute=True, gate=gate)
     else:
-        def update(grads, opt_state, params):
-            params, opt_state = fused_apply(name, lr, grads, opt_state, params)
+        def update(grads, opt_state, params, gate=None):
+            params, opt_state = fused_apply(name, lr, grads, opt_state, params,
+                                            gate=gate)
             return params, opt_state, params
 
     return update
+
+
+def exploit_probability(step: torch.Tensor, cfg: LearnerConfig
+                        ) -> torch.Tensor:
+    """P(exploit) = min(epsilon, step / ramp): fully random at step 0,
+    ramping to epsilon-greedy (QDecisionPolicyActor.scala:58)."""
+    return torch.clamp(step.float() / cfg.epsilon_ramp_steps,
+                       max=float(cfg.epsilon))
+
+
+def per_beta(step: torch.Tensor, cfg: LearnerConfig) -> torch.Tensor:
+    """Prioritized replay's importance-sampling exponent: annealed from
+    ``per_beta0`` to 1 over ``per_beta_steps`` env steps."""
+    frac = step.float() / max(1, cfg.per_beta_steps)
+    return torch.clamp(cfg.per_beta0 + (1.0 - cfg.per_beta0) * frac, max=1.0)
+
+
+def epsilon_greedy(q_values: torch.Tensor, gate_u: torch.Tensor,
+                   random_action: torch.Tensor, step: torch.Tensor,
+                   cfg: LearnerConfig) -> torch.Tensor:
+    """(B, A) Q-values -> (B,) actions (QDecisionPolicyActor.scala:58-62):
+    the argmax (the first index among ties, as ``jnp.argmax``) where the
+    uniform ``gate_u`` is below the exploit probability, else
+    ``random_action``. The JAX package draws both per agent from its key;
+    here they come in as (B,) tensors (the learner's chunk draws)."""
+    exploit = gate_u < exploit_probability(step, cfg)
+    return torch.where(exploit, torch.argmax(q_values, dim=-1), random_action)
+
+
+def select_rows(mask: torch.Tensor, new, old):
+    """``where(mask, new, old)`` over two env states (or any objects with
+    ``leaves()``), the (B,) mask broadcast over each field."""
+    return type(old)(*[
+        torch.where(mask.reshape((-1,) + (1,) * (o.ndim - 1)), n, o)
+        for n, o in zip(new.leaves(), old.leaves())])
+
+
+def make_init(model, env: TradingEnv, optimizer: Optimizer,
+              precision: PrecisionPolicy, num_agents: int,
+              extras: Callable[[Any], Any] | None = None):
+    """A learner's ``init(seed) -> TrainState``: parameters drawn on the
+    CPU from ``seed`` (the same weights on every device), the optimizer's
+    initial state, the reset env and carry broadcast over the agents, a
+    generator on the model's device for the step's draws, and
+    ``extras(params)`` when the learner keeps state of its own."""
+    device = model.device
+
+    def init(seed: int) -> TrainState:
+        params = model.init(torch.Generator().manual_seed(seed))
+        return TrainState(
+            params=params, opt_state=optimizer.init(params),
+            carry=precision.cast_carry(batched_carry(model, num_agents),
+                                       model),
+            env_state=batched_reset(env, num_agents),
+            rng=torch.Generator(device=device).manual_seed(seed + 1),
+            env_steps=torch.zeros((), dtype=torch.int32, device=device),
+            updates=torch.zeros((), dtype=torch.int32, device=device),
+            extras=None if extras is None else extras(params))
+
+    return init
 
 
 def batched_reset(env: TradingEnv, num_agents: int):

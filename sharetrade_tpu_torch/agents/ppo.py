@@ -32,8 +32,8 @@ from typing import NamedTuple
 import torch
 
 from sharetrade_tpu_torch.agents.base import (
-    Agent, TrainState, batched_carry, batched_reset, build_optimizer,
-    make_update_fn, portfolio_metrics)
+    Agent, TrainState, build_optimizer, make_init, make_update_fn,
+    portfolio_metrics)
 from sharetrade_tpu_torch.agents.rollout import (
     collect_rollout, gae_advantages, normalize_advantages_masked,
     replay_forward)
@@ -77,20 +77,7 @@ def make_ppo_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
     mb_size = num_agents // n_mb
     device = model.device
 
-    def init(seed: int) -> TrainState:
-        """Seeded fresh state: parameters drawn on the CPU from ``seed``
-        (the same weights on every device), the optimizer's initial state,
-        the reset env and carry broadcast over the agents, and a generator
-        on the model's device for the step's draws."""
-        params = model.init(torch.Generator().manual_seed(seed))
-        rng = torch.Generator(device=device).manual_seed(seed + 1)
-        return TrainState(
-            params=params, opt_state=optimizer.init(params),
-            carry=precision.cast_carry(batched_carry(model, num_agents),
-                                       model),
-            env_state=batched_reset(env, num_agents), rng=rng,
-            env_steps=torch.zeros((), dtype=torch.int32, device=device),
-            updates=torch.zeros((), dtype=torch.int32, device=device))
+    init = make_init(model, env, optimizer, precision, num_agents)
 
     def minibatch_loss(params, traj_mb, carry_mb, adv_mb, ret_mb):
         logits, values, aux = replay_forward(model, params, traj_mb, carry_mb)

@@ -1,10 +1,12 @@
-"""On-policy rollout collection, replay and advantages for PPO.
+"""On-policy rollout collection, replay and advantages for PG, A2C and PPO.
 
 Counterpart of the JAX package's ``agents/rollout.py``: the precomputed-
 trunk rollout (the whole unroll's banded trunk in one pass for one
 representative agent, then a sequential loop of the small per-step head and
-env transition), the differentiable replay of the stored trajectory, GAE and
-the masked advantage normalisation.
+env transition), the generic per-step rollout for models without that pair
+(the MLPs: one batched forward and one env step per step), the
+differentiable replay of the stored trajectory, returns-to-go, GAE and the
+masked advantage normalisation.
 
 The sequential loop is a Python loop of small tensor ops over the agent
 batch. It never synchronises with the host: no ``.item()``, no Python
@@ -13,11 +15,11 @@ Trajectories are written into preallocated ``(T, B, ...)`` tensors. Making
 the loop one CUDA graph or one kernel is later work.
 
 :func:`greedy_rollout_precomputed` is the greedy evaluation's replay: one
-agent, argmax actions, the whole episode's trunk in one banded pass.
+agent, argmax actions, the whole episode's trunk in one banded pass;
+:func:`greedy_rollout` the same for the other models, step by step.
 
-Not yet ported: the generic per-step rollout (``collect_rollout`` raises
-for models without the precomputed-trunk pair), the folded stateless
-replay and the scanned recurrent replay.
+Not yet ported: the scanned replay of recurrent models without a banded
+replay (``replay_forward`` raises for them; no such model is ported).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from sharetrade_tpu_torch.agents.base import TrainState, election_health
+from sharetrade_tpu_torch.agents.base import (
+    TrainState, election_health, quarantine_mask, select_rows)
 from sharetrade_tpu_torch.config import ConfigError
 from sharetrade_tpu_torch.env.core import TradingEnv
 from sharetrade_tpu_torch.models.core import Model
@@ -73,14 +76,74 @@ def collect_rollout(model: Model, env: TradingEnv, ts: TrainState,
     ``ts.rng`` (the tests hand in the JAX package's draws). ``marker``,
     when given, is called with ``"trunk"`` and ``"rollout_loop"`` as each
     part is enqueued (``chip_smoke.py`` records a CUDA event there)."""
-    if not supports_precomputed_trunk(model, env):
-        raise ConfigError(
-            f"the generic per-step rollout ({model.name}) is not yet ported "
-            "to sharetrade_tpu_torch; only models with the precomputed-trunk "
-            "pair (the episode transformer) train")
-    return _collect_rollout_precomputed(model, env, ts, unroll_len,
-                                        num_agents, params=params,
-                                        gumbel=gumbel, marker=marker)
+    if supports_precomputed_trunk(model, env):
+        return _collect_rollout_precomputed(model, env, ts, unroll_len,
+                                            num_agents, params=params,
+                                            gumbel=gumbel, marker=marker)
+    return _collect_rollout_generic(model, env, ts, unroll_len, num_agents,
+                                    params=params, gumbel=gumbel,
+                                    marker=marker)
+
+
+def _collect_rollout_generic(model: Model, env: TradingEnv, ts: TrainState,
+                             unroll_len: int, num_agents: int, params=None,
+                             gumbel: torch.Tensor | None = None, marker=None):
+    """The per-step rollout: each step observes every agent, runs one
+    batched forward (``model.apply_batch``), samples ``argmax(logits + g)``
+    (a categorical draw, as ``jax.random.categorical`` makes it) and steps
+    the env. A row whose observation or env state is not finite is zeroed
+    and masked inactive (``quarantine_mask``), as is a row past the
+    horizon."""
+    params = ts.params if params is None else params
+    horizon = env.num_steps
+    init_carry = ts.carry
+    device = ts.env_state.t.device
+    b = num_agents
+    with torch.no_grad():
+        if gumbel is None:
+            gumbel = gumbel_noise((unroll_len, b, model.num_actions), ts.rng,
+                                  device)
+        obs = torch.empty((unroll_len, b, model.obs_dim), dtype=torch.float32,
+                          device=device)
+        action = torch.empty((unroll_len, b), dtype=torch.int64,
+                             device=device)
+        logp = torch.empty((unroll_len, b), dtype=torch.float32,
+                           device=device)
+        value = torch.empty_like(logp)
+        reward = torch.empty_like(logp)
+        active = torch.empty_like(logp)
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        env_state, carry = ts.env_state, ts.carry
+        for i in range(unroll_len):
+            obs_raw = env.observe(env_state)
+            healthy = quarantine_mask(obs_raw, env_state)
+            mask = (env_state.t < horizon) & healthy
+            obs_i = torch.where(healthy[:, None], obs_raw, zero, out=obs[i])
+            out, carry = model.apply_batch(params, obs_i, carry)
+            a = torch.argmax(out.logits + gumbel[i], dim=-1)
+            logp[i] = torch.log_softmax(out.logits, dim=-1).gather(
+                -1, a[:, None])[:, 0]
+            value[i] = out.value
+            stepped, r = env.step(env_state, a)
+            env_state = select_rows(mask, stepped, env_state)
+            # where(), not *: a quarantined row's reward is NaN.
+            reward[i] = torch.where(mask, r, zero)
+            action[i] = a
+            active[i] = mask.float()
+        final_raw = env.observe(env_state)
+        final_fine = quarantine_mask(final_raw, env_state)
+        final_out, _ = model.apply_batch(
+            params, torch.where(final_fine[:, None], final_raw, zero), carry)
+        bootstrap = final_out.value * (
+            (env_state.t < horizon) & final_fine).float()
+        steps_taken = (active > 0).any(dim=1).sum().to(torch.int32)
+        if marker is not None:
+            marker("rollout_loop")
+    traj = StepData(obs=obs, action=action, logp=logp, value=value,
+                    reward=reward, active=active)
+    new_ts = ts.replace(env_state=env_state, carry=carry,
+                        env_steps=ts.env_steps + steps_taken)
+    return new_ts, traj, bootstrap, init_carry
 
 
 def _trunk_precompute(model: Model, env: TradingEnv, params, state1, carry1,
@@ -181,9 +244,7 @@ def _collect_rollout_precomputed(model: Model, env: TradingEnv,
                 a, log_probs.shape[-1])).sum(dim=-1)
             stepped, r = env.step_priced(env_state, a, trade_prices[i])
             mask = act.bool()
-            env_state = type(env_state)(*[
-                torch.where(mask, new, old)
-                for new, old in zip(stepped.leaves(), env_state.leaves())])
+            env_state = select_rows(mask, stepped, env_state)
             reward[i] = torch.where(mask, r, zero)
             action[i] = a
             active[i] = act
@@ -232,17 +293,58 @@ def greedy_rollout_precomputed(model: Model, env: TradingEnv, params,
     return state, rewards
 
 
+def greedy_rollout(model: Model, env: TradingEnv, params, carry0,
+                   *, horizon: int | None = None):
+    """Greedy (argmax) single-agent episode replay, one batched forward of
+    one row and one env step per step: the ``evaluate()`` path for models
+    without the precomputed trunk (the JAX orchestrator's ``greedy_scan``).
+    ``carry0`` is one session's initial carry in the compute dtype. Returns
+    ``(final_env_state, rewards (T,))``; the state is batch-of-1."""
+    horizon = env.num_steps if horizon is None else horizon
+    with torch.no_grad():
+        state = env.reset().map(lambda x: x[None])
+        carry = {k: v[None] for k, v in carry0.items()}
+        rewards = torch.empty((horizon,), dtype=torch.float32,
+                              device=state.t.device)
+        for i in range(horizon):
+            out, carry = model.apply_batch(params, env.observe(state), carry)
+            state, reward = env.step(state, torch.argmax(out.logits, dim=-1))
+            rewards[i] = reward[0]
+    return state, rewards
+
+
 def replay_forward(model: Model, params: Any, traj: StepData, init_carry):
     """Recompute ``(logits (T, B, A), values (T, B), aux)`` along a stored
     trajectory under ``params`` — the differentiable forward of the loss:
     the shared-trunk replay when the model has it, else the per-agent
-    banded replay."""
+    banded replay, else (a stateless model) one batched forward over all
+    T x B rows (the JAX package folds them into groups of at most 1,024
+    rows; every row's forward is independent, so one pass computes the
+    same)."""
     if model.apply_unroll_shared is not None:
         return model.apply_unroll_shared(params, traj.obs, init_carry)
     if model.apply_unroll is not None:
         return model.apply_unroll(params, traj.obs, init_carry)
-    raise ConfigError(f"replay of {model.name} (folded or scanned) is not "
-                      "yet ported to sharetrade_tpu_torch")
+    if model.apply_batch is not None and not init_carry:
+        t, b = traj.obs.shape[:2]
+        out, _ = model.apply_batch(params, traj.obs.reshape(t * b, -1),
+                                   init_carry)
+        return (out.logits.reshape(t, b, -1), out.value.reshape(t, b),
+                torch.zeros((), dtype=torch.float32, device=traj.obs.device))
+    raise ConfigError(f"the scanned replay of {model.name} is not yet ported "
+                      "to sharetrade_tpu_torch")
+
+
+def discounted_returns(rewards: torch.Tensor, active: torch.Tensor,
+                       bootstrap: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Returns-to-go ``R_t = r_t + gamma R_{t+1} live_t`` over (T, B),
+    seeded with the bootstrap value, as a reverse loop over time."""
+    returns = torch.empty_like(rewards)
+    r_next = bootstrap
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        r_next = torch.add(rewards[t], gamma * r_next * active[t],
+                           out=returns[t])
+    return returns
 
 
 def normalize_advantages_masked(adv: torch.Tensor, weight: torch.Tensor,

@@ -9,5 +9,7 @@ from sharetrade_tpu_torch.checkpoint.manager import (  # noqa: F401
     CheckpointCorruptError,
     CheckpointIntegrityError,
     CheckpointManager,
+    ForeignCheckpointError,
+    is_foreign,
     verify_checkpoint_files,
 )

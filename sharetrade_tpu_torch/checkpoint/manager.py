@@ -22,6 +22,14 @@ and the parent are fsynced around the rename, so a checkpoint that looks
 complete is complete. ``meta.json`` holds a SHA-256 of the payload and one
 of its own canonical bytes, so torn or flipped bytes are found at restore.
 
+Foreign directories: a ``ckpt_*`` or ``tag_*`` directory with no
+``state.npz`` that holds a ``state.msgpack`` (or whose meta names one) was
+written by the JAX package. The port lists, walks into, quarantines,
+prunes and overwrites none of them; asked for one by step or by tag it
+raises :class:`ForeignCheckpointError`. The two packages still want
+separate ``runtime.checkpoint_dir`` values: the JAX manager quarantines the
+port's directories as its own kind of damage.
+
 Restore protocol: every candidate is verified (checksums, a match with the
 caller's template — names, shapes, dtypes, the generator's state size — and
 finite params and optimizer state) before it is accepted. A damaged one is
@@ -74,6 +82,8 @@ _PREFIX = "ckpt_"
 _CORRUPT_PREFIX = "corrupt_"
 _STATE = "state.npz"
 _META = "meta.json"
+#: The JAX package's payload: a directory holding it is foreign.
+_FOREIGN_STATE = "state.msgpack"
 #: Leaves the shared-state finiteness check covers (every agent row
 #: depends on them; env rows and carries may hold a quarantined row's NaN).
 _SHARED = ("params.", "opt_state.")
@@ -86,6 +96,39 @@ class CheckpointIntegrityError(RuntimeError):
     def __init__(self, reason: str, detail: str):
         super().__init__(f"{reason}: {detail}")
         self.reason = reason
+
+
+class ForeignCheckpointError(ValueError):
+    """The checkpoint directory was written by the JAX package (its payload
+    is ``state.msgpack``, not ``state.npz``). The port never reads, renames,
+    prunes or overwrites such a directory; asked for one by step or tag, it
+    raises this, a ``ValueError`` like a template mismatch."""
+
+
+def is_foreign(path: str) -> bool:
+    """A checkpoint dir with no ``state.npz`` that holds a
+    ``state.msgpack`` or whose ``meta.json`` integrity block names one: the
+    JAX package's layout."""
+    if os.path.isfile(os.path.join(path, _STATE)):
+        return False
+    if os.path.isfile(os.path.join(path, _FOREIGN_STATE)):
+        return True
+    try:
+        with open(os.path.join(path, _META)) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return False
+    integrity = meta.get("integrity") if isinstance(meta, dict) else None
+    return isinstance(integrity, dict) and _FOREIGN_STATE in integrity
+
+
+def _refuse_foreign(path: str) -> None:
+    if is_foreign(path):
+        raise ForeignCheckpointError(
+            f"{path} is a checkpoint of the JAX package (state.msgpack); "
+            "this package reads and writes only its own state.npz "
+            "checkpoints: give the two packages separate "
+            "runtime.checkpoint_dir values")
 
 
 class CheckpointCorruptError(FileNotFoundError):
@@ -262,9 +305,9 @@ class CheckpointManager:
                 pid = int(name.rsplit("-", 1)[-1])
             except ValueError:
                 continue
-            if pid == os.getpid() or _pid_alive(pid):
-                continue
             full = os.path.join(self.directory, name)
+            if pid == os.getpid() or _pid_alive(pid) or is_foreign(full):
+                continue
             if self._recover_tmp(full, name) == "debris":
                 shutil.rmtree(full, ignore_errors=True)
                 log.info("swept stale checkpoint tmp dir %s (pid %d dead)",
@@ -334,7 +377,9 @@ class CheckpointManager:
     def _publish(self, tmp: str, final: str) -> None:
         """Atomically publish a staged tmp dir under ``final`` (a same-step
         re-save replaces the old copy; a crash between the two leaves the
-        staged dir for :meth:`_recover_tmp`)."""
+        staged dir for :meth:`_recover_tmp`). A foreign dir under ``final``
+        is refused, never replaced."""
+        _refuse_foreign(final)
         if os.path.isdir(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
@@ -374,6 +419,7 @@ class CheckpointManager:
         meta = self._meta({"tag": tag}, metadata, dtypes)
         tmp = os.path.join(self.directory, f"tmp-{tag}-{os.getpid()}")
         final = os.path.join(self.directory, f"tag_{tag}")
+        _refuse_foreign(final)
         size = self._write_payload_tmp(tmp, arrays, meta)
         if os.path.isdir(final):
             old = final + ".old"
@@ -583,12 +629,15 @@ class CheckpointManager:
     # ---- restore ----
 
     def steps(self) -> list[int]:
-        """Every ``ckpt_<step>`` directory, intact or not (so the walk-back
-        can find, quarantine and step over damaged ones)."""
+        """Every ``ckpt_<step>`` directory of this package, intact or not
+        (so the walk-back can find, quarantine and step over damaged ones);
+        foreign (JAX) ones are left out, so nothing walks into, quarantines
+        or prunes them."""
         out = []
         for name in os.listdir(self.directory):
-            if name.startswith(_PREFIX) and os.path.isdir(
-                    os.path.join(self.directory, name)):
+            path = os.path.join(self.directory, name)
+            if (name.startswith(_PREFIX) and os.path.isdir(path)
+                    and not is_foreign(path)):
                 try:
                     out.append(int(name[len(_PREFIX):]))
                 except ValueError:
@@ -628,6 +677,7 @@ class CheckpointManager:
             if not os.path.isdir(path):
                 raise FileNotFoundError(f"no checkpoint step={s} under "
                                         f"{self.directory}")
+            _refuse_foreign(path)
             t0 = time.perf_counter()
             try:
                 state, meta = self._load_verified(path, template)
@@ -665,6 +715,8 @@ class CheckpointManager:
         if not candidates:
             raise FileNotFoundError(
                 f"no {tag!r}-tagged checkpoint under {self.directory}")
+        _refuse_foreign(candidates[0])
+        candidates = [p for p in candidates if not is_foreign(p)]
         for path in candidates:
             try:
                 state, meta = self._load_verified(path, template)
@@ -683,8 +735,11 @@ class CheckpointManager:
 
     def tagged_metadata(self, tag: str) -> dict[str, Any] | None:
         """Metadata of a tagged checkpoint, or None if absent or garbled;
-        unverified (a hint: :meth:`restore_tagged` verifies)."""
+        unverified (a hint: :meth:`restore_tagged` verifies); None for a
+        foreign (JAX) tag."""
         for name in (f"tag_{tag}", f"tag_{tag}.old"):
+            if is_foreign(os.path.join(self.directory, name)):
+                continue
             path = os.path.join(self.directory, name, _META)
             if os.path.isfile(path):
                 try:
@@ -708,8 +763,8 @@ class CheckpointManager:
             log.debug("pruned checkpoint step=%d", old)
         # Tmp dirs whose pid could not be parsed are collected by age.
         for name in os.listdir(self.directory):
-            if name.startswith("tmp-"):
-                full = os.path.join(self.directory, name)
+            full = os.path.join(self.directory, name)
+            if name.startswith("tmp-") and not is_foreign(full):
                 try:
                     stale = time.time() - os.path.getmtime(full) > 3600
                 except OSError:

@@ -27,7 +27,9 @@ alone (then the optimizer state starts fresh). SIGTERM/SIGINT stops at the
 next chunk boundary, writes ``tag_preempt`` and exits 75.
 
 ``serve`` runs the continuous-batching engine (serve/engine.py) on the
-configured model under synthetic closed-loop session load
+model the configured learner trains (``learner.algo`` picks the Q-head or
+the actor-critic heads, as in the JAX package) under synthetic closed-loop
+session load
 (serve/driver.py), as the JAX package's ``cli serve`` does: a
 ``serving_ready`` JSON line once the engine is warm, then one summary JSON
 line. Weights come from ``--params``, an ``.npz`` of a params tree
@@ -35,8 +37,12 @@ line. Weights come from ``--params``, an ``.npz`` of a params tree
 checkpoints in ``runtime.checkpoint_dir``: ``tag_<serve.swap_tag>``
 (``tag_best``), then the newest intact step, then (loudly) a seeded fresh
 init. ``params_step`` in both lines is the checkpoint's update count (0
-for ``--params`` and a fresh init). SIGTERM/SIGINT drains in-flight
-requests and exits 75.
+for ``--params`` and a fresh init). A checkpoint directory of the JAX
+package is passed over and left untouched (the two packages want separate
+``runtime.checkpoint_dir`` values). SIGTERM/SIGINT drains in-flight
+requests and exits 75. ``serve.swap_poll_s`` (on by default) is not
+ported: the boot weights serve for the whole run, and the command says so
+once.
 
 The device is ``cuda`` unless ``--device`` says otherwise; without a GPU
 and without ``--device cpu`` the command fails with a message saying so.
@@ -184,11 +190,14 @@ def _serve_boot_params(cfg, template):
     """Initial serving weights: the training run's tagged policy
     (``serve.swap_tag``, ``tag_best``) when there is one, else its newest
     intact step checkpoint, else ``template`` (a fresh init, loudly: an
-    untrained policy serves finite garbage). Returns ``(params, step)``,
-    ``step`` the checkpoint's update count."""
-    from sharetrade_tpu_torch.checkpoint import CheckpointManager
+    untrained policy serves finite garbage). A tag the JAX package wrote is
+    passed over and left as it is (the step walk-back skips such dirs too).
+    Returns ``(params, step)``, ``step`` the checkpoint's update count."""
+    from sharetrade_tpu_torch.checkpoint import (
+        CheckpointManager, ForeignCheckpointError)
     from sharetrade_tpu_torch.utils.logging import get_logger
 
+    log = get_logger("cli")
     directory = cfg.runtime.checkpoint_dir
     if os.path.isdir(directory):
         manager = CheckpointManager(
@@ -199,29 +208,31 @@ def _serve_boot_params(cfg, template):
             return params, int(meta.get("updates", meta.get("step", 0)) or 0)
         except FileNotFoundError:
             pass
+        except ForeignCheckpointError as exc:
+            log.warning("passing over tag_%s: %s", cfg.serve.swap_tag, exc)
         try:
             params, step = manager.restore(template)
             return params, int(step)
         except FileNotFoundError:
             pass
-    get_logger("cli").warning("no checkpoint under %s; serving a seeded "
-                              "fresh-initialised (UNTRAINED) policy",
-                              directory)
+    log.warning("no checkpoint of this package under %s; serving a seeded "
+                "fresh-initialised (UNTRAINED) policy", directory)
     return template, 0
 
 
 def cmd_serve(args) -> int:
     import torch
 
+    from sharetrade_tpu_torch.agents import build_agent
     from sharetrade_tpu_torch.convert import load_npz
     from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.device import resolve_device
-    from sharetrade_tpu_torch.env.trading import obs_dim
-    from sharetrade_tpu_torch.models import build_model
+    from sharetrade_tpu_torch.env.trading import make_trading_env
     from sharetrade_tpu_torch.ops.attention import launch_counts
     from sharetrade_tpu_torch.precision import policy_from_config
     from sharetrade_tpu_torch.serve import ServeEngine
     from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
+    from sharetrade_tpu_torch.serve.engine import unported_defaults
     from sharetrade_tpu_torch.utils.logging import get_logger
 
     log = get_logger("cli")
@@ -253,7 +264,17 @@ def cmd_serve(args) -> int:
         service = PriceDataService(config=cfg.data)
         prices = service.request(args.symbol.split(",")[0].strip(),
                                  args.start, args.end).series.prices
-        model = build_model(cfg.model, obs_dim(cfg.env.window), device=device)
+        unported = unported_defaults(cfg.serve)
+        if unported:
+            log.warning("not yet ported, serving without: %s",
+                        "; ".join(unported))
+        # The model the configured learner trains (its Q-head or its
+        # actor-critic heads), as the JAX package's cli serve builds it.
+        model = build_agent(cfg, make_trading_env(
+            prices, window=cfg.env.window,
+            initial_budget=cfg.env.initial_budget,
+            initial_shares=cfg.env.initial_shares, device=device),
+            device=device).model
         if args.params:
             params, step = load_npz(args.params, device=device), 0
         else:
@@ -287,6 +308,7 @@ def cmd_serve(args) -> int:
             "warm_rows": counters["warm_rows"],
             "cold_batches": counters["cold_batches"],
             "warm_batches": counters["warm_batches"],
+            "generic_batches": counters["generic_batches"],
             "evictions": counters["evictions"],
             "queue_rejected": counters["rejected"],
             "flash_fwd_launches": launch_counts["flash_fwd"],

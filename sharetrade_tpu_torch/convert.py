@@ -23,8 +23,10 @@ A whole training state carries over the same way
 optax state, a ``(ScaleByRssState | ScaleByAdamState | EmptyState,
 EmptyState)`` tuple that becomes the port's NamedTuples of the same field
 names (``ops/fused_update.py``); the batched env state
-(``t, budget, shares, share_value``); the model carry; ``env_steps`` and
-``updates``. Every leaf keeps its dtype and bytes, so the round trip is
+(``t, budget, shares, share_value``); the model carry (a stateless model's
+empty tuple becomes ``{}``); ``env_steps`` and ``updates``; and DQN's
+extras (target params, replay buffer, PER sum-tree levels and max
+priority; ``agents/dqn.py``). Every leaf keeps its dtype and bytes, so the round trip is
 bitwise. The JAX random key has no torch counterpart: the port's state gets
 a fresh generator. :func:`save_train_state_npz` writes such a state as one
 ``.npz`` (``cli train --params`` boots from it).
@@ -201,20 +203,48 @@ def train_state_from_jax(ts: Any, *, device: torch.device | str = "cpu",
         return _tensor(x, device)
 
     env = ts.env_state
+    # A stateless model's JAX carry is an empty tuple.
+    carry = ts.carry if isinstance(ts.carry, dict) else {}
     return TrainState(
         params=params_from_jax(ts.params, device=device),
         opt_state=opt_state_from_jax(ts.opt_state, device=device),
-        carry={k: tensor(v) for k, v in ts.carry.items()},
+        carry={k: tensor(v) for k, v in carry.items()},
         env_state=EnvState(*(tensor(getattr(env, f)) for f in _ENV_FIELDS)),
         rng=torch.Generator(device=device).manual_seed(seed),
-        env_steps=tensor(ts.env_steps), updates=tensor(ts.updates))
+        env_steps=tensor(ts.env_steps), updates=tensor(ts.updates),
+        extras=extras_from_jax(getattr(ts, "extras", None), device=device))
+
+
+def extras_from_jax(extras: Any, *, device: torch.device | str = "cpu"):
+    """A JAX DQN extras (``DQNExtras`` or ``DQNExtrasPER``: target params,
+    the replay buffer and, under PER, the sum-tree and max priority) with
+    numpy leaves -> the port's ``DQNExtras`` on ``device``; None stays
+    None."""
+    if extras is None:
+        return None
+    from sharetrade_tpu_torch.agents.dqn import PerState, ReplayBuffer, DQNExtras
+    from sharetrade_tpu_torch.ops.sum_tree import SumTree
+
+    def tensor(x):
+        return _tensor(x, device)
+
+    replay = extras.replay
+    per = getattr(extras, "per", None)
+    return DQNExtras(
+        target_params=params_from_jax(extras.target_params, device=device),
+        replay=ReplayBuffer(**{f: tensor(getattr(replay, f)) for f in (
+            "obs", "action", "reward", "next_obs", "pos", "size")}),
+        per=None if per is None else PerState(
+            tree=SumTree(levels=[tensor(x) for x in per.tree.levels]),
+            max_priority=tensor(per.max_priority)))
 
 
 def train_state_to_numpy(ts: Any) -> dict:
     """The port's ``TrainState`` -> ``{"params", "opt_state", "carry",
     "env_state", "env_steps", "updates"}`` with numpy leaves (the env
-    state as a dict of its four fields)."""
-    return {
+    state as a dict of its four fields), and ``"extras"`` (DQN's, as the
+    nested dict of ``agents.dqn.extras_tree``) when the state has them."""
+    out = {
         "params": params_to_numpy(ts.params),
         "opt_state": opt_state_to_numpy(ts.opt_state),
         "carry": params_to_numpy(ts.carry),
@@ -223,6 +253,18 @@ def train_state_to_numpy(ts: Any) -> dict:
         "env_steps": params_to_numpy(ts.env_steps),
         "updates": params_to_numpy(ts.updates),
     }
+    if getattr(ts, "extras", None) is not None:
+        out["extras"] = params_to_numpy(_extras_tree(ts.extras))
+    return out
+
+
+def _extras_tree(extras: Any) -> dict:
+    """A port ``DQNExtras`` as its nested dict; a JAX one (numpy leaves)
+    the same way."""
+    from sharetrade_tpu_torch.agents.dqn import DQNExtras, extras_tree
+    if not isinstance(extras, DQNExtras):
+        extras = extras_from_jax(extras)
+    return extras_tree(extras)
 
 
 #: The ``.npz`` entry that records which leaves are stored as bf16 bits.
@@ -258,17 +300,21 @@ def train_state_leaves(ts: Any) -> dict[str, Any]:
     """A training state (the port's, or a JAX one with numpy leaves) as
     ``{"dotted.path": leaf}``, leaves as they are: ``params.*``,
     ``opt_state.*`` (the first optax element's fields), ``carry.*``,
-    ``env_state.*``, ``env_steps``, ``updates`` and, for a port state,
-    ``rng`` (the generator's ``get_state()``, a CPU ``uint8`` tensor)."""
+    ``env_state.*``, ``env_steps``, ``updates``, DQN's ``extras.*``
+    (``extras.target_params.*``, ``extras.replay.*``, ``extras.per.*``)
+    and, for a port state, ``rng`` (the generator's ``get_state()``, a CPU
+    ``uint8`` tensor)."""
     env = ts.env_state
     tree = {
         "params": ts.params,
         "opt_state": _fields(ts.opt_state[0]),
-        "carry": ts.carry,
+        "carry": ts.carry if isinstance(ts.carry, dict) else {},
         "env_state": {f: getattr(env, f) for f in _ENV_FIELDS},
         "env_steps": ts.env_steps,
         "updates": ts.updates,
     }
+    if getattr(ts, "extras", None) is not None:
+        tree["extras"] = _extras_tree(ts.extras)
     flat = flatten(tree, leaf=lambda x: x)
     if isinstance(ts.rng, torch.Generator):
         flat["rng"] = ts.rng.get_state()
@@ -305,16 +351,20 @@ def decode_train_state(arrays: dict[str, np.ndarray], dtypes: dict[str, str],
     from sharetrade_tpu_torch.agents.base import TrainState
     from sharetrade_tpu_torch.env.trading import EnvState
 
+    from sharetrade_tpu_torch.agents.dqn import extras_from_tree
+
     tensors = {k: decode_leaf(a, dtypes.get(k)).to(device)
                for k, a in arrays.items() if k != "rng"}
     tree = unflatten(tensors)
     return TrainState(
         params=tree["params"],
         opt_state=_opt_state_from_fields(tree.get("opt_state", {}), device),
-        carry=tree["carry"],
+        carry=tree.get("carry", {}),
         env_state=EnvState(*(tree["env_state"][f] for f in _ENV_FIELDS)),
         rng=_generator(device, arrays.get("rng"), seed),
-        env_steps=tree["env_steps"], updates=tree["updates"])
+        env_steps=tree["env_steps"], updates=tree["updates"],
+        extras=extras_from_tree(tree["extras"]) if "extras" in tree
+        else None)
 
 
 def save_train_state_npz(path: str, ts: Any) -> None:

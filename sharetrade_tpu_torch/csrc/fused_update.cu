@@ -28,12 +28,25 @@
 //   sgd:     p' = p + g*(-lr)
 // Masters and moments are updated in place.
 //
+// An optional gate, a one-element int32 device tensor, turns the whole
+// update off when it holds 0: masters, moments and adam's count stay as they
+// were (the compute copy, when asked for, is then the recast of the
+// unchanged master). It is the JAX package's
+// ``where(any_active, new, old)`` over params and optimizer state
+// (sharetrade_tpu/agents/qlearn.py, dqn.py), read on the device, so a step
+// where no agent is active (or a DQN replay not yet ready) costs no host
+// synchronisation.
+//
 // What bounds it on an H100: it is a pure stream. At the flagship (adagrad,
 // bf16 grads, 1,583,108 parameters in 34 leaves) it reads p (4 B), g (2 B)
 // and s (4 B) and writes p and s (4 B each) and the bf16 compute copy the
 // next minibatch differentiates against (2 B): 20 B x 1,583,108 = 31.7 MB,
 // about 9.5 us at 3.35 TB/s; 7 FLOP per element is nothing. The whole set
 // fits in the 50 MB L2, so it is timed with the L2 flushed between launches.
+// At the reference Q-network (4 leaves, 41,403 parameters, f32 grads) the
+// stream is 0.83 MB, about 0.25 us: there the launch itself sets the time,
+// once per env step, and the cure is a graph of the whole step, not this
+// kernel.
 //
 // Left on the table in this first design: 16-byte vector loads (leaf sizes
 // and offsets are not multiples of 4 elements in general, so the kernel
@@ -78,7 +91,8 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 template <int OPT, typename G, int EMIT>
 __global__ void __launch_bounds__(kThreads)
 fused_update_kernel(const LeafTable table, int n_leaves, float lr,
-                    const float* __restrict__ bias) {
+                    const float* __restrict__ bias,
+                    const int* __restrict__ gate) {
   int leaf = 0;
   while (leaf + 1 < n_leaves &&
          table.block_start[leaf + 1] <= static_cast<int>(blockIdx.x))
@@ -95,6 +109,18 @@ fused_update_kernel(const LeafTable table, int n_leaves, float lr,
   if (OPT == kAdam) {
     bias1 = bias[0];
     bias2 = bias[1];
+  }
+  if (gate != nullptr && *gate == 0) {
+    if (EMIT == kEmitBf16) {
+#pragma unroll
+      for (int e = 0; e < kPerThread; ++e) {
+        const long long i = base + e * kThreads + threadIdx.x;
+        if (i >= n) break;
+        static_cast<__nv_bfloat16*>(table.pc[leaf])[i] =
+            __float2bfloat16(p[i]);
+      }
+    }
+    return;
   }
 #pragma unroll
   for (int e = 0; e < kPerThread; ++e) {
@@ -133,13 +159,13 @@ fused_update_kernel(const LeafTable table, int n_leaves, float lr,
 template <int OPT, typename G>
 cudaError_t launch_emit(int emit, const LeafTable& table, int n_leaves,
                         int blocks, float lr, const float* bias,
-                        cudaStream_t stream) {
+                        const int* gate, cudaStream_t stream) {
   if (emit == kEmitNone)
     fused_update_kernel<OPT, G, kEmitNone><<<blocks, kThreads, 0, stream>>>(
-        table, n_leaves, lr, bias);
+        table, n_leaves, lr, bias, gate);
   else if (emit == kEmitBf16)
     fused_update_kernel<OPT, G, kEmitBf16><<<blocks, kThreads, 0, stream>>>(
-        table, n_leaves, lr, bias);
+        table, n_leaves, lr, bias, gate);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -148,13 +174,16 @@ cudaError_t launch_emit(int emit, const LeafTable& table, int n_leaves,
 template <typename G>
 cudaError_t launch_opt(int optimizer, int emit, const LeafTable& table,
                        int n_leaves, int blocks, float lr, const float* bias,
-                       cudaStream_t stream) {
+                       const int* gate, cudaStream_t stream) {
   if (optimizer == kAdagrad)
-    return launch_emit<kAdagrad, G>(emit, table, n_leaves, blocks, lr, bias, stream);
+    return launch_emit<kAdagrad, G>(emit, table, n_leaves, blocks, lr, bias,
+                                    gate, stream);
   if (optimizer == kAdam)
-    return launch_emit<kAdam, G>(emit, table, n_leaves, blocks, lr, bias, stream);
+    return launch_emit<kAdam, G>(emit, table, n_leaves, blocks, lr, bias,
+                                 gate, stream);
   if (optimizer == kSgd)
-    return launch_emit<kSgd, G>(emit, table, n_leaves, blocks, lr, bias, stream);
+    return launch_emit<kSgd, G>(emit, table, n_leaves, blocks, lr, bias,
+                                gate, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -164,6 +193,7 @@ cudaError_t launch_opt(int optimizer, int emit, const LeafTable& table,
 // 2 sgd; grad_dtype: 0 float32, 1 bfloat16; emit: 0 none, 1 bfloat16.
 // The per-leaf arrays hold device addresses (s1/s2/pc entries
 // unused by the optimizer or the emit mode may be 0) and element counts.
+// gate: null, or a one-element int32 device tensor (0: update nothing).
 // Leaves go kMaxLeaves per launch; *launches receives the number launched.
 // Returns a cudaError_t.
 extern "C" int fused_update(int optimizer, int grad_dtype, int emit,
@@ -171,7 +201,8 @@ extern "C" int fused_update(int optimizer, int grad_dtype, int emit,
                             const long long* g, const long long* s1,
                             const long long* s2, const long long* pc,
                             const long long* sizes, float lr,
-                            const float* bias, void* stream, int* launches) {
+                            const float* bias, const int* gate, void* stream,
+                            int* launches) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launches = 0;
   for (int first = 0; first < n_leaves; first += kMaxLeaves) {
@@ -194,9 +225,11 @@ extern "C" int fused_update(int optimizer, int grad_dtype, int emit,
     if (blocks == 0) continue;
     cudaError_t err;
     if (grad_dtype == 0)
-      err = launch_opt<float>(optimizer, emit, table, count, blocks, lr, bias, st);
+      err = launch_opt<float>(optimizer, emit, table, count, blocks, lr,
+                              bias, gate, st);
     else if (grad_dtype == 1)
-      err = launch_opt<__nv_bfloat16>(optimizer, emit, table, count, blocks, lr, bias, st);
+      err = launch_opt<__nv_bfloat16>(optimizer, emit, table, count, blocks,
+                                      lr, bias, gate, st);
     else
       err = cudaErrorInvalidValue;
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -124,7 +124,10 @@ def step(params: EnvParams, state: EnvState, action: torch.Tensor,
     broadcasts against the state: the precomputed rollout passes one 0-d
     price for the whole lockstep batch)."""
     if trade_price is None:
-        trade_price = params.prices[state.t.long() + params.window]
+        # Clamped as JAX clamps an out-of-range gather: a row at the horizon
+        # (frozen, its step masked by the learner) reads the last price.
+        trade_price = params.prices[torch.clamp(
+            state.t.long() + params.window, max=params.prices.shape[0] - 1)]
     can_buy = (action == BUY) & (state.budget >= trade_price)
     can_sell = (action == SELL) & (state.shares > 0)
     delta = can_buy.float() - can_sell.float()      # 1 buy, -1 sell, 0 hold

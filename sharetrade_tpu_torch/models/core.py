@@ -47,13 +47,22 @@ class Model:
       carry) -> (hn_base (B, T+1, d), carry after T steps)``;
     - ``apply_rollout_head(params, hn_row (B, d), obs) -> ModelOut``;
     - ``rollout_head_factored(params, hn_base (T+1, d)) -> (base_logits,
-      base_values, pf_fn)`` with ``pf_fn(obs) -> (dlogits, dvalues)``."""
+      base_values, pf_fn)`` with ``pf_fn(obs) -> (dlogits, dvalues)``.
+
+    Models without a prefill/serve pair (the MLPs, ``models/mlp.py``) give
+    ``apply_batch(params, obs (B, obs_dim), carry_batch) -> (ModelOut,
+    carry_batch)`` instead, the JAX package's ``apply_batched``: one forward
+    step of the batch, which the generic rollout, the Q-learners, the greedy
+    scan and the serving engine's generic program run."""
 
     init: Callable[..., Any]
     init_carry: Callable[[], Any]
-    apply_prefill: Callable[[Any, torch.Tensor], tuple[ModelOut, Any]]
+    apply_prefill: Callable[[Any, torch.Tensor],
+                            tuple[ModelOut, Any]] | None = None
     apply_serve_batch: Callable[[Any, torch.Tensor, Any],
-                                tuple[ModelOut, Any]]
+                                tuple[ModelOut, Any]] | None = None
+    apply_batch: Callable[[Any, torch.Tensor, Any],
+                          tuple[ModelOut, Any]] | None = None
     cast_carry: Callable[[Any, torch.dtype], Any] | None = None
     obs_dim: int = 0
     name: str = "model"

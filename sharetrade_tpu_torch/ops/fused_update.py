@@ -18,7 +18,12 @@ before any arithmetic, and masters and moments stay float32.
 Unlike the JAX package, which returns new arrays, the port updates the
 master parameters and the optimizer moments IN PLACE (and returns the same
 objects): the update is a pure stream, and writing it back where it was read
-halves its memory.
+halves its memory. Where the JAX learners keep the old state with
+``where(flag, new, old)`` (Q-learning and DQN steps with no active agent or
+an unready replay), the port passes ``gate=flag``: a device tensor that the
+kernel and the plain version both read, so the update leaves everything,
+adam's count included, as it was when the flag is false, and the host never
+waits for the flag's value.
 """
 
 from __future__ import annotations
@@ -83,8 +88,14 @@ def init_state(optimizer: str, params: Any) -> tuple:
 # plain per-leaf math (optax op order)
 # ---------------------------------------------------------------------------
 
-def _plain_leaf(optimizer: str, lr: float, p, g, state: list, bias):
-    """One leaf's new (p, state) in float32."""
+def _plain_leaf(optimizer: str, lr: float, p, g, state: list, bias,
+                gate=None):
+    """One leaf's new (p, state) in float32; with ``gate`` false the old
+    ones."""
+    if gate is not None:
+        p_new, s_new = _plain_leaf(optimizer, lr, p, g, state, bias)
+        return (torch.where(gate, p_new, p),
+                [torch.where(gate, new, old) for new, old in zip(s_new, state)])
     g = g.float()
     if optimizer == "adagrad":
         (s,) = state
@@ -123,8 +134,8 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         ptrs = ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = ([ctypes.c_int] * 4 + [ptrs] * 6
-                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.POINTER(ctypes.c_int)])
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 3
+                       + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
     return lib
 
@@ -170,14 +181,18 @@ def _check(optimizer, params, grads, state, compute) -> None:
 
 def fused_update(optimizer: str, lr: float, params: list, grads: list,
                  state: list[list], *, bias: torch.Tensor | None = None,
-                 compute: list | None = None) -> None:
+                 compute: list | None = None,
+                 gate: torch.Tensor | None = None) -> None:
     """Update ``params`` and the ``state`` moment lists IN PLACE from
     ``grads`` (one list entry per leaf; ``state`` holds one list for
     adagrad's sum of squares, two for adam's mu and nu, none for sgd).
     ``bias`` is adam's 2-element ``[1 - b1^count, 1 - b2^count]`` tensor
     (:func:`adam_bias`); ``compute``, when given, receives the bfloat16
-    recast of each new master. CUDA tensors launch the kernel (one launch for up to
-    64 leaves); CPU tensors take the plain version."""
+    recast of each new master; ``gate``, a one-element bool or integer
+    tensor on the params' device, updates nothing where it is false (the
+    compute copy is then the recast of the unchanged masters). CUDA tensors
+    launch the kernel (one launch for up to 64 leaves); CPU tensors take the
+    plain version."""
     if optimizer not in _OPT_CODES:
         raise ValueError(f"fused update does not support optimizer "
                          f"{optimizer!r}; choose from {OPTIMIZERS}")
@@ -185,10 +200,16 @@ def fused_update(optimizer: str, lr: float, params: list, grads: list,
         raise ValueError("fused_update: adam needs its bias corrections")
     if not params:
         return
+    if gate is not None:
+        if gate.numel() != 1 or gate.device != params[0].device:
+            raise ValueError("fused_update: gate must be a one-element "
+                             f"tensor on {params[0].device}")
+        gate = gate.reshape(())
     if params[0].device.type == "cpu":
+        flag = None if gate is None else gate.bool()
         for i, p in enumerate(params):
             p_new, s_new = _plain_leaf(optimizer, lr, p, grads[i],
-                                       [s[i] for s in state], bias)
+                                       [s[i] for s in state], bias, flag)
             p.copy_(p_new)
             for s, new in zip(state, s_new):
                 s[i].copy_(new)
@@ -202,6 +223,7 @@ def fused_update(optimizer: str, lr: float, params: list, grads: list,
         raise ValueError("fused_update: bias must be a float32 (2,) tensor "
                          f"on {params[0].device}")
     n = len(params)
+    flag = None if gate is None else gate.to(torch.int32).reshape(1)
 
     def table(leaves):
         return (ctypes.c_longlong * n)(*[
@@ -218,7 +240,8 @@ def fused_update(optimizer: str, lr: float, params: list, grads: list,
             table(state[1] if len(state) > 1 else None),
             table(compute),
             (ctypes.c_longlong * n)(*[p.numel() for p in params]),
-            float(lr), None if bias is None else bias.data_ptr(), stream,
+            float(lr), None if bias is None else bias.data_ptr(),
+            None if gate is None else flag.data_ptr(), stream,
             ctypes.byref(launches))
     if err != 0:
         raise RuntimeError(f"fused_update kernel launch failed: CUDA error "
@@ -231,8 +254,11 @@ def fused_update(optimizer: str, lr: float, params: list, grads: list,
 # ---------------------------------------------------------------------------
 
 def fused_apply(optimizer_name: str, lr: float, grads: Any, opt_state: tuple,
-                params: Any, *, emit_compute: bool = False):
-    """One fused pass over the parameter tree, IN PLACE.
+                params: Any, *, emit_compute: bool = False,
+                gate: torch.Tensor | None = None):
+    """One fused pass over the parameter tree, IN PLACE; with ``gate``
+    (a one-element device tensor) false it changes nothing, adam's count
+    included.
 
     Returns ``(params, opt_state[, compute_params])`` — the same objects
     that came in, updated, plus (``emit_compute``) a fresh tree of the new
@@ -258,8 +284,11 @@ def fused_apply(optimizer_name: str, lr: float, grads: Any, opt_state: tuple,
     compute = ([torch.empty_like(p, dtype=torch.bfloat16) for p in flat_p]
                if emit_compute else None)
     fused_update(optimizer_name, lr, flat_p, flat_g, state, bias=bias,
-                 compute=compute)
+                 compute=compute, gate=gate)
     if optimizer_name == "adam":
+        if gate is not None:
+            count_inc = torch.where(gate.reshape(()).bool(), count_inc,
+                                    first.count)
         first.count.copy_(count_inc)
     if emit_compute:
         return params, opt_state, unflatten_like(params, compute)

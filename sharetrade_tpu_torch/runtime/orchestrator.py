@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``runtime/orchestrator.py``:
 - the lifecycle FSM (awaiting-data -> ready -> training -> trained/
   completed), with StartTraining stashed until data arrives;
 - the loop: each chunk is one ``agent.step`` (``runtime.chunk_steps`` env
-  steps for the whole agent batch, then the PPO update), its metrics read
+  steps for the whole agent batch and the learner's updates), its metrics
+  read
   back ONCE as one stacked tensor, the snapshot that
   ``get_avg``/``get_std``/``snapshot`` answer from replaced;
 - the episode gate: an episode completes when the cumulative env-step count
@@ -31,13 +32,16 @@ Counterpart of the JAX package's ``runtime/orchestrator.py``:
   newest intact step checkpoint;
 - greedy evaluation (:meth:`evaluate`, :meth:`evaluate_best`, every
   ``eval_every_updates``): one argmax replay of the episode in the compute
-  precision; under ``keep_best_eval`` the best policy so far is ``tag_best``.
+  precision (through the precomputed trunk where the model has one, else
+  step by step); under ``keep_best_eval`` the best policy so far is
+  ``tag_best``.
 
 Test seams as in the JAX package: ``step_override`` replaces the agent's
 step, ``fault_hook(chunk_idx, row)`` runs on every chunk's metrics row.
 
 Not yet ported: the async readback pipeline, megachunks, sampled metric
-readback, roofline/obs, journaling, actor feeds and warm starts. A
+readback, roofline/obs, the DQN transition journal, actor feeds and warm
+starts. A
 non-default value of such a knob raises ``ConfigError``; where the default
 itself turns the feature on, the run goes on and logs one warning line
 naming what it does instead (:func:`check_ported`).
@@ -45,6 +49,7 @@ naming what it does instead (:func:`check_ported`).
 
 from __future__ import annotations
 
+import dataclasses
 import random
 import threading
 import time
@@ -57,7 +62,7 @@ from sharetrade_tpu_torch.agents import build_agent
 from sharetrade_tpu_torch.agents.base import (
     Agent, TrainState, agent_health, build_optimizer, election_health)
 from sharetrade_tpu_torch.agents.rollout import (
-    greedy_rollout_precomputed, supports_precomputed_trunk)
+    greedy_rollout, greedy_rollout_precomputed, supports_precomputed_trunk)
 from sharetrade_tpu_torch.checkpoint import CheckpointManager
 from sharetrade_tpu_torch.config import ConfigError, FrameworkConfig
 from sharetrade_tpu_torch.device import resolve_device
@@ -127,26 +132,31 @@ def check_ported(cfg: FrameworkConfig) -> list[str]:
             if on(_knob(cfg, path))]
 
 
+def _clone(tree):
+    """A copy of a tree of tensors (dicts, lists, tuples, named tuples and
+    dataclasses) that owns every tensor."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: _clone(getattr(tree, f.name))
+                             for f in dataclasses.fields(tree)})
+    return tree
+
+
 def _clone_state(ts: TrainState) -> TrainState:
     """A copy that owns its tensors and generator (the step updates the
-    parameters and moments in place)."""
-    def clone(tree):
-        if isinstance(tree, dict):
-            return {k: clone(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
-            return type(tree)(clone(v) for v in tree)
-        if hasattr(tree, "_fields"):
-            return type(tree)(*(clone(v) for v in tree))
-        return tree.clone() if isinstance(tree, torch.Tensor) else tree
-
+    parameters, moments and DQN's replay in place)."""
     rng = ts.rng
     if isinstance(rng, torch.Generator):
         rng = torch.Generator(device=rng.device)
         rng.set_state(ts.rng.get_state())
-    return TrainState(
-        params=clone(ts.params), opt_state=clone(ts.opt_state),
-        carry=clone(ts.carry), env_state=ts.env_state.map(torch.clone),
-        rng=rng, env_steps=ts.env_steps.clone(), updates=ts.updates.clone())
+    return _clone(ts).replace(rng=rng)
 
 
 class Orchestrator:
@@ -213,8 +223,8 @@ class Orchestrator:
         at least as new as the newest intact step; ``FileNotFoundError``
         when there is none), ``train_state`` (a converted JAX state or a
         ``.npz`` one, ``convert.py``), a seeded init with ``params`` in
-        place of its weights (the optimizer state started fresh), or a
-        seeded init."""
+        place of its weights (the optimizer state started fresh; DQN's
+        target network a copy of them), or a seeded init."""
         prices = np.asarray(prices)
         if prices.ndim == 2 and prices.shape[0] > 1:
             raise ConfigError("multi-asset portfolios are not yet ported to "
@@ -237,6 +247,9 @@ class Orchestrator:
                 self._ts = self._ts.replace(
                     params=params,
                     opt_state=build_optimizer(self.cfg.learner).init(params))
+                if hasattr(template.extras, "target_params"):
+                    # DQN's target network starts from the given weights.
+                    self._ts.extras.target_params = _clone(params)
         self.lifecycle.to(Phase.READY)
         self.events.emit("training_data_received",
                          episode_steps=self.env.num_steps)
@@ -322,12 +335,14 @@ class Orchestrator:
 
     def _reset_episode(self) -> None:
         """Fresh env cursors, carry and generator for the next episode;
-        params, optimizer state, updates and the cumulative env-step count
-        carry over."""
+        params, optimizer state, updates, the cumulative env-step count (the
+        exploration ramp's input) and the learner's extras carry over."""
         fresh = self.agent.init(self.cfg.seed + self.episode)
         self._ts = fresh.replace(
             params=self._ts.params, opt_state=self._ts.opt_state,
-            updates=self._ts.updates, env_steps=self._ts.env_steps)
+            updates=self._ts.updates, env_steps=self._ts.env_steps,
+            # DQN keeps its replay and target network across episodes.
+            extras=self._ts.extras)
 
     # ---- the supervised chunk loop ---------------------------------------
 
@@ -778,12 +793,13 @@ class Orchestrator:
         """The greedy replay in the precision the policy trains in (the
         compute copy of the fp32 masters)."""
         model, env = self.agent.model, self.env
-        if not supports_precomputed_trunk(model, env):
-            raise ConfigError(f"greedy evaluation of {model.name} (the "
-                              "per-step scan) is not yet ported to "
-                              "sharetrade_tpu_torch")
         compute = self._precision.cast_compute(params)
-        final, rewards = greedy_rollout_precomputed(model, env, compute)
+        if supports_precomputed_trunk(model, env):
+            final, rewards = greedy_rollout_precomputed(model, env, compute)
+        else:
+            final, rewards = greedy_rollout(
+                model, env, compute,
+                self._precision.cast_carry(model.init_carry(), model))
         return {
             "eval_portfolio": float(env.portfolio_value(final)[0]),
             "eval_reward_sum": float(rewards.sum()),

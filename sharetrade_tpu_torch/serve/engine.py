@@ -20,7 +20,10 @@ Structure (the JAX engine's dispatcher/consumer split):
   and enqueue the tick's device programs: the COLD program (batched
   prefill) for fresh sessions, the WARM program (per-row-clock incremental
   step) for sessions with a slot. Each program gathers its rows' carries
-  from the arena, runs the model and scatters them back. Nothing here
+  from the arena, runs the model and scatters them back. A model without a
+  prefill/serve pair (the MLPs) runs ONE GENERIC program per tick instead:
+  cold rows take the init carry inside the program, then every row runs
+  ``model.apply_batch``. Nothing here
   waits for the device: PyTorch enqueues CUDA work asynchronously, and
   host inputs go up from pinned memory without a synchronising copy.
 - **consumer thread**: device readback, request completion (events +
@@ -32,8 +35,9 @@ Inference runs under ``torch.inference_mode()``.
 Not yet ported (refused when configured, see :func:`_refuse_unported`):
 per-request deadlines, ``shed_policy="oldest"``, supervised restarts, the
 warm host tier and the spill tier. Also absent: the weight-swap watcher
-(``serve.swap_poll_s`` is unused: the weights are those the engine was built
-with, ``params_step`` names their checkpoint), SLO burn gauges, exemplars,
+(``serve.swap_poll_s``, on by default: the weights are those the engine was
+built with, ``params_step`` names their checkpoint; :func:`unported_defaults`
+names it, and ``cli serve`` says so once), SLO burn gauges, exemplars,
 histograms and live knobs.
 """
 
@@ -179,6 +183,22 @@ def _refuse_unported(cfg: ServeConfig) -> None:
                               "yet ported to sharetrade_tpu_torch")
 
 
+#: Serving knobs whose DEFAULT turns on a feature that is not ported: the
+#: engine runs without it, and ``cli serve`` says so once (as the
+#: orchestrator's ``_WARNED`` does for training knobs).
+_WARNED = {
+    "swap_poll_s": (lambda v: v > 0,
+                    "the weight-swap watcher (the boot weights serve for the "
+                    "whole run)"),
+}
+
+
+def unported_defaults(cfg: ServeConfig) -> list[str]:
+    """The unported serving features ``cfg`` turns on, each with its knob."""
+    return [f"{what} [serve.{knob}]" for knob, (on, what) in _WARNED.items()
+            if on(getattr(cfg, knob))]
+
+
 def _fire(callback, result) -> None:
     """Run a request's completion callback; a failing callback is logged
     and never takes down the thread that completes requests."""
@@ -217,9 +237,12 @@ class ServeEngine:
             raise ConfigError(f"serve.max_queue must be >= 1, got "
                               f"{cfg.max_queue}")
         _refuse_unported(cfg)
-        if model.apply_prefill is None or model.apply_serve_batch is None:
-            raise ConfigError(f"model {model.name!r} has no serving pair "
-                              "(apply_prefill / apply_serve_batch)")
+        self._generic = (model.apply_prefill is None
+                         or model.apply_serve_batch is None)
+        if self._generic and model.apply_batch is None:
+            raise ConfigError(f"model {model.name!r} has neither a serving "
+                              "pair (apply_prefill / apply_serve_batch) nor "
+                              "apply_batch")
         self.model = model
         self.cfg = cfg
         #: Update count of the checkpoint the weights came from (0: none);
@@ -235,6 +258,10 @@ class ServeEngine:
             self._pool = _tree_map(
                 lambda x: x.to(self.device)[None].repeat(
                     (n_arena,) + (1,) * x.ndim).contiguous(), carry0)
+            # Per-row init carries for the generic program's cold reset.
+            self._carry0_rows = _tree_map(
+                lambda x: x.to(self.device)[None].repeat(
+                    (cfg.max_batch,) + (1,) * x.ndim).contiguous(), carry0)
         self._slots = SlotPool(cfg.slots)
 
         self._q: queue.Queue = queue.Queue(maxsize=cfg.max_queue)
@@ -244,12 +271,12 @@ class ServeEngine:
         self._pending = 0
         self._lock = threading.Lock()
         #: Counters: requests, completed, failed, rejected, batches,
-        #: cold_batches/warm_batches (device programs run), cold_rows/
-        #: warm_rows (real rows served by each), evictions.
+        #: cold_batches/warm_batches/generic_batches (device programs run),
+        #: cold_rows/warm_rows (real rows served fresh and warm), evictions.
         self.counters: dict[str, int] = dict.fromkeys(
             ("requests", "completed", "failed", "rejected", "batches",
-             "cold_batches", "warm_batches", "cold_rows", "warm_rows",
-             "evictions"), 0)
+             "cold_batches", "warm_batches", "generic_batches", "cold_rows",
+             "warm_rows", "evictions"), 0)
 
         self._dispatcher = threading.Thread(
             target=self._serve_loop, name="serve-dispatcher", daemon=True)
@@ -272,6 +299,18 @@ class ServeEngine:
         """Batched prefill for fresh (or evicted) sessions; their carries
         land in their slots."""
         out, new_rows = self.model.apply_prefill(self._params, obs)
+        _tree_map(lambda p, r: p.index_copy_(0, idx, r.to(p.dtype)),
+                  self._pool, new_rows)
+        return out.logits.argmax(dim=-1), out.logits, out.value
+
+    def _generic_program(self, obs, idx, cold):
+        """One program for models without a prefill/serve pair: cold rows
+        take the init carry, then every row runs ``model.apply_batch``."""
+        rows = _tree_map(
+            lambda p, c: torch.where(
+                cold.reshape((-1,) + (1,) * (c.ndim - 1)), c,
+                p.index_select(0, idx)), self._pool, self._carry0_rows)
+        out, new_rows = self.model.apply_batch(self._params, obs, rows)
         _tree_map(lambda p, r: p.index_copy_(0, idx, r.to(p.dtype)),
                   self._pool, new_rows)
         return out.logits.argmax(dim=-1), out.logits, out.value
@@ -316,8 +355,12 @@ class ServeEngine:
         idx = self._upload(np.arange(cfg.slots, cfg.slots + cfg.max_batch,
                                      dtype=np.int64))
         with torch.inference_mode():
-            self._cold_program(obs, idx)
-            self._warm_program(obs, idx)
+            if self._generic:
+                self._generic_program(obs, idx, self._upload(
+                    np.ones((cfg.max_batch,), np.bool_)))
+            else:
+                self._cold_program(obs, idx)
+                self._warm_program(obs, idx)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -428,6 +471,24 @@ class ServeEngine:
             cold_reqs.append(req)
             cold_idx.append(slot)
         groups = []
+        if self._generic:
+            reqs = cold_reqs + warm_reqs
+            obs, pidx = self._pad(reqs, cold_idx + warm_idx)
+            cold = np.zeros((self.cfg.max_batch,), np.bool_)
+            cold[:len(cold_reqs)] = True
+            t = time.perf_counter()
+            for req in reqs:
+                req.t_dispatched = t
+            act, logits, values = self._generic_program(
+                self._upload(obs), self._upload(pidx), self._upload(cold))
+            groups.append((reqs, act, logits, values))
+            with self._lock:
+                self.counters["batches"] += 1
+                self.counters["generic_batches"] += 1
+                self.counters["cold_rows"] += len(cold_reqs)
+                self.counters["warm_rows"] += len(warm_reqs)
+                self.counters["evictions"] += evicted
+            return _DoneBatch(groups=groups, n=len(batch))
         for reqs, idx, program, key in (
                 (cold_reqs, cold_idx, self._cold_program, "cold"),
                 (warm_reqs, warm_idx, self._warm_program, "warm")):

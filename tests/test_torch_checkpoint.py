@@ -531,3 +531,93 @@ def test_port_meta_has_every_jax_key(jax_checkpoint):
         <= set(pmeta["integrity"])
     for key in ("step", "episode", "env_steps", "precision_mode"):
         assert pmeta[key] == jmeta[key]
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's checkpoints in the same directory
+# ---------------------------------------------------------------------------
+
+def test_jax_checkpoint_dirs_survive_the_port(tmp_path):
+    """A directory the JAX manager wrote (``save(10)``, ``save_tagged
+    ("best")``) is foreign to the port: ``any_intact``, ``restore``,
+    ``restore_tagged`` and ``cli serve``'s boot pass it over or refuse it
+    (``ForeignCheckpointError``, a ``ValueError``), rename nothing, and the
+    JAX manager restores both afterwards."""
+    import subprocess
+    import sys
+
+    jax = pytest.importorskip("jax")
+    import test_torch_ppo as tp
+    from sharetrade_tpu.checkpoint import CheckpointManager as JaxManager
+    from sharetrade_tpu_torch.checkpoint import ForeignCheckpointError
+
+    ckpts = tmp_path / "checkpoints"
+    pair = tp._Pair("fp32")
+    jmgr = JaxManager(str(ckpts), precision_mode="fp32")
+    jmgr.save(10, pair.jts, metadata={"episode": 0})
+    jmgr.save_tagged("best", pair.jts, metadata={"updates": 10,
+                                                 "eval_portfolio": 1.0})
+    names = sorted(os.listdir(ckpts))
+
+    port = CheckpointManager(str(ckpts), precision_mode="fp32")
+    template = pair.tagent.init(0)
+    assert port.steps() == [] and port.latest_step() is None
+    assert not port.any_intact()
+    assert port.tagged_metadata("best") is None
+    with pytest.raises(FileNotFoundError):
+        port.restore(template)
+    with pytest.raises(ForeignCheckpointError):
+        port.restore(template, step=10)
+    with pytest.raises(ForeignCheckpointError):
+        port.restore_tagged(template, "best")
+    with pytest.raises(ForeignCheckpointError):
+        port.save_tagged("best", template)
+    assert sorted(os.listdir(ckpts)) == names
+
+    # cli serve at the same directory boots an untrained policy, loudly.
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))) + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "serve",
+           "--device", "cpu", "--duration", "0.5", "--sessions", "4"]
+    for item in tp.OVERRIDES + ["serve.max_batch=2", "serve.slots=4",
+                                f"runtime.checkpoint_dir={ckpts}"]:
+        cmd += ["--set", item]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=180,
+                         env=env, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.splitlines()[0])["params_step"] == 0
+    assert "UNTRAINED" in out.stderr and "JAX package" in out.stderr
+    assert sorted(os.listdir(ckpts)) == names
+
+    template_j = pair.jagent.init(jax.random.PRNGKey(1))
+    _, step = jmgr.restore(template_j)
+    _, meta = jmgr.restore_tagged(template_j, "best")
+    assert step == 10 and meta["updates"] == 10
+
+
+def test_jax_trained_mlp_state_converts_and_trains_on(tmp_path):
+    """The reference workload's state: a JAX Q-learning state after one
+    chunk converts, goes through the port's checkpoint (``state.npz``, its
+    empty carry included) and trains on: the next chunk, with the JAX
+    draws, matches the JAX package's within tests/test_torch_reference.py's
+    tolerances."""
+    jax = pytest.importorskip("jax")
+    import test_torch_reference as ref
+
+    pair = ref._Pair("qlearn")
+    jstep = jax.jit(pair.jagent.step)
+    jts, _ = jstep(pair.jts)
+    converted = convert.train_state_from_jax(jax.tree.map(np.asarray, jts))
+    assert converted.carry == {} and converted.extras is None
+    mgr = CheckpointManager(str(tmp_path), precision_mode="fp32")
+    mgr.save(int(jts.updates), converted, metadata={"episode": 0})
+    restored, _ = mgr.restore(pair.tagent.init(4))
+    _, draws = ref.qlearn_draws(jts.rng, ref.STEPS)
+    jnext, jm = jstep(jts)
+    tnext, tm = pair.tagent.step(restored, draws=draws)
+    for a, b in zip(jax.tree.leaves(convert.params_to_numpy(tnext.params)),
+                    jax.tree.leaves(jnext.params)):
+        ref._close(a, b, 1e-5)
+    for key in jm:
+        ref._close(float(tm[key]), float(jm[key]), 1e-5, key)

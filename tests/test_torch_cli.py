@@ -1,8 +1,8 @@
 """``python -m sharetrade_tpu_torch.cli serve`` end to end on the CPU.
 
-The episode transformer at a small width (window 16, head_dim 16, 4-row
-batches over 8 slots, 12 sessions) serves synthetic closed-loop load for
-one second: a ``serving_ready`` line, then a summary with completed
+The episode transformer (the model ``learner.algo=ppo`` trains) at a small
+width (window 16, head_dim 16, 4-row batches over 8 slots, 12 sessions)
+serves synthetic closed-loop load for one second: a ``serving_ready`` line, then a summary with completed
 requests and no failures.
 """
 
@@ -15,7 +15,7 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
-ARGS = ["serve", "--device", "cpu",
+ARGS = ["serve", "--device", "cpu", "--set", "learner.algo=ppo",
         "--set", "model.kind=transformer", "--set", "model.seq_mode=episode",
         "--set", "env.window=16", "--set", "model.head_dim=16",
         "--set", "data.synthetic_length=300",
@@ -74,7 +74,9 @@ def test_cli_serve_params_from_npz(tmp_path):
 
 
 def test_cli_rejects_unported_model(tmp_path):
-    out = _run(["serve", "--device", "cpu", "--duration", "1"], tmp_path)
+    out = _run(["serve", "--device", "cpu", "--duration", "1",
+                "--set", "learner.algo=ppo", "--set", "model.kind=lstm"],
+               tmp_path)
     assert out.returncode != 0
     assert "not yet ported" in out.stderr
 

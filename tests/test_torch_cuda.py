@@ -15,7 +15,8 @@ float32 reference, bfloat16 at most twice the plain bf16 backward's own
 largest error against that reference, plus ``1e-3`` (the kernels make the
 TPU kernels' bf16 roundings of dS and P, which alone move a gradient by
 ~1e-2 on unit-scale inputs); fused update ``atol 1e-6 + rtol 1e-6``, its
-bf16 compute copy exact; one PPO minibatch as ``chip_smoke.py`` holds the
+bf16 compute copy exact, and gated off or on bit-equal to the unchanged
+state or the ungated update; one PPO minibatch as ``chip_smoke.py`` holds the
 flagship's (``MB_FACTOR`` there): against the fp32 model, the kernel path's
 error at most twice the plain bf16 path's plus 2^-8 of the reference's
 size, and the policy term within the bound its formula gives.
@@ -305,6 +306,48 @@ def test_fused_update_matches_plain(cuda, optimizer, grad_dtype, emit):
             assert torch.equal(compute[i], got_p[i].to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("optimizer,emit", [("adam", True), ("adagrad", False),
+                                            ("sgd", True)])
+def test_fused_update_gate_matches_plain(cuda, optimizer, emit):
+    """The gate on the card against the plain version's: off, params,
+    moments and adam's count stay as they were bit for bit (the compute
+    copy the recast of the unchanged masters); on, the result is the
+    ungated update's, bit for bit. The reference Q-network's leaf shapes
+    (203 x 200, 200, 200 x 3, 3)."""
+    from sharetrade_tpu_torch.models.core import tree_leaves
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [(203, 200), (200,), (200, 3), (3,)]
+    params = {f"l{i}": torch.randn(s, generator=gen, device="cuda")
+              for i, s in enumerate(shapes)}
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    outs = {}
+    for label, flag in (("off", False), ("on", True), ("none", None)):
+        p = {k: v.clone() for k, v in params.items()}
+        state = fu.init_state(optimizer, p)
+        gate = None if flag is None else torch.tensor(flag, device="cuda")
+        out = fu.fused_apply(optimizer, 0.01, grads, state, p,
+                             emit_compute=emit, gate=gate)
+        outs[label] = (p, state, out[2] if emit else None)
+    p_off, s_off, c_off = outs["off"]
+    for k in params:
+        assert torch.equal(p_off[k], params[k])
+        if emit:
+            assert torch.equal(c_off[k], params[k].to(torch.bfloat16))
+    fresh = fu.init_state(optimizer, params)
+    for a, b in zip(tree_leaves(s_off[0]), tree_leaves(fresh[0])):
+        assert torch.equal(a, b)
+    p_on, s_on, c_on = outs["on"]
+    p_ref, s_ref, c_ref = outs["none"]
+    for k in params:
+        assert torch.equal(p_on[k], p_ref[k])
+        if emit:
+            assert torch.equal(c_on[k], c_ref[k])
+    if optimizer == "adam":
+        assert int(s_off[0].count) == 0 and int(s_on[0].count) == 1
+
+
 def test_fused_update_refuses_what_the_kernel_does_not_take(cuda):
     from sharetrade_tpu_torch.ops import fused_update as fu
 
@@ -323,6 +366,9 @@ def test_fused_update_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="compute"):
         fu.fused_update("sgd", 0.1, p, [torch.zeros(8, device="cuda")], [],
                         compute=[torch.zeros(8, device="cuda")])
+    with pytest.raises(ValueError, match="gate"):
+        fu.fused_update("sgd", 0.1, p, [torch.zeros(8, device="cuda")], [],
+                        gate=torch.ones(2, device="cuda"))
 
 
 def test_ppo_minibatch_through_kernels_matches_plain(cuda):

@@ -149,3 +149,42 @@ def test_unsupported_optimizer_is_refused():
     params = convert.params_from_jax(_tree(0))
     with pytest.raises(ValueError, match="rmsprop"):
         tfu.fused_apply("rmsprop", 0.01, params, (), params)
+
+
+@pytest.mark.parametrize("name", ["adagrad", "adam", "sgd"])
+@pytest.mark.parametrize("emit", [False, True], ids=["fp32", "emit_bf16"])
+def test_gate_off_keeps_the_state_and_on_updates(name, emit):
+    """``gate`` (a one-element tensor) false: params, moments and adam's
+    count stay as they were, bit for bit, and the compute copy is the
+    recast of the unchanged masters; true: the ungated update, bit for
+    bit."""
+    runs = {}
+    for label, gate in (("off", torch.tensor(False)),
+                        ("on", torch.tensor([1], dtype=torch.int32)),
+                        ("none", None)):
+        params = convert.params_from_jax(_tree(0))
+        state = tfu.init_state(name, params)
+        for step in range(2):
+            grads = convert.params_from_jax(_grads(step, np.float32))
+            out = tfu.fused_apply(name, 0.01, grads, state, params,
+                                  emit_compute=emit, gate=gate)
+        runs[label] = (convert.params_to_numpy(params),
+                       convert.opt_state_to_numpy(state),
+                       convert.params_to_numpy(out[2]) if emit else None)
+    fresh_p = _tree(0)
+    fresh_s = convert.opt_state_to_numpy(
+        tfu.init_state(name, convert.params_from_jax(fresh_p)))
+    off, on, plain = runs["off"], runs["on"], runs["none"]
+    for a, b in zip(jax.tree.leaves(off[0]), jax.tree.leaves(fresh_p)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax.tree.leaves(off[1]), jax.tree.leaves(fresh_s)):
+        np.testing.assert_array_equal(a, b)
+    if emit:
+        for c, m in zip(jax.tree.leaves(off[2]), jax.tree.leaves(fresh_p)):
+            np.testing.assert_array_equal(c, np.asarray(m).astype(c.dtype))
+    for part in (0, 1, 2) if emit else (0, 1):
+        for a, b in zip(jax.tree.leaves(on[part]),
+                        jax.tree.leaves(plain[part])):
+            np.testing.assert_array_equal(a, b)
+    if name == "adam":
+        assert int(off[1][0].count) == 0 and int(on[1][0].count) == 2

@@ -142,7 +142,7 @@ def test_preempt_mid_episode_and_trained_only_not_computed(tmp_path):
                                   "runtime.pipeline_depth=3",
                                   "learner.remat=true",
                                   "model.remat_blocks=true",
-                                  "learner.algo=dqn"])
+                                  "model.seq_mode=window"])
 def test_unported_knobs_are_refused(knob, tmp_path):
     with pytest.raises(ConfigError, match="not yet ported"):
         orch = _orchestrator(tmp_path, knob)
