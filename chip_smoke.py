@@ -208,9 +208,12 @@ _HOST_AHEAD_CYCLES = 2_000_000
 
 
 def _time_ms(torch, fn, *, warmup: int = 3, iters: int = 25,
-             host_ahead: bool = True) -> float:
+             host_ahead: bool = True, clean_l2: bool = False) -> float:
     """Median milliseconds of ``fn`` over ``iters`` CUDA-event-timed runs,
     each after writing 128 MB (the 50 MB L2 flushed, outside the timing).
+    The L2 then holds up to 50 MB of dirty lines, which ``fn`` writes back
+    as it evicts them; ``clean_l2`` flushes by reading the 128 MB instead,
+    so ``fn`` moves only its own bytes (the time the bound describes).
 
     With ``host_ahead`` a ~1 ms GPU sleep is queued before the start event,
     so the host has enqueued ``fn``'s launches before the timer starts and
@@ -226,7 +229,10 @@ def _time_ms(torch, fn, *, warmup: int = 3, iters: int = 25,
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
-        _L2_FLUSH[0].zero_()
+        if clean_l2:
+            _L2_FLUSH[0].sum()
+        else:
+            _L2_FLUSH[0].zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if host_ahead:
@@ -519,26 +525,64 @@ def _model_params(torch, model: str = "flagship"):
     return build().init(torch.Generator().manual_seed(0))
 
 
-def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype,
-                       emit: bool = False, model: str = "flagship") -> dict:
-    """fused_update over a model's leaf set against the plain per-leaf
-    math on the same leaves, one step from a state three steps in; with
-    ``emit`` the bf16 compute copy it writes must be the exact recast of
-    the new masters."""
+#: fused_update's cases in the kernels phase, timed (tools/torch_update_ab.py
+#: runs the same cases against the parent's kernel).
+UPDATE_CASES = [
+    # The training path's case: adagrad, bf16 grads, and the next bf16
+    # compute copy written by the same pass.
+    dict(name="adagrad_bf16", optimizer="adagrad",
+         grad_dtype="bfloat16", emit=True),
+    dict(name="adam_f32", optimizer="adam", grad_dtype="float32"),
+    dict(name="sgd_bf16", optimizer="sgd", grad_dtype="bfloat16"),
+    # The reference workload's shapes: the Q-network's 4 leaves (a
+    # 3-element bias among them) at every env step, and the
+    # actor-critic MLP's 8 (a 1-element bias) at every PG/A2C update;
+    # fp32 (the default) and bf16_mixed.
+    dict(name="q_mlp_adagrad_f32", optimizer="adagrad",
+         grad_dtype="float32", model="q_mlp"),
+    dict(name="q_mlp_adagrad_bf16", optimizer="adagrad",
+         grad_dtype="bfloat16", emit=True, model="q_mlp"),
+    dict(name="ac_mlp_adagrad_f32", optimizer="adagrad",
+         grad_dtype="float32", model="ac_mlp"),
+    dict(name="ac_mlp_adagrad_bf16", optimizer="adagrad",
+         grad_dtype="bfloat16", emit=True, model="ac_mlp"),
+]
+
+
+def update_inputs(torch, *, name: str, optimizer: str, grad_dtype: str,
+                  model: str = "flagship", **_):
+    """An update case's leaves on the card: (params, grads, state lists,
+    adam's bias or None), grads of scale 0.05 in ``grad_dtype``, moments a
+    few steps in, drawn from a generator seeded by the case."""
     from sharetrade_tpu_torch.models.core import tree_leaves
     from sharetrade_tpu_torch.ops import fused_update as fu
 
     gen = torch.Generator(device="cuda").manual_seed(len(name))
     params = tree_leaves(_model_params(torch, model))
     grads = [(torch.randn(p.shape, generator=gen, device="cuda") * 0.05)
-             .to(grad_dtype) for p in params]
+             .to(getattr(torch, grad_dtype)) for p in params]
     n_state = {"adagrad": 1, "adam": 2, "sgd": 0}[optimizer]
     state = [[torch.rand(p.shape, generator=gen, device="cuda") * 0.01
               + (0.1 if optimizer == "adagrad" else 0.0) for p in params]
              for _ in range(n_state)]
     count = torch.tensor(3, dtype=torch.int32, device="cuda")
     _, bias = fu.adam_bias(count)
-    bias = bias if optimizer == "adam" else None
+    return params, grads, state, bias if optimizer == "adam" else None
+
+
+def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype: str,
+                       emit: bool = False, model: str = "flagship") -> dict:
+    """fused_update over a model's leaf set against the plain per-leaf
+    math on the same leaves, one step from a state three steps in; with
+    ``emit`` the bf16 compute copy it writes must be the exact recast of
+    the new masters. Timed: the kernel's device time, its call (host
+    included), the host's µs a call, the plain version and torch.optim."""
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    params, grads, state, bias = update_inputs(
+        torch, name=name, optimizer=optimizer, grad_dtype=grad_dtype,
+        model=model)
+    n_state = len(state)
 
     def clone(leaves):
         return [x.clone() for x in leaves]
@@ -569,7 +613,9 @@ def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype,
     kernel_fn = lambda: fu.fused_update(  # noqa: E731
         optimizer, 0.01, p_t, grads, s_t, bias=bias, compute=c_t)
     kernel_ms = _time_ms(torch, kernel_fn)
+    kernel_clean_ms = _time_ms(torch, kernel_fn, clean_l2=True)
     kernel_call_ms = _time_ms(torch, kernel_fn, host_ahead=False)
+    host_us = _host_us(torch, kernel_fn)
 
     def plain():
         for i, p in enumerate(p_t):
@@ -591,6 +637,7 @@ def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype,
     else:
         opt = torch.optim.SGD(lib_params, lr=0.01, foreach=True)
     library_ms = _time_ms(torch, opt.step, iters=10)
+    library_call_ms = _time_ms(torch, opt.step, iters=10, host_ahead=False)
 
     n = sum(p.numel() for p in params)
     g_bytes = grads[0].element_size()
@@ -600,13 +647,14 @@ def check_fused_update(torch, *, name: str, optimizer: str, grad_dtype,
     flops = n * {"adagrad": 7, "adam": 16, "sgd": 2}[optimizer]
     return {"phase": "kernels", "kernel": "fused_update", "case": name,
             "model": model, "optimizer": optimizer,
-            "grad_dtype": str(grad_dtype).removeprefix("torch."),
-            "emit_compute": emit,
+            "grad_dtype": grad_dtype, "emit_compute": emit,
             "leaves": len(params), "parameters": n,
             "max_abs_err": max(errs),
             "tolerance": {"atol": UPDATE_ATOL, "rtol": UPDATE_RTOL},
-            "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "kernel_ms": kernel_ms, "kernel_clean_l2_ms": kernel_clean_ms,
+            "kernel_call_ms": kernel_call_ms, "host_us": host_us,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_call_ms": library_call_ms,
             "library": type(opt).__name__ + (
                 " (fused)" if optimizer == "adam" else " (foreach)"),
             **_bound(nbytes, flops, "float32"),
@@ -655,6 +703,148 @@ def check_fused_update_gate(torch) -> dict:
             "count_after": {k: v[3] for k, v in results.items()}, "ok": ok}
 
 
+def _update_against_plain(torch, optimizer, params, grads, *, emit,
+                          gate=None, seed=0) -> dict:
+    """One fused_update of copies of ``params`` (moments drawn from
+    ``seed``) against the plain per-leaf math: within UPDATE_ATOL/RTOL,
+    the compute copy the exact recast of the new masters; with the gate
+    off, masters and moments bit-equal to what they were."""
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_state = {"adagrad": 1, "adam": 2, "sgd": 0}[optimizer]
+    state = [[torch.rand(p.shape, generator=gen, device="cuda") + 0.1
+              for p in params] for _ in range(n_state)]
+    _, bias = fu.adam_bias(torch.tensor(2, dtype=torch.int32, device="cuda"))
+    bias = bias if optimizer == "adam" else None
+    got_p = [p.clone() for p in params]
+    got_s = [[x.clone() for x in s] for s in state]
+    compute = ([torch.empty_like(p, dtype=torch.bfloat16) for p in params]
+               if emit else None)
+    before = fu.launch_counts["fused_update"]
+    fu.fused_update(optimizer, 0.01, got_p, grads, got_s, bias=bias,
+                    compute=compute, gate=gate)
+    launches = fu.launch_counts["fused_update"] - before
+    torch.cuda.synchronize()
+    flag = None if gate is None else gate.reshape(()).bool()
+    ok, err = True, 0.0
+    for i, p in enumerate(params):
+        want_p, want_s = fu._plain_leaf(optimizer, 0.01, p, grads[i],
+                                        [s[i] for s in state], bias, flag)
+        for got, want in [(got_p[i], want_p)] + [
+                (got_s[j][i], want_s[j]) for j in range(n_state)]:
+            diff = (got - want).abs()
+            if diff.numel():
+                err = max(err, diff.max().item())
+            ok = ok and bool((diff <= UPDATE_ATOL
+                              + UPDATE_RTOL * want.abs()).all())
+        if compute is not None:
+            ok = ok and torch.equal(compute[i], got_p[i].to(torch.bfloat16))
+        if flag is not None and not bool(flag):
+            ok = ok and torch.equal(got_p[i], p) and all(
+                torch.equal(got_s[j][i], state[j][i]) for j in range(n_state))
+    return {"ok": ok, "max_abs_err": err, "launches": launches}
+
+
+def _graph_replay(torch, optimizer: str, emit: bool, gated: bool) -> bool:
+    """``fused_apply`` captured once in a CUDA graph and replayed three
+    times (the gate flipped on, off, on between replays) against three
+    eager calls: masters, moments, adam's count and the compute copy
+    bit-equal."""
+    from sharetrade_tpu_torch.models.core import tree_leaves
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [(203, 200), (200,), (200, 3), (3,), (1025,)]
+    init = {f"l{i}": torch.randn(s, generator=gen, device="cuda")
+            for i, s in enumerate(shapes)}
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    flags = (True, False, True)
+    gate = torch.tensor(True, device="cuda") if gated else None
+
+    def fresh():
+        p = {k: v.clone() for k, v in init.items()}
+        return p, fu.init_state(optimizer, p)
+
+    def step(p, state):
+        return fu.fused_apply(optimizer, 0.01, grads, state, p,
+                              emit_compute=emit, gate=gate)
+
+    eager = fresh()
+    for flag in flags:
+        if gated:
+            gate.fill_(flag)
+        eager_out = step(*eager)
+    graphed = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(*graphed)
+    torch.cuda.current_stream().wait_stream(side)
+    for a, b in zip(tree_leaves(graphed), tree_leaves(fresh())):
+        a.copy_(b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graph_out = step(*graphed)
+    for flag in flags:
+        if gated:
+            gate.fill_(flag)
+        graph.replay()
+    torch.cuda.synchronize()
+    pairs = list(zip(tree_leaves(graphed), tree_leaves(eager)))
+    if emit:
+        pairs += zip(tree_leaves(graph_out[2]), tree_leaves(eager_out[2]))
+    return all(torch.equal(a, b) for a, b in pairs)
+
+
+def check_fused_update_corners(torch) -> list[dict]:
+    """fused_update's corner cases, held and not timed: leaves of odd sizes
+    (0, 1, 3, 7, 8, 9, 1,023, 1,025: a scalar tail after the 16-byte units)
+    and views at element offset 1 (the scalar path whole), a gate in its
+    own dtype (bool and int32, off and on), more leaves than one launch
+    takes, and fused_apply captured in a CUDA graph and replayed."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(n, dtype=torch.float32):
+        return torch.randn(n, generator=gen, device="cuda").to(dtype)
+
+    sizes = [0, 1, 3, 7, 8, 9, 1023, 1025]
+    for optimizer, dname, emit in (("adagrad", "bfloat16", True),
+                                   ("adam", "float32", True),
+                                   ("sgd", "float32", False)):
+        dtype = getattr(torch, dname)
+        params = [randn(n) for n in sizes] + [randn(1026)[1:], randn(1026),
+                                              randn(9)[1:]]
+        grads = [randn(n, dtype) for n in sizes] + [
+            randn(1025, dtype), randn(1027, dtype)[1:], randn(9, dtype)[1:]]
+        rows.append({"case": f"odd_sizes_misaligned_{optimizer}_{dname}",
+                     **_update_against_plain(torch, optimizer, params, grads,
+                                             emit=emit)})
+    shapes = [(203, 200), (200,), (200, 3), (3,)]
+    params = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    for dtype in (torch.bool, torch.int32):
+        for value in (0, 1):
+            gate = torch.tensor(value, device="cuda").to(dtype)
+            rows.append({
+                "case": f"gate_{str(dtype)[6:]}_{('off', 'on')[value]}",
+                **_update_against_plain(torch, "adagrad", params, grads,
+                                        emit=True, gate=gate, seed=5)})
+    many = [randn(n) for n in [35] * 66 + [1, 3, 1000, 130 * 257]]
+    row = _update_against_plain(torch, "adam", many,
+                                [randn(p.numel()) for p in many], emit=True)
+    rows.append({"case": "70_leaves", **row,
+                 "ok": row["ok"] and row["launches"] == 2})
+    for optimizer, emit, gated in (("adam", True, True),
+                                   ("adagrad", False, True),
+                                   ("sgd", True, False)):
+        rows.append({"case": f"graph_replay_{optimizer}",
+                     "ok": _graph_replay(torch, optimizer, emit, gated)})
+    return [{"phase": "kernels", "kernel": "fused_update", **r} for r in rows]
+
+
 def phase_kernels(torch) -> list[dict]:
     fwd_cases = [
         # The serving shape: a cold batch of 64 sessions, 2 heads, the
@@ -689,26 +879,6 @@ def phase_kernels(torch) -> list[dict]:
         dict(name="causal_f32", batch=8, heads=4, seq=256, head_dim=64,
              window=None, dtype=torch.float32),
     ]
-    update_cases = [
-        # The training path's case: adagrad, bf16 grads, and the next bf16
-        # compute copy written by the same pass.
-        dict(name="adagrad_bf16", optimizer="adagrad",
-             grad_dtype=torch.bfloat16, emit=True),
-        dict(name="adam_f32", optimizer="adam", grad_dtype=torch.float32),
-        dict(name="sgd_bf16", optimizer="sgd", grad_dtype=torch.bfloat16),
-        # The reference workload's shapes: the Q-network's 4 leaves (a
-        # 3-element bias among them) at every env step, and the
-        # actor-critic MLP's 8 (a 1-element bias) at every PG/A2C update;
-        # fp32 (the default) and bf16_mixed.
-        dict(name="q_mlp_adagrad_f32", optimizer="adagrad",
-             grad_dtype=torch.float32, model="q_mlp"),
-        dict(name="q_mlp_adagrad_bf16", optimizer="adagrad",
-             grad_dtype=torch.bfloat16, emit=True, model="q_mlp"),
-        dict(name="ac_mlp_adagrad_f32", optimizer="adagrad",
-             grad_dtype=torch.float32, model="ac_mlp"),
-        dict(name="ac_mlp_adagrad_bf16", optimizer="adagrad",
-             grad_dtype=torch.bfloat16, emit=True, model="ac_mlp"),
-    ]
     bf16 = torch.bfloat16
     # Corners of the bf16 (wgmma + TMA) kernels, held and not timed: shorter
     # than one tile, ragged tiles, each row seeing only itself, D = 64,
@@ -735,8 +905,9 @@ def phase_kernels(torch) -> list[dict]:
     for case in edge_cases:
         rows.append(check_flash_fwd(torch, **case, timed=False))
         rows += check_flash_bwd(torch, **case, timed=False)
-    rows += [check_fused_update(torch, **case) for case in update_cases]
+    rows += [check_fused_update(torch, **case) for case in UPDATE_CASES]
     rows.append(check_fused_update_gate(torch))
+    rows += check_fused_update_corners(torch)
     return rows
 
 
@@ -751,6 +922,10 @@ FLAGSHIP = [
 
 #: Every kernel of the port: its source, the Pallas kernels it replaces and
 #: its design per input dtype (the wrappers dispatch by dtype).
+#: ``fused_update``'s ``vec16+persistent`` moves every f32 operand as 16-byte
+#: vectors; with bf16 grads, the grads and the bf16 compute copy go as
+#: 8-byte vectors of 4 values, so that a warp's f32 and bf16 accesses cover
+#: the same contiguous elements (PERF.md section 6 has why).
 _WGMMA = {"bfloat16": "wgmma+tma", "float32": "simt"}
 KERNELS = {
     "flash_fwd": ("sharetrade_tpu_torch/csrc/flash_fwd.cu",
@@ -765,7 +940,8 @@ KERNELS = {
                       ["sharetrade_tpu/ops/attention.py:514"], _WGMMA),
     "fused_update": ("sharetrade_tpu_torch/csrc/fused_update.cu",
                      "sharetrade_tpu/ops/fused_update.py:102", [],
-                     {"bfloat16": "elementwise", "float32": "elementwise"}),
+                     {"bfloat16": "vec16+persistent",
+                      "float32": "vec16+persistent"}),
 }
 #: The kernels-phase case each kernel's line reports: the main paths' shape.
 KERNEL_CASE = {"flash_fwd": "serving_bf16", "flash_bwd_dq": "replay_bf16",

@@ -11,6 +11,10 @@ before any arithmetic, and masters and moments stay float32.
   CUDA tensors it launches the hand-written kernel ``csrc/fused_update.cu``
   ONCE for all leaves (up to 64 per launch; built at first use) or raises;
   on CPU tensors it runs the plain per-leaf math. No fallback between them.
+  Its launch plan (:func:`plan_update`: tiles, the leaves' prefix table,
+  the split into launches) is pure arithmetic of the leaf sizes, built once
+  per leaf shapes and kept with a reusable ctypes table; a call checks each
+  list of leaves in one pass and writes their current addresses into it.
 - :func:`fused_apply` is the tree-level entry the learners call, with the
   optax-shaped state (``ScaleByRssState`` / ``ScaleByAdamState`` /
   ``EmptyState`` tuples, the same field names).
@@ -29,6 +33,10 @@ waits for the flag's value.
 from __future__ import annotations
 
 import ctypes
+import functools
+import operator
+import threading
+from collections import OrderedDict
 from typing import Any, NamedTuple
 
 import torch
@@ -125,58 +133,194 @@ def adam_bias(count: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# the launch plan (pure arithmetic of the leaf sizes; the CPU tests walk it)
+# ---------------------------------------------------------------------------
+
+#: Elements a vector: a float4 of each f32 operand, 8 bytes of each bf16
+#: one (``csrc/fused_update.cu`` kVec).
+VEC = 4
+#: Elements a thread updates in a tile, by optimizer: two vectors,
+#: ``VEC * tile_units`` apart so a warp's accesses are contiguous; one for
+#: adam, whose four f32 streams would hold twice the registers
+#: (``kVecsOf`` in the kernel).
+UNITS = {"adagrad": 2 * VEC, "adam": VEC, "sgd": 2 * VEC}
+#: Leaves a launch takes (the kernel's by-value table, kMaxLeaves).
+MAX_LEAVES = 64
+#: Block sizes, largest first; a tile is one unit per thread of a block.
+TILE_UNITS = (128, 64, 32)
+
+
+class UpdatePlan(NamedTuple):
+    """How one launch set covers a list of leaves.
+
+    ``tile_units`` threads per block, each updating ``unit`` elements
+    (:data:`UNITS`), so a tile is ``tile_units * unit`` contiguous elements
+    of one leaf; ``tile_start[j]`` is the number of tiles of leaves ``0..j-1`` (the
+    prefix table the kernel searches; ``len(sizes) + 1`` entries);
+    ``launches`` the ``(first, end)`` leaf ranges launched, at most
+    ``MAX_LEAVES`` leaves each, in order, those without a tile left out."""
+    unit: int
+    tile_units: int
+    tile_start: tuple
+    launches: tuple
+
+
+def plan_update(sizes: list[int], sms: int, unit: int) -> UpdatePlan:
+    """The plan for leaves of ``sizes`` elements on a card with ``sms``
+    SMs, ``unit`` elements a thread: the largest block whose tiles number
+    at least ``sms`` (so a small set still spreads over the SMs; 32 threads
+    when none does), each leaf cut into whole tiles starting at its
+    element 0."""
+    units = [-(-n // unit) for n in sizes]
+    tile_units = next((t for t in TILE_UNITS
+                       if sum(-(-u // t) for u in units) >= sms),
+                      TILE_UNITS[-1])
+    tile_start = [0]
+    for u in units:
+        tile_start.append(tile_start[-1] + -(-u // tile_units))
+    launches = tuple(
+        (first, min(first + MAX_LEAVES, len(sizes)))
+        for first in range(0, len(sizes), MAX_LEAVES)
+        if tile_start[min(first + MAX_LEAVES, len(sizes))] > tile_start[first])
+    return UpdatePlan(unit, tile_units, tuple(tile_start), launches)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
+
+class _Call(ctypes.Structure):
+    """``FusedUpdateCall`` of ``csrc/fused_update.cu``, field for field."""
+    _fields_ = [("optimizer", ctypes.c_int), ("grad_dtype", ctypes.c_int),
+                ("emit", ctypes.c_int), ("n_leaves", ctypes.c_int),
+                ("tile_units", ctypes.c_int), ("unit", ctypes.c_int),
+                ("n_launches", ctypes.c_int),
+                ("launch_leaves", ctypes.c_void_p),
+                ("tile_start", ctypes.c_void_p), ("sizes", ctypes.c_void_p),
+                ("p", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("s1", ctypes.c_void_p), ("s2", ctypes.c_void_p),
+                ("pc", ctypes.c_void_p), ("lr", ctypes.c_float),
+                ("bias", ctypes.c_void_p), ("gate", ctypes.c_void_p),
+                ("gate_bytes", ctypes.c_int), ("stream", ctypes.c_void_p),
+                ("launched", ctypes.c_int)]
+
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_update")
     fn = lib.fused_update
     if fn.argtypes is None:
-        ptrs = ctypes.POINTER(ctypes.c_longlong)
-        fn.argtypes = ([ctypes.c_int] * 4 + [ptrs] * 6
-                       + [ctypes.c_float] + [ctypes.c_void_p] * 3
-                       + [ctypes.POINTER(ctypes.c_int)])
+        fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(optimizer, params, grads, state, compute) -> None:
-    n_state = {"adagrad": 1, "adam": 2, "sgd": 0}[optimizer]
-    if len(state) != n_state:
-        raise ValueError(f"fused_update: {optimizer} takes {n_state} state "
-                         f"lists, got {len(state)}")
-    lists = [("grads", grads)] + [(f"state[{j}]", s)
-                                  for j, s in enumerate(state)]
-    if compute is not None:
-        lists.append(("compute", compute))
-    for label, leaves in lists:
-        if len(leaves) != len(params):
-            raise ValueError(f"fused_update: {len(leaves)} {label} leaves "
-                             f"for {len(params)} params")
-    device = params[0].device
-    grad_dtype = grads[0].dtype
-    if grad_dtype not in _GRAD_CODES:
-        raise ValueError(f"fused_update: grads are {grad_dtype}; the kernel "
-                         f"takes {sorted(map(str, _GRAD_CODES))}")
-    for i, p in enumerate(params):
-        tensors = [("param", p, torch.float32), ("grad", grads[i], grad_dtype)]
-        tensors += [(f"state[{j}]", s[i], torch.float32)
-                    for j, s in enumerate(state)]
-        if compute is not None:
-            tensors.append(("compute", compute[i], torch.bfloat16))
-        for label, t, dtype in tensors:
-            if t.device != device or t.device.type != "cuda":
-                raise ValueError(f"fused_update: {label} leaf {i} is on "
-                                 f"{t.device}, expected {device} (CUDA)")
-            if t.dtype != dtype:
-                raise ValueError(f"fused_update: {label} leaf {i} is "
-                                 f"{t.dtype}, expected {dtype}")
-            if t.shape != p.shape:
-                raise ValueError(f"fused_update: {label} leaf {i} has shape "
-                                 f"{tuple(t.shape)}, param {tuple(p.shape)}")
-            if not t.is_contiguous():
-                raise ValueError(f"fused_update: {label} leaf {i} must be "
-                                 "contiguous")
+def _check_leaves(label: str, leaves: list, dtype, shapes: list,
+                  device: torch.device) -> None:
+    """Raise on the first leaf of ``leaves`` that is not a contiguous
+    ``dtype`` tensor of its param's shape on ``device``."""
+    if len(leaves) != len(shapes):
+        raise ValueError(f"fused_update: {len(leaves)} {label} leaves for "
+                         f"{len(shapes)} params")
+    for i, t in enumerate(leaves):
+        if t.device != device:
+            raise ValueError(f"fused_update: {label} leaf {i} is on "
+                             f"{t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"fused_update: {label} leaf {i} is "
+                             f"{t.dtype}, expected {dtype}")
+        if t.shape != shapes[i]:
+            raise ValueError(f"fused_update: {label} leaf {i} has shape "
+                             f"{tuple(t.shape)}, param {tuple(shapes[i])}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_update: {label} leaf {i} must be "
+                             "contiguous")
+
+
+_dtype_of = operator.attrgetter("dtype")
+_shape_of = operator.attrgetter("shape")
+
+
+class _Plan:
+    """The launch plan of leaves of ``shapes`` on device ``index`` and the
+    ctypes call that carries it. It holds no tensor: every call checks each
+    list it is given in one pass (dtype, shape, device, contiguity) and
+    writes the leaves' current addresses into the call's arrays in place, so
+    a tensor whose storage was swapped (``set_``, ``.data =``) is launched
+    at its new address, and one whose shape, dtype or strides changed
+    raises. ``lock`` makes a call's binding and launch one step, so two
+    threads updating leaf sets of the same shapes do not mix addresses."""
+
+    def __init__(self, optimizer: str, grad_dtype, emit: bool, shapes,
+                 index: int, sms: int):
+        self.index = index
+        self.device = (torch.device("cuda", index) if index >= 0
+                       else torch.device("cpu"))
+        self.shapes = list(shapes)
+        self.n = n = len(shapes)
+        self.indices = [index] * n
+        self.dtypes = {dtype: [dtype] * n
+                       for dtype in (torch.float32, *_GRAD_CODES)}
+        sizes = [s.numel() for s in shapes]
+        plan = plan_update(sizes, sms, UNITS[optimizer])
+        arrays = {name: (ctypes.c_longlong * n)()
+                  for name in ("p", "g", "s1", "s2", "pc", "sizes")}
+        arrays["sizes"][:] = sizes
+        arrays["launch_leaves"] = (ctypes.c_int * (2 * len(plan.launches)))(
+            *[j for launch in plan.launches for j in launch])
+        arrays["tile_start"] = (ctypes.c_int * (n + 1))(*plan.tile_start)
+        self.arrays = arrays
+        self.call = _Call(
+            optimizer=_OPT_CODES[optimizer], grad_dtype=_GRAD_CODES[grad_dtype],
+            emit=int(emit), n_leaves=n, tile_units=plan.tile_units,
+            unit=plan.unit, n_launches=len(plan.launches),
+            **{name: ctypes.addressof(arr) for name, arr in arrays.items()})
+        self.address = ctypes.addressof(self.call)
+        self.launch = None    # the C entry point, loaded at the first launch
+        self.lock = threading.Lock()
+
+    def bind(self, slot: str, label: str, leaves: list, dtype,
+             shapes: tuple | None = None) -> None:
+        """Point the call's ``slot`` array at ``leaves`` after one pass of
+        checks: each a contiguous ``dtype`` tensor of its param's shape on
+        the plan's device (``shapes``: the leaves' shapes, where the caller
+        has them)."""
+        if shapes is None:
+            shapes = list(map(_shape_of, leaves))
+        if not (len(leaves) == self.n
+                and list(map(_dtype_of, leaves)) == self.dtypes[dtype]
+                and list(shapes) == self.shapes
+                and list(map(torch.Tensor.get_device, leaves)) == self.indices
+                and all(map(torch.Tensor.is_contiguous, leaves))):
+            _check_leaves(label, leaves, dtype, self.shapes, self.device)
+        self.arrays[slot][:] = list(map(torch.Tensor.data_ptr, leaves))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: Plans by (optimizer, grad dtype, emit, device, the leaves' shapes), the
+#: most recently used last. A plan holds no tensor, only its ctypes tables.
+_PLANS: OrderedDict[tuple, _Plan] = OrderedDict()
+_MAX_PLANS = 8
+
+
+def _plan_for(optimizer: str, grad_dtype, emit: bool, shapes: tuple,
+              index: int) -> _Plan:
+    key = (optimizer, grad_dtype, emit, index, shapes)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _Plan(optimizer, grad_dtype, emit, shapes, index, _sms(index))
+        _PLANS[key] = plan
+        while len(_PLANS) > _MAX_PLANS:
+            _PLANS.popitem(last=False)
+    else:
+        _PLANS.move_to_end(key)
+    return plan
+
+
+_N_STATE = {"adagrad": 1, "adam": 2, "sgd": 0}
 
 
 def fused_update(optimizer: str, lr: float, params: list, grads: list,
@@ -191,8 +335,9 @@ def fused_update(optimizer: str, lr: float, params: list, grads: list,
     recast of each new master; ``gate``, a one-element bool or integer
     tensor on the params' device, updates nothing where it is false (the
     compute copy is then the recast of the unchanged masters). CUDA tensors
-    launch the kernel (one launch for up to 64 leaves); CPU tensors take the
-    plain version."""
+    launch the kernel (one launch for up to 64 leaves; nothing synchronises
+    and nothing is copied from the host, so the call can be captured in a
+    CUDA graph); CPU tensors take the plain version."""
     if optimizer not in _OPT_CODES:
         raise ValueError(f"fused update does not support optimizer "
                          f"{optimizer!r}; choose from {OPTIMIZERS}")
@@ -200,13 +345,14 @@ def fused_update(optimizer: str, lr: float, params: list, grads: list,
         raise ValueError("fused_update: adam needs its bias corrections")
     if not params:
         return
-    if gate is not None:
-        if gate.numel() != 1 or gate.device != params[0].device:
-            raise ValueError("fused_update: gate must be a one-element "
-                             f"tensor on {params[0].device}")
-        gate = gate.reshape(())
-    if params[0].device.type == "cpu":
-        flag = None if gate is None else gate.bool()
+    if gate is not None and (gate.numel() != 1
+                             or gate.get_device() != params[0].get_device()
+                             or gate.dtype.is_floating_point
+                             or gate.dtype.is_complex):
+        raise ValueError("fused_update: gate must be a one-element bool or "
+                         f"integer tensor on {params[0].device}")
+    if params[0].is_cpu:
+        flag = None if gate is None else gate.reshape(()).bool()
         for i, p in enumerate(params):
             p_new, s_new = _plain_leaf(optimizer, lr, p, grads[i],
                                        [s[i] for s in state], bias, flag)
@@ -216,37 +362,52 @@ def fused_update(optimizer: str, lr: float, params: list, grads: list,
             if compute is not None:
                 compute[i].copy_(p_new)
         return
-    _check(optimizer, params, grads, state, compute)
-    if bias is not None and (bias.device != params[0].device
+    n_state = _N_STATE[optimizer]
+    if len(state) != n_state:
+        raise ValueError(f"fused_update: {optimizer} takes {n_state} state "
+                         f"lists, got {len(state)}")
+    grad_dtype = grads[0].dtype if grads else None
+    if grad_dtype not in _GRAD_CODES:
+        raise ValueError(f"fused_update: grads are {grad_dtype}; the kernel "
+                         f"takes {sorted(map(str, _GRAD_CODES))}")
+    if bias is not None and (bias.get_device() != params[0].get_device()
                              or bias.dtype != torch.float32
                              or bias.shape != (2,)):
         raise ValueError("fused_update: bias must be a float32 (2,) tensor "
                          f"on {params[0].device}")
-    n = len(params)
-    flag = None if gate is None else gate.to(torch.int32).reshape(1)
-
-    def table(leaves):
-        return (ctypes.c_longlong * n)(*[
-            0 if leaves is None else leaves[i].data_ptr() for i in range(n)])
-
-    launches = ctypes.c_int(0)
-    with torch.cuda.device(params[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().fused_update(
-            _OPT_CODES[optimizer], _GRAD_CODES[grads[0].dtype],
-            0 if compute is None else 1, n,
-            table(params), table(grads),
-            table(state[0] if state else None),
-            table(state[1] if len(state) > 1 else None),
-            table(compute),
-            (ctypes.c_longlong * n)(*[p.numel() for p in params]),
-            float(lr), None if bias is None else bias.data_ptr(),
-            None if gate is None else flag.data_ptr(), stream,
-            ctypes.byref(launches))
+    index = params[0].get_device()
+    if index < 0:
+        raise ValueError(f"fused_update: param leaf 0 is on "
+                         f"{params[0].device}, expected CPU or CUDA")
+    shapes = tuple(map(_shape_of, params))
+    plan = _plan_for(optimizer, grad_dtype, compute is not None, shapes,
+                     index)
+    with plan.lock:
+        plan.bind("p", "param", params, torch.float32, shapes)
+        plan.bind("g", "grads", grads, grad_dtype)
+        for j, leaves in enumerate(state):
+            plan.bind(("s1", "s2")[j], f"state[{j}]", leaves, torch.float32)
+        if compute is not None:
+            plan.bind("pc", "compute", compute, torch.bfloat16)
+        if plan.launch is None:
+            plan.launch = _library().fused_update
+        call = plan.call
+        call.lr = lr
+        call.bias = None if bias is None else bias.data_ptr()
+        call.gate = None if gate is None else gate.data_ptr()
+        call.gate_bytes = 0 if gate is None else gate.element_size()
+        if plan.index == torch._C._cuda_getDevice():
+            call.stream = torch._C._cuda_getCurrentRawStream(plan.index)
+            err = plan.launch(plan.address)
+        else:
+            with torch.cuda.device(plan.index):
+                call.stream = torch._C._cuda_getCurrentRawStream(plan.index)
+                err = plan.launch(plan.address)
+        launched = call.launched
     if err != 0:
         raise RuntimeError(f"fused_update kernel launch failed: CUDA error "
                            f"{err}")
-    launch_counts["fused_update"] += launches.value
+    launch_counts["fused_update"] += launched
 
 
 # ---------------------------------------------------------------------------

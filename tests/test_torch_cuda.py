@@ -371,6 +371,153 @@ def test_fused_update_refuses_what_the_kernel_does_not_take(cuda):
                         gate=torch.ones(2, device="cuda"))
 
 
+def _update_against_plain(fu, optimizer, params, grads, *, gen, emit,
+                          gate=None):
+    """One fused_update of copies of ``params`` against the plain per-leaf
+    math; the compute copy must be the exact recast, and with the gate off
+    masters and moments must keep their bits."""
+    n_state = {"adagrad": 1, "adam": 2, "sgd": 0}[optimizer]
+    state = [[torch.rand(p.shape, generator=gen, device="cuda") + 0.1
+              for p in params] for _ in range(n_state)]
+    _, bias = fu.adam_bias(torch.tensor(2, dtype=torch.int32, device="cuda"))
+    bias = bias if optimizer == "adam" else None
+    got_p = [p.clone() for p in params]
+    got_s = [[x.clone() for x in s] for s in state]
+    compute = ([torch.empty_like(p, dtype=torch.bfloat16) for p in params]
+               if emit else None)
+    fu.fused_update(optimizer, 0.01, got_p, grads, got_s, bias=bias,
+                    compute=compute, gate=gate)
+    flag = None if gate is None else gate.reshape(()).bool()
+    for i, p in enumerate(params):
+        want_p, want_s = fu._plain_leaf(optimizer, 0.01, p, grads[i],
+                                        [s[i] for s in state], bias, flag)
+        torch.testing.assert_close(got_p[i], want_p, atol=1e-6, rtol=1e-6)
+        for j in range(n_state):
+            torch.testing.assert_close(got_s[j][i], want_s[j], atol=1e-6,
+                                       rtol=1e-6)
+        if compute is not None:
+            assert torch.equal(compute[i], got_p[i].to(torch.bfloat16))
+        if flag is not None and not bool(flag):
+            assert torch.equal(got_p[i], p)
+            for j in range(n_state):
+                assert torch.equal(got_s[j][i], state[j][i])
+    return got_p, got_s, compute
+
+
+@pytest.mark.parametrize("optimizer,grad_dtype,emit", [
+    ("adagrad", torch.bfloat16, True),
+    ("adagrad", torch.float32, False),
+    ("adam", torch.float32, True),
+    ("sgd", torch.bfloat16, False),
+])
+def test_fused_update_odd_sizes_and_misaligned_leaves(cuda, optimizer,
+                                                      grad_dtype, emit):
+    """Leaves of 0, 1, 3, 7, 8, 9, 1,023 and 1,025 elements (a scalar
+    tail after the 16-byte units, or nothing but one), and leaves that are
+    contiguous views at element offset 1 of a larger buffer (a master, a
+    grad, both): those take the scalar path whole."""
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sizes = [0, 1, 3, 7, 8, 9, 1023, 1025]
+
+    def randn(n, dtype=torch.float32):
+        return torch.randn(n, generator=gen, device="cuda").to(dtype)
+
+    params = [randn(n) for n in sizes] + [randn(1026)[1:], randn(1026),
+                                          randn(9)[1:]]
+    grads = [randn(n, grad_dtype) for n in sizes] + [
+        randn(1025, grad_dtype), randn(1027, grad_dtype)[1:],
+        randn(9, grad_dtype)[1:]]
+    assert params[-3].data_ptr() % 16 and grads[-2].data_ptr() % 16
+    _update_against_plain(fu, optimizer, params, grads, gen=gen, emit=emit)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.int32,
+                                   torch.int64])
+def test_fused_update_reads_the_gate_in_its_own_dtype(cuda, dtype):
+    """The gate is read in its own width, with no cast launched: off leaves
+    masters and moments bit for bit (the compute copy the recast of the
+    old masters), on gives the ungated update bit for bit."""
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shapes = [(203, 200), (200,), (200, 3), (3,)]
+    params = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    for value in (0, 1):
+        gate = torch.tensor(value, device="cuda").to(dtype)
+        g2 = torch.Generator(device="cuda").manual_seed(5)
+        _, _, compute = _update_against_plain(
+            fu, "adagrad", params, grads, gen=g2, emit=True, gate=gate)
+        if value == 0:
+            for c, p in zip(compute, params):
+                assert torch.equal(c, p.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("optimizer,emit,gated", [
+    ("adam", True, True), ("adagrad", False, True), ("sgd", True, False)])
+def test_fused_apply_captured_in_a_cuda_graph_replays_bit_equal(
+        cuda, optimizer, emit, gated):
+    """``fused_apply``, gate included, captured once in a CUDA graph and
+    replayed over the same static buffers gives masters, moments, adam's
+    count and the compute copy bit-equal to the same eager calls; the gate
+    is flipped between replays (on, off, on), so the replay reads it on
+    the device."""
+    from sharetrade_tpu_torch.models.core import tree_leaves
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [(203, 200), (200,), (200, 3), (3,), (1025,)]
+    init = {f"l{i}": torch.randn(s, generator=gen, device="cuda")
+            for i, s in enumerate(shapes)}
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    flags = [True, False, True]
+
+    def fresh():
+        p = {k: v.clone() for k, v in init.items()}
+        return p, fu.init_state(optimizer, p)
+
+    gate = torch.tensor(True, device="cuda") if gated else None
+
+    def step(p, state):
+        return fu.fused_apply(optimizer, 0.01, grads, state, p,
+                              emit_compute=emit, gate=gate)
+
+    eager_p, eager_s = fresh()
+    for flag in flags:
+        if gated:
+            gate.fill_(flag)
+        out = step(eager_p, eager_s)
+    eager_c = out[2] if emit else None
+
+    graph_p, graph_s = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(graph_p, graph_s)
+    torch.cuda.current_stream().wait_stream(side)
+    reset_p, reset_s = fresh()
+    for a, b in zip(tree_leaves((graph_p, graph_s)),
+                    tree_leaves((reset_p, reset_s))):
+        a.copy_(b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(graph_p, graph_s)
+    for flag in flags:
+        if gated:
+            gate.fill_(flag)
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(tree_leaves((graph_p, graph_s)),
+                    tree_leaves((eager_p, eager_s))):
+        assert torch.equal(a, b)
+    if emit:
+        for a, b in zip(tree_leaves(out[2]), tree_leaves(eager_c)):
+            assert torch.equal(a, b)
+
+
 def test_ppo_minibatch_through_kernels_matches_plain(cuda):
     """One PPO minibatch at a reduced flagship (Dh 128, window 201; 16
     agents, unroll 32, bf16_mixed) three ways: the bf16 model through the

@@ -11,7 +11,12 @@ the CUDA sources, so the line cannot claim a design the code lacks:
   the cluster size, is above 1, and its body meets the cluster barrier.
 - ``simt`` means the file defines ``<name>_simt``, with no ``wgmma`` in its
   body, and the entry point sends that dtype to it.
-- ``elementwise`` means the file defines ``<name>_kernel``.
+- ``vec16+persistent`` means every kernel launch in the file (``<<<``)
+  launches ``<name>_vec``, a ``__global__`` kernel the file defines, that
+  the file has the plain C entry point ``<name>``, that the kernel and the
+  ``__device__`` functions it calls move data as 16-byte vectors
+  (``float4``, ``uint4`` or ``.v4``), and that the kernel walks its tiles
+  with a loop stepping by ``gridDim.x`` (a persistent grid).
 - The TPU kernels each entry replaces are Python functions at the lines
   named.
 """
@@ -35,7 +40,7 @@ def _chip_smoke():
 
 KERNELS = _chip_smoke().KERNELS
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
-SUFFIX = {"wgmma": "_wgmma", "simt": "_simt", "elementwise": "_kernel"}
+SUFFIX = {"wgmma": "_wgmma", "simt": "_simt", "vec16": "_vec"}
 _GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
                      r"(\w+)\s*\(")
 
@@ -51,6 +56,35 @@ def _kernel_body(text: str, kernel: str) -> str:
     found = [m for m in _GLOBAL.finditer(text) if m.group(1) == kernel]
     assert found, f"no __global__ kernel {kernel}"
     return _body(text, found[0].start())
+
+
+def _device_closure(text: str, body: str) -> str:
+    """``body`` and, transitively, the bodies of the ``__device__``
+    functions of ``text`` it names."""
+    defs = {m.group(1): m.start() for m in re.finditer(
+        r"__device__\s+__forceinline__\s+[\w:<>]+\s+(\w+)\s*\(", text)}
+    seen, todo, out = set(), [body], [body]
+    while todo:
+        for name in set(re.findall(r"\b(\w+)\s*(?:<[^<>()]*>)?\s*\(",
+                                   todo.pop())):
+            if name in defs and name not in seen:
+                seen.add(name)
+                # Every overload of the name.
+                for m in re.finditer(
+                        rf"__device__\s+__forceinline__\s+[\w:<>]+\s+"
+                        rf"{name}\s*\(", text):
+                    part = _body(text, m.start())
+                    todo.append(part)
+                    out.append(part)
+    return "\n".join(out)
+
+
+def _launched_kernels(text: str) -> set[str]:
+    """The kernels the file's ``<<<`` launches name, a local alias
+    (``auto kernel = f<...>;``) resolved."""
+    aliases = dict(re.findall(r"auto\s+(\w+)\s*=\s*(\w+)\s*<", text))
+    names = re.findall(r"(\w+)\s*(?:<[^<>]*>)?\s*<<<", text)
+    return {aliases.get(n, n) for n in names}
 
 
 def _launcher_for(text: str, name: str, code: int) -> str:
@@ -72,7 +106,17 @@ def test_design_matches_source(name, dtype):
     kind, *features = design[dtype].split("+")
     kernel = name + SUFFIX[kind]
     body = _kernel_body(text, kernel)
-    if kind == "elementwise":
+    if kind == "vec16":
+        assert re.search(rf'extern "C" int {name}\(', text), \
+            f"no C entry point {name}"
+        assert _launched_kernels(text) == {kernel}, \
+            f"{source} launches {_launched_kernels(text)}, not {kernel}"
+        closure = _device_closure(text, body)
+        assert re.search(r"\bfloat4\b|\buint4\b|\.v4\b", closure), \
+            f"{kernel} has no 16-byte access"
+        if "persistent" in features:
+            assert re.search(r"\+=?\s*gridDim\.x", body), \
+                f"{kernel} has no grid-stride loop over gridDim.x"
         return
     for launcher in _launcher_for(text, name, DTYPE_CODES[dtype]):
         assert launcher.split("<")[0].endswith(kind), \

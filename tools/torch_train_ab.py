@@ -1,17 +1,20 @@
-"""What checkpoints cost the port's ``cli train`` at the flagship, on one card.
+"""``cli train`` of this checkout against a parent checkout, on one card.
 
-    python3 tools/torch_train_ab.py --parent DIR [--pairs 3] [--repeats 3]
+    python3 tools/torch_train_ab.py --parent DIR [--workload flagship]
+                                    [--pairs 3] [--repeats 3]
 
-Part 1, end to end: ``python -m sharetrade_tpu_torch.cli train`` on the
-flagship config (``chip_smoke.FLAGSHIP_TRAIN``) with the 2,249-price
-series, one 2-chunk episode, run in the checkout at ``--parent`` and in
-this one. Each tree first runs once to build its kernels (reported, not
-counted); then ``--pairs`` pairs in the order parent, this, this, parent,
-parent, this, ...; this checkout's runs each write their checkpoints into
-a fresh directory (a checkout from before checkpoints were ported refuses
-``runtime.checkpoint_dir`` and writes none). One JSON line
-per run (``elapsed_s``, ``agent_steps_per_sec``, ``avg_portfolio``), then
-the medians of each tree.
+Part 1, end to end: ``python -m sharetrade_tpu_torch.cli train`` from the
+checkout at ``--parent`` and from this one, each run in a fresh temporary
+working directory (its checkpoints land there) with the tree on
+``PYTHONPATH``. ``--workload flagship``: the flagship config
+(``chip_smoke.FLAGSHIP_TRAIN``) with the 2,249-price series, one 2-chunk
+episode; ``--workload reference``: the JAX package's defaults, no
+``--set`` at all (the Q-network's one 5,845-step Q-learning episode).
+Each tree first runs once to build its kernels (reported, not counted);
+then ``--pairs`` pairs in the order parent, this, this, parent, parent,
+this, ... One JSON line per run (``elapsed_s``, ``agent_steps_per_sec``,
+``avg_portfolio``, ``std_portfolio``), then the medians of each tree and
+whether every run of both trees ended on the same portfolio digits.
 
 Part 2, the split, in this process and this checkout: the same training
 through the ``Orchestrator``, ``--repeats`` times each with checkpoints as
@@ -22,7 +25,8 @@ stays), alternating, after one warm-up run. Each run gives the baseline
 ``save_async`` call's host time and its ``save_stats``, each chunk's step
 time (``chunk_seconds``: the writer of the baseline runs beside chunk 0),
 the wait for that writer before the final save, the final save's time, and
-the run's wall time. Then the medians of each setting.
+the run's wall time. Then the medians of each setting. Flagship only;
+``--repeats 0`` skips it.
 
 Needs a card; imports nothing of JAX.
 """
@@ -44,22 +48,24 @@ sys.path.insert(0, ROOT)
 from chip_smoke import FLAGSHIP_TRAIN  # noqa: E402
 
 CONFIG = FLAGSHIP_TRAIN + ["data.synthetic_length=2249"]
+#: ``--set`` items of each workload.
+WORKLOADS = {"flagship": CONFIG, "reference": []}
 
 
 def _print(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cli_train(tree: str, *, checkpoints: bool) -> dict:
-    """One ``cli train`` run in ``tree``: its summary line; with
-    ``checkpoints``, into a fresh checkpoint directory."""
-    with tempfile.TemporaryDirectory(prefix="train-ab-") as ckpts:
-        cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train"]
-        extra = [f"runtime.checkpoint_dir={ckpts}"] if checkpoints else []
-        for item in CONFIG + extra:
-            cmd += ["--set", item]
+def cli_train(tree: str, items: list[str]) -> dict:
+    """One ``cli train`` run of ``tree`` with ``--set`` ``items``, from a
+    fresh working directory: its summary line."""
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train"]
+    for item in items:
+        cmd += ["--set", item]
+    env = dict(os.environ, PYTHONPATH=tree)
+    with tempfile.TemporaryDirectory(prefix="train-ab-") as cwd:
         proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600, cwd=tree)
+                              timeout=900, cwd=cwd, env=env)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     if proc.returncode != 0 or not lines:
         raise RuntimeError(f"cli train in {tree} exited {proc.returncode}: "
@@ -67,26 +73,31 @@ def cli_train(tree: str, *, checkpoints: bool) -> dict:
     return json.loads(lines[-1])
 
 
-def part1(parent: str, pairs: int) -> dict:
+def part1(parent: str, pairs: int, items: list[str]) -> dict:
     trees = {"parent": parent, "change": ROOT}
+    keys = ("elapsed_s", "agent_steps_per_sec", "avg_portfolio",
+            "std_portfolio")
+    digits = set()
     for name, tree in trees.items():
-        _print({"part": 1, "warmup": name,
-                **cli_train(tree, checkpoints=name == "change")})
+        out = cli_train(tree, items)
+        digits.add((out["avg_portfolio"], out["std_portfolio"]))
+        _print({"part": 1, "warmup": name, **out})
     order = []
     for i in range(pairs):
         order += (["parent", "change"] if i % 2 == 0
                   else ["change", "parent"])
     runs: dict[str, list] = {"parent": [], "change": []}
     for name in order:
-        out = cli_train(trees[name], checkpoints=name == "change")
+        out = cli_train(trees[name], items)
         runs[name].append(out)
-        _print({"part": 1, "tree": name,
-                **{k: out[k] for k in ("elapsed_s", "agent_steps_per_sec",
-                                       "avg_portfolio")}})
+        digits.add((out["avg_portfolio"], out["std_portfolio"]))
+        _print({"part": 1, "tree": name, **{k: out[k] for k in keys}})
     summary = {name: {key: statistics.median(r[key] for r in rows)
                       for key in ("elapsed_s", "agent_steps_per_sec")}
                for name, rows in runs.items()}
     summary["order"] = order
+    summary["portfolio_digits"] = sorted(digits)
+    summary["bit_equal"] = len(digits) == 1
     return summary
 
 
@@ -177,6 +188,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", required=True,
                         help="a checkout of the parent commit")
+    parser.add_argument("--workload", choices=sorted(WORKLOADS),
+                        default="flagship")
     parser.add_argument("--pairs", type=int, default=3)
     parser.add_argument("--repeats", type=int, default=3)
     args = parser.parse_args()
@@ -185,9 +198,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    result = {"card": card, "part1": part1(os.path.abspath(args.parent),
-                                            args.pairs),
-              "part2": part2(args.repeats)}
+    result = {"card": card, "workload": args.workload,
+              "part1": part1(os.path.abspath(args.parent), args.pairs,
+                             WORKLOADS[args.workload])}
+    if args.workload == "flagship" and args.repeats > 0:
+        result["part2"] = part2(args.repeats)
     _print(result)
     return 0
 
