@@ -41,7 +41,9 @@ Phases, in order (any failure exits non-zero before the final line):
                against the same batch through the plain attention.
 6. cli       — ``python -m sharetrade_tpu_torch.cli serve`` for a few seconds.
 7. cli_train — ``python -m sharetrade_tpu_torch.cli train`` on the flagship
-               config with a 2,249-price series (one 2-chunk episode).
+               config with a 2,249-price series (one 2-chunk episode); it
+               must end on the eager step's portfolio digits
+               (``FLAGSHIP_DIGITS``).
 8. resilience — checkpoints, supervision and evaluation at the flagship,
                one save per chunk (``runtime.checkpoint_every_updates=16``),
                the 2,249-price series: (a) two uninterrupted 2-chunk runs,
@@ -75,10 +77,31 @@ Phases, in order (any failure exits non-zero before the final line):
                after (c): ``fused_update`` once per env step of the
                Q-learners and once per PG/A2C update. Prints agent-steps/s,
                chunk ms, launches per chunk, the DQN save's bytes and time.
-10. cli_defaults — ``cli train --eval`` and ``cli serve`` with no ``--set``
-               but the checkpoint directory; serve boots from train's
-               ``tag_best`` and warns once that ``serve.swap_poll_s`` is not
-               ported.
+10. pipeline — the chunk as a CUDA graph (``agents/base.py``
+               ``ChunkProgram``) and the orchestrator's default hot loop:
+               (a) the reference episode eagerly (``agent.step``), then
+               through the orchestrator at its defaults (an eager first
+               chunk, then one graph replay a chunk, the async readback
+               pipeline, a sample every 10 chunks), at K=8, and at K=8
+               with double buffering: each bit-equal to the eager episode
+               and ending on ``REFERENCE_DIGITS``; chunk ms and agent-steps/s
+               of each, the capture's seconds and graph nodes, launches per
+               replay, and of a replayed chunk its CUDA-event time and
+               ``torch.profiler`` busy share; (b) three chunks each of DQN,
+               PER, PG and A2C and (c) of the flagship PPO, eager against
+               graph (the third a plain replay): bit-equal states and
+               metrics, the same launches per chunk (34/32/32/16 at the
+               flagship), chunk ms, capture seconds, graph nodes and peak
+               device memory of each, and the flagship's replayed chunk
+               timed and profiled as in (a).
+11. cli_defaults — ``cli train --eval`` and ``cli serve`` with no ``--set``
+               but the checkpoint directory; train must end on
+               ``REFERENCE_DIGITS``, serve boots from train's ``tag_best``
+               and warns once that ``serve.swap_poll_s`` is not ported.
+
+The orchestrator-driven steps (``cli_train``, ``resilience``, ``reference``
+(a) and (d), ``cli_defaults``) run the chunk program at the defaults: one
+CUDA graph replay a chunk after an eager first chunk.
 
 Opt-in: ``profile`` (a serving device-time breakdown).
 
@@ -99,7 +122,7 @@ import time
 import numpy as np
 
 PHASES = ("build", "kernels", "train", "serve", "cli", "cli_train",
-          "resilience", "reference", "cli_defaults")
+          "resilience", "reference", "pipeline", "cli_defaults")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -960,7 +983,8 @@ def kernels_line(results: dict) -> dict:
         row = next(r for r in results["kernels"]
                    if r["kernel"] == name and r["case"] == KERNEL_CASE[name])
         by_path = {path: results[path]["launches"].get(name, 0)
-                   for path in ("train", "serve", "resilience", "reference")
+                   for path in ("train", "serve", "resilience", "reference",
+                                "pipeline")
                    if path in results}
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -1328,7 +1352,8 @@ def phase_cli_train() -> dict:
     summary = json.loads(lines[-1]) if lines else {}
     launches = summary.get("kernel_launches", {})
     ok = (proc.returncode == 0
-          and np.isfinite(summary.get("avg_portfolio", float("nan")))
+          and (summary.get("avg_portfolio"), summary.get("std_portfolio"))
+          == FLAGSHIP_DIGITS
           and summary.get("env_steps") == 2048
           and all(launches.get(k, 0) > 0 for k in KERNELS))
     row = {"phase": "cli_train", "rc": proc.returncode,
@@ -1943,6 +1968,240 @@ def phase_reference(torch) -> dict:
     return row
 
 
+#: The portfolios (avg, std) that the eager step ends on: ``cli train``
+#: with no ``--set`` (the reference episode), and the flagship's 2-chunk
+#: ``cli train`` (the ``cli_train`` phase). The graph must not move a bit
+#: of them.
+REFERENCE_DIGITS = (3817.440673828125, 592.10595703125)
+FLAGSHIP_DIGITS = (2320.290771484375, 263.25079345703125)
+
+
+def _bit_equal(torch, a, b) -> bool:
+    """Two training states equal leaf for leaf, bit for bit (bf16 leaves
+    compared as their bits), generators included."""
+    from sharetrade_tpu_torch.agents.base import state_items
+    ia, ib = state_items(a), state_items(b)
+    if [p for p, _ in ia] != [p for p, _ in ib]:
+        return False
+    for (_, x), (_, y) in zip(ia, ib):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        if not torch.equal(x, y):
+            return False
+    return bool(torch.equal(a.rng.get_state(), b.rng.get_state()))
+
+
+def _eager_vs_graph(torch, agent, seed: int, chunks: int = 3) -> dict:
+    """``chunks`` chunks from ``agent.init(seed)`` eagerly (``agent.step``)
+    and through a chunk program (chunk 1 eager, chunk 2 captured and
+    replayed, then replays): each chunk's wall ms (ending in its metrics'
+    readback; the last one a plain replay), the launches of each kernel per
+    chunk, peak device memory, whether the states and every chunk's metrics
+    are bit-equal, and the capture's seconds and graph nodes."""
+    from sharetrade_tpu_torch.agents.base import ChunkProgram, _metric_vector
+    out: dict = {}
+    finals, rows = {}, {}
+    for mode in ("eager", "graph"):
+        program = ChunkProgram(agent) if mode == "graph" else None
+        ts = agent.init(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, vectors, launches = [], [], []
+        for _ in range(chunks):
+            before = _all_launch_counts()
+            t0 = time.perf_counter()
+            if program is None:
+                ts, metrics = agent.step(ts)
+                vector = _metric_vector(metrics, tuple(metrics), "cuda")
+            else:
+                ts, stacked = program(ts)
+                vector = stacked.values[0].clone()
+            vector.cpu()                                       # syncs
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = _all_launch_counts()
+            launches.append({k: after[k] - before[k] for k in after
+                             if after[k] != before[k]})
+            vectors.append(vector)
+        finals[mode], rows[mode] = ts, vectors
+        out[mode] = {"chunk_ms": ms, "launches_per_chunk": launches,
+                     "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        if program is not None:
+            out[mode].update(capture_s=program.capture_seconds,
+                             graph_nodes=program.nodes,
+                             launches_per_replay=program.launches_per_replay)
+    out["bit_equal"] = (_bit_equal(torch, finals["eager"], finals["graph"])
+                        and all(torch.equal(a, b) for a, b in
+                                zip(rows["eager"], rows["graph"])))
+    out["launches_equal"] = (out["eager"]["launches_per_chunk"]
+                             == out["graph"]["launches_per_chunk"])
+    return out
+
+
+def _graph_chunk_profile(torch, agent, seed: int) -> dict:
+    """A chunk program warmed and captured on a fresh state, then: the
+    CUDA-event time of 5 replays (median), and one replay under
+    ``torch.profiler`` (the device's busy share)."""
+    from sharetrade_tpu_torch.agents.base import ChunkProgram
+    program = ChunkProgram(agent)
+    holder = [agent.init(seed)]
+
+    def chunk():
+        holder[0], stacked = program(holder[0])
+        return stacked
+
+    for _ in range(2):
+        chunk()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        chunk()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"graph_chunk_event_ms": statistics.median(times),
+            **_device_busy(torch, lambda: chunk().values.cpu())}
+
+
+def phase_pipeline(torch) -> dict:
+    """The chunk as a CUDA graph and the orchestrator's default hot loop;
+    see the module docstring."""
+    import shutil
+    import tempfile
+    from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.data.service import PriceDataService
+    from sharetrade_tpu_torch.env.trading import make_trading_env
+    from sharetrade_tpu_torch.runtime import Orchestrator, Phase
+    from sharetrade_tpu_torch.utils.logging import EventLog
+
+    base = FrameworkConfig().apply_overrides(REFERENCE)
+    prices = PriceDataService(config=base.data).request("MSFT").series.prices
+    horizon = len(prices) - base.env.window
+    workers, steps = base.parallel.num_workers, base.runtime.chunk_steps
+    chunks = -(-horizon // steps)
+    root = tempfile.mkdtemp(prefix="pipeline-")
+    problems: list[str] = []
+    row: dict = {"phase": "pipeline"}
+
+    # ---- the counted window: counts reset just before, read just after.
+    _reset_launch_counts()
+    # (a) the reference episode: eagerly (agent.step, each chunk read
+    # back), then through the orchestrator at its defaults (graph, async
+    # pipeline, a sample every 10 chunks), at K=8, and at K=8 with double
+    # buffering (pipeline off).
+    env = make_trading_env(prices, window=base.env.window, device="cuda")
+    agent = build_agent(base, env, device="cuda")
+    ts = agent.init(base.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        ts, metrics = agent.step(ts)
+        float(metrics["loss"])                             # syncs
+    eager_s = time.perf_counter() - t0
+    eager_ts = ts
+    runs = {}
+    for name, extra in (
+            ("default", []),
+            ("k8", ["runtime.megachunk_factor=8"]),
+            ("k8_double_buffer", ["runtime.megachunk_factor=8",
+                                  "runtime.async_pipeline=false",
+                                  "runtime.double_buffer_dispatch=true"])):
+        cfg = FrameworkConfig().apply_overrides(
+            REFERENCE + extra
+            + [f"runtime.checkpoint_dir={os.path.join(root, name)}"])
+        log_path = os.path.join(root, f"{name}.jsonl")
+        events = EventLog(log_path)
+        orch = Orchestrator(cfg, device="cuda", event_log=events)
+        orch.send_training_data(prices)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orch.start_training(background=False)
+        wall_s = time.perf_counter() - t0
+        orch.stop()
+        events.close()
+        done = [json.loads(ln) for ln in open(log_path)
+                if '"training_completed"' in ln]
+        program = orch._program
+        avg, std = orch.get_avg().value, orch.get_std().value
+        runs[name] = {
+            "completed": orch.lifecycle.phase is Phase.COMPLETED,
+            "wall_s": wall_s, "agent_steps_per_s": workers * horizon / wall_s,
+            "timer": {k: done[0].get(k) for k in (
+                "chunks_timed", "total_seconds", "mean_chunk_seconds",
+                "mean_agent_steps_per_sec")} if done else None,
+            "avg_portfolio": avg, "std_portfolio": std,
+            "bit_equal_eager": _bit_equal(torch, orch.train_state, eager_ts),
+            "capture_s": program.capture_seconds,
+            "graph_nodes": program.nodes, "replays": program.replays,
+            "launches_per_replay": program.launches_per_replay,
+            "pipeline_stats": orch.pipeline_stats}
+        if not runs[name]["completed"] or not runs[name]["bit_equal_eager"]:
+            problems.append(f"reference {name}: completed "
+                            f"{runs[name]['completed']}, bit-equal to the "
+                            f"eager episode {runs[name]['bit_equal_eager']} "
+                            f"({orch.last_error!r})")
+        if (avg, std) != REFERENCE_DIGITS:
+            problems.append(f"reference {name}: portfolio {avg!r} / {std!r}, "
+                            f"expected {REFERENCE_DIGITS}")
+        if program.launches_per_replay != {
+                "fused_update": REFERENCE_LAUNCHES["qlearn"]}:
+            problems.append(f"reference {name}: launches per replay "
+                            f"{program.launches_per_replay}")
+        del orch
+    row["reference"] = {
+        "chunks": chunks, "eager_episode_s": eager_s,
+        "eager_chunk_ms": eager_s / chunks * 1e3,
+        "eager_agent_steps_per_s": workers * horizon / eager_s,
+        "runs": runs,
+        "graph_chunk_ms": runs["default"]["wall_s"] / chunks * 1e3,
+        "graph": _graph_chunk_profile(torch, agent, base.seed)}
+    del agent, env, ts, eager_ts
+
+    # (b) three chunks of each other learner, eager against graph.
+    for name, extra in REFERENCE_OTHERS.items():
+        c = FrameworkConfig().apply_overrides(REFERENCE + extra)
+        env = make_trading_env(prices, window=c.env.window, device="cuda")
+        learner = build_agent(c, env, device="cuda")
+        row[name] = _eager_vs_graph(torch, learner, c.seed)
+        if not (row[name]["bit_equal"] and row[name]["launches_equal"]):
+            problems.append(f"{name}: graph chunks differ from eager ones "
+                            f"(bit-equal {row[name]['bit_equal']}, launches "
+                            f"equal {row[name]['launches_equal']})")
+        del learner, env
+
+    # (c) the flagship: three PPO chunks, eager against graph.
+    cfg = FrameworkConfig().apply_overrides(FLAGSHIP_TRAIN)
+    series = PriceDataService(config=cfg.data).request("MSFT").series.prices
+    env = make_trading_env(series, window=cfg.env.window, device="cuda")
+    flagship = build_agent(cfg, env, device="cuda")
+    row["flagship"] = _eager_vs_graph(torch, flagship, cfg.seed)
+    updates = cfg.learner.ppo_epochs * cfg.learner.ppo_minibatches
+    layers = cfg.model.num_layers
+    expect = {"flash_fwd": layers * (1 + updates),
+              "flash_bwd_dq": layers * updates,
+              "flash_bwd_dkv": layers * updates, "fused_update": updates}
+    row["flagship"]["expected_per_chunk"] = expect
+    got = row["flagship"]["graph"]["launches_per_chunk"]
+    if any(c != expect for c in got):
+        problems.append(f"flagship: launches per chunk {got}, expected "
+                        f"{expect}")
+    if not row["flagship"]["bit_equal"]:
+        problems.append("flagship: graph chunks differ from eager ones")
+    row["flagship"]["graph_profile"] = _graph_chunk_profile(
+        torch, flagship, cfg.seed)
+    del flagship, env
+    torch.cuda.synchronize()
+    row["launches"] = _all_launch_counts()
+    # ---- end of the counted window.
+    shutil.rmtree(root, ignore_errors=True)
+    row["problems"] = problems
+    return row
+
+
 def phase_cli_defaults() -> dict:
     """``cli train --eval`` and then ``cli serve`` as a user runs them, at
     the JAX package's defaults (the reference workload), with no ``--set``
@@ -1978,7 +2237,8 @@ def phase_cli_defaults() -> dict:
     ok = (train.returncode == 0 and serve.returncode == 0 and len(served) >= 2
           and set(summary) >= {"avg_portfolio", "std_portfolio", "env_steps",
                                "agent_steps_per_sec", "restarts"}
-          and np.isfinite(summary.get("avg_portfolio", float("nan")))
+          and (summary.get("avg_portfolio"), summary.get("std_portfolio"))
+          == REFERENCE_DIGITS
           and np.isfinite(summary.get("eval_portfolio", float("nan")))
           and summary.get("kernel_launches", {}).get("fused_update", 0) > 0
           and best.get("updates")
@@ -2131,6 +2391,13 @@ def main(argv=None) -> int:
             print(f"chip_smoke: reference workload failed: "
                   f"{results['reference']['problems']}", file=sys.stderr)
             return 1
+    if "pipeline" in phases:
+        results["pipeline"] = phase_pipeline(torch)
+        _print(results["pipeline"])
+        if results["pipeline"]["problems"]:
+            print(f"chip_smoke: the chunk program / hot loop failed: "
+                  f"{results['pipeline']['problems']}", file=sys.stderr)
+            return 1
     if "cli_defaults" in phases:
         row = phase_cli_defaults()
         _print(row)
@@ -2141,7 +2408,7 @@ def main(argv=None) -> int:
     if "profile" in phases:
         _print(phase_profile(torch))
     if "kernels" in phases and {"serve", "train", "resilience",
-                                "reference"} & set(phases):
+                                "reference", "pipeline"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

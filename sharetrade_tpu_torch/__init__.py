@@ -23,8 +23,11 @@ the training runtime's persistence and supervision:
                     sum-tree (plain tensor code)
 - ``agents``        Q-learning, DQN (uniform and prioritized replay), PG,
                     A2C and PPO; the per-step and precomputed-trunk
-                    rollouts; the greedy replays
-- ``runtime``       the supervised chunk-loop orchestrator
+                    rollouts; the greedy replays; the chunk program (a
+                    CUDA graph of one chunk on the card)
+- ``runtime``       the supervised orchestrator: megachunks, sampled
+                    readback and the async readback pipeline
+- ``utils``         logging, the metrics registry and the step timer
 - ``checkpoint``    atomic, checksummed, resumable checkpoints
 - ``convert``       JAX params / training states (as numpy) <-> the port's
 - ``serve``         continuous-batching engine over a session slot arena

@@ -1,15 +1,25 @@
-"""Learner interface and shared RL machinery.
+"""Learner interface, shared RL machinery and the chunk program.
 
 Counterpart of the JAX package's ``agents/base.py``. Every learner exposes
-``init(seed) -> TrainState`` and ``step(TrainState) -> (TrainState,
+``init(seed) -> TrainState``, ``step(TrainState, draws=None) -> (TrainState,
 metrics)``, where one step advances ``steps_per_chunk`` env steps for the
-whole agent batch and runs the learning update. The JAX package compiles
-that step into one program; here it runs eagerly on the device, and the
-orchestrator reads its metrics back once per chunk.
+whole agent batch and runs the learning update, and ``draw(TrainState)``,
+which takes one chunk's randomness from ``ts.rng`` in the order the step
+would take it (``step(ts)`` is ``step(ts, draws=draw(ts))``).
+
+The JAX package compiles the step into one program and fuses K of them
+into a scan (``megachunk_step``). Here :class:`ChunkProgram` is that
+program: on the CPU it calls the step eagerly; on the card it runs the
+first chunk eagerly, then captures one chunk in a CUDA graph and replays it
+once per chunk (K replays for a K-chunk dispatch). Per-chunk metrics come
+back stacked on a leading ``(K,)`` axis either way.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import time
 from dataclasses import dataclass, replace
 from typing import Any, Callable, NamedTuple
 
@@ -59,6 +69,10 @@ class Agent:
     # (``chip_smoke.py`` holds the kernels' gradients against the plain
     # attention's with it).
     minibatch_grads: Callable | None = None
+    # ts -> the draws ``step(ts, draws=...)`` takes: one chunk's randomness
+    # from ``ts.rng``, in the order the step draws it (the generator
+    # advances exactly as a call without draws advances it).
+    draw: Callable[[TrainState], Any] | None = None
 
 
 class Optimizer(NamedTuple):
@@ -205,7 +219,7 @@ def election_health(env_state, carry) -> torch.Tensor:
     state AND model carry rows finite (a finite wallet with a NaN K/V cache
     must never be elected: its carry would feed every agent's trunk)."""
     ok = agent_health(env_state)
-    return ok & rows_finite(carry, ok.shape[0])
+    return ok & rows_finite(carry, ok.shape[0], ok.device)
 
 
 def quarantine_mask(obs_raw: torch.Tensor, env_state) -> torch.Tensor:
@@ -243,3 +257,306 @@ def portfolio_metrics(env: TradingEnv, env_state) -> dict[str, torch.Tensor]:
         "unhealthy_workers": values.shape[0] - fine.sum(),
     }
 
+
+
+# ---------------------------------------------------------------------------
+# the chunk program (the JAX package's jitted step and megachunk_step)
+# ---------------------------------------------------------------------------
+
+def state_items(tree: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """Every tensor of a state tree (a ``TrainState``, draws) as ``(path,
+    tensor)``, in a fixed order: dict keys sorted, named tuples and
+    dataclasses by field, lists by index. Generators and other non-tensors
+    are not leaves."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in state_items(tree[k], f"{prefix}/{k}")]
+    if hasattr(tree, "_fields"):
+        return [item for f in tree._fields
+                for item in state_items(getattr(tree, f), f"{prefix}/{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree)
+                for item in state_items(v, f"{prefix}/{i}")]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [item for f in dataclasses.fields(tree)
+                for item in state_items(getattr(tree, f.name),
+                                        f"{prefix}/{f.name}")]
+    return []
+
+
+def with_tensors(tree: Any, tensors: dict[str, torch.Tensor],
+                 prefix: str = "") -> Any:
+    """A tree shaped like ``tree`` (new containers, generators and other
+    non-tensors kept) whose tensor at each path is ``tensors[path]``."""
+    if isinstance(tree, torch.Tensor):
+        return tensors[prefix]
+    if isinstance(tree, dict):
+        return {k: with_tensors(tree[k], tensors, f"{prefix}/{k}")
+                for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(with_tensors(getattr(tree, f), tensors,
+                                         f"{prefix}/{f}")
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(with_tensors(v, tensors, f"{prefix}/{i}")
+                          for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{
+            f.name: with_tensors(getattr(tree, f.name), tensors,
+                                 f"{prefix}/{f.name}")
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+def _copy_into(dst: dict[str, torch.Tensor], src: list, what: str) -> None:
+    """``dst[path].copy_(tensor)`` for every ``(path, tensor)`` of ``src``,
+    skipping a tensor that already is its buffer; a path, shape or dtype
+    that does not match raises ``ValueError``."""
+    paths = [p for p, _ in src]
+    if sorted(paths) != sorted(dst):
+        raise ValueError(f"{what} does not match the chunk program's "
+                         f"buffers: {sorted(set(paths) ^ set(dst))}")
+    for path, t in src:
+        buf = dst[path]
+        if t.shape != buf.shape or t.dtype != buf.dtype:
+            raise ValueError(
+                f"{what}{path}: {t.dtype} {tuple(t.shape)} does not match "
+                f"the chunk program's {buf.dtype} {tuple(buf.shape)}")
+        if not _same_storage(t, buf):
+            buf.copy_(t)
+
+
+def _launch_counters() -> list[dict[str, int]]:
+    from sharetrade_tpu_torch.ops import attention, fused_update
+    return [attention.launch_counts, fused_update.launch_counts]
+
+
+def _metric_vector(metrics: dict[str, Any], keys: tuple[str, ...],
+                   device) -> torch.Tensor:
+    """One chunk's metrics as a float64 ``(n,)`` tensor in ``keys`` order
+    (float64 holds every int32 counter and float32 value exactly)."""
+    if tuple(metrics) != keys:
+        raise ValueError(f"the step's metrics {tuple(metrics)} changed from "
+                         f"{keys}")
+    return torch.stack([torch.as_tensor(metrics[k]).detach()
+                        .to(device=device, dtype=torch.float64).reshape(())
+                        for k in keys])
+
+
+class StackedMetrics(NamedTuple):
+    """One dispatch's per-chunk metrics: ``values`` (K, n) float64 in
+    ``keys`` order, on the program's device. On the card the buffer is the
+    program's own and the next dispatch overwrites it: read it back first
+    (:meth:`ChunkProgram.readback`)."""
+
+    keys: tuple[str, ...]
+    values: torch.Tensor
+
+
+class MetricsReadback:
+    """A dispatch's metric rows on their way to the host: on the card a
+    pinned buffer the copy was enqueued into, and the event recorded after
+    it; :meth:`rows` waits on that event alone."""
+
+    def __init__(self, keys: tuple[str, ...], host: torch.Tensor,
+                 event=None):
+        self.keys, self._host, self._event = keys, host, event
+
+    def rows(self) -> list[dict[str, float]]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [dict(zip(self.keys, row)) for row in self._host.tolist()]
+
+
+def _graph_nodes(graph) -> int | None:
+    """Nodes of a captured graph kept with ``keep_graph``
+    (``cuGraphGetNodes`` of ``libcuda``); None if the call fails."""
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    return int(count.value) if err == 0 else None
+
+
+class ChunkProgram:
+    """The chunk as one program, dispatched ``k`` chunks at a time with no
+    host readback in between: the port's counterpart of the JAX package's
+    jitted ``agent.step`` and ``megachunk_step``.
+
+    Every chunk's randomness comes from ``agent.draw`` (the seam a test
+    hands other draws through). On the CPU a call steps eagerly. On the
+    card:
+
+    - the first chunk runs eagerly, on a side stream, as the capture's
+      warm-up (autograd and cuBLAS set themselves up there);
+    - the next dispatch captures ONE chunk, ``agent.step(ts, draws=...)``,
+      in a ``torch.cuda.CUDAGraph`` over static buffers: a contiguous copy
+      of every state tensor, the draw tensors, and a ``(n,)`` metric
+      vector. The captured region ends by copying the new state into the
+      state buffers, so the state lives in one set of buffers across
+      replays (the learners update parameters, moments and DQN's replay in
+      place: those are the buffers themselves);
+    - every chunk after that takes its draws eagerly from the live
+      generator (``agent.draw``: it advances exactly as in an eager step),
+      copies them into the draw buffers, replays the graph and copies the
+      metric vector into row k of a ``(K_max, n)`` buffer;
+    - each kernel's launches in one replay are counted at capture (the
+      wrappers count while the capture records, and those counts are taken
+      back) and added to the wrappers' ``launch_counts`` on every replay.
+
+    :meth:`load` puts a state into the buffers (a heal, a re-arm, a restore,
+    a resume: every place that replaces the state calls it) and returns the
+    live state, whose tensors ARE the buffers. Capture or replay errors
+    raise; nothing falls back to eager steps.
+    """
+
+    def __init__(self, agent: Agent):
+        self.agent = agent
+        self.device = torch.device(agent.model.device)
+        self.cuda = self.device.type == "cuda"
+        self.keys: tuple[str, ...] | None = None
+        self._warm = False
+        self._graph = None
+        self._buffers: dict[str, torch.Tensor] | None = None
+        self._draws: dict[str, torch.Tensor] | None = None
+        self._vector: torch.Tensor | None = None
+        self._rows: torch.Tensor | None = None
+        self._live: TrainState | None = None
+        self._per_replay: list[tuple[dict, str, int]] = []
+        #: Capture facts (the card): seconds to capture and instantiate,
+        #: graph nodes, replays so far.
+        self.capture_seconds: float | None = None
+        self.nodes: int | None = None
+        self.replays = 0
+
+    @property
+    def launches_per_replay(self) -> dict[str, int]:
+        return {name: n for _, name, n in self._per_replay}
+
+    def load(self, ts: TrainState) -> TrainState:
+        """The live state holding ``ts``'s values: ``ts`` itself before the
+        capture (and on the CPU); after it, the graph's buffers with
+        ``ts`` copied in (on the current stream, so in order with the
+        replays) and ``ts``'s generator."""
+        if self._buffers is None or ts is self._live:
+            return ts
+        _copy_into(self._buffers, state_items(ts), "state")
+        self._live = with_tensors(ts, self._buffers).replace(rng=ts.rng)
+        return self._live
+
+    def __call__(self, ts: TrainState, k: int = 1
+                 ) -> tuple[TrainState, StackedMetrics]:
+        if k < 1:
+            raise ValueError(f"megachunk factor must be >= 1, got {k}")
+        if not self.cuda:
+            vectors = []
+            for _ in range(k):
+                ts, metrics = self.agent.step(ts,
+                                              draws=self.agent.draw(ts))
+                self.keys = self.keys or tuple(metrics)
+                vectors.append(_metric_vector(metrics, self.keys,
+                                              self.device))
+            return ts, StackedMetrics(self.keys, torch.stack(vectors))
+        ts = self.load(ts)
+        for j in range(k):
+            if not self._warm:
+                ts, vector = self._warm_up(ts)
+                self._rows_for(k)[j].copy_(vector)
+                continue
+            if self._graph is None:
+                ts = self._capture(ts)
+            _copy_into(self._draws, state_items(self.agent.draw(ts)),
+                       "draws")
+            self._graph.replay()
+            self.replays += 1
+            for counts, name, n in self._per_replay:
+                counts[name] += n
+            self._rows_for(k)[j].copy_(self._vector)
+        return ts, StackedMetrics(self.keys, self._rows[:k])
+
+    def readback(self, stacked: StackedMetrics) -> MetricsReadback:
+        """Enqueue the copy of ``stacked`` to the host (before the next
+        dispatch overwrites it): a pinned buffer and an event on the card,
+        the rows as they are on the CPU."""
+        if not self.cuda:
+            return MetricsReadback(stacked.keys, stacked.values)
+        host = torch.empty(stacked.values.shape, dtype=torch.float64,
+                           pin_memory=True)
+        host.copy_(stacked.values, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return MetricsReadback(stacked.keys, host, event)
+
+    # ---- the card ---------------------------------------------------------
+
+    def _rows_for(self, k: int) -> torch.Tensor:
+        """The ``(K, n)`` metric rows, grown (never shrunk) to ``k``; rows
+        already written in this dispatch are kept."""
+        if self._rows is None or self._rows.shape[0] < k:
+            rows = torch.zeros((k, len(self.keys)), dtype=torch.float64,
+                               device=self.device)
+            if self._rows is not None:
+                rows[:self._rows.shape[0]].copy_(self._rows)
+            self._rows = rows
+        return self._rows
+
+    def _warm_up(self, ts: TrainState) -> tuple[TrainState, torch.Tensor]:
+        """The run's first chunk, eagerly, on a side stream: the new state
+        and its metric vector."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            ts, metrics = self.agent.step(ts, draws=self.agent.draw(ts))
+            self.keys = tuple(metrics)
+            vector = _metric_vector(metrics, self.keys, self.device)
+        current.wait_stream(side)
+        self._warm = True
+        return ts, vector
+
+    def _capture(self, ts: TrainState) -> TrainState:
+        """Capture one chunk from ``ts``'s values; returns the live state."""
+        items = state_items(ts)
+        buffers = {p: t.clone(memory_format=torch.contiguous_format)
+                   for p, t in items}
+        # The draw buffers' shapes, from a copy of the generator: the live
+        # one does not move for the capture.
+        probe = torch.Generator(device=self.device)
+        probe.set_state(ts.rng.get_state())
+        draws = self.agent.draw(ts.replace(rng=probe))
+        draw_buffers = {p: t.clone() for p, t in state_items(draws)}
+        captured_ts = with_tensors(ts, buffers).replace(rng=probe)
+        captured_draws = with_tensors(draws, draw_buffers)
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)   # nodes countable
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            # thread_local: the readback consumer and the checkpoint writer
+            # may wait on events from their own threads meanwhile.
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                new_ts, metrics = self.agent.step(captured_ts,
+                                                  draws=captured_draws)
+                _copy_into(buffers, state_items(new_ts), "the stepped state")
+                vector = _metric_vector(metrics, self.keys, self.device)
+            graph.instantiate()
+        finally:
+            per_replay = []
+            for counts, old in zip(counters, before):
+                for name, n in counts.items():
+                    if n != old[name]:
+                        per_replay.append((counts, name, n - old[name]))
+                    counts[name] = old[name]
+        self.capture_seconds = time.perf_counter() - t0
+        self.nodes = _graph_nodes(graph)
+        self._graph, self._buffers, self._draws = graph, buffers, draw_buffers
+        self._vector, self._per_replay = vector, per_replay
+        self._live = with_tensors(ts, buffers).replace(rng=ts.rng)
+        return self._live

@@ -18,7 +18,8 @@ update, gated on the device until the replay holds a minibatch
 Random draws (``Draws``): the epsilon-greedy gates and random actions as in
 ``agents/qlearn.py``, and per step either the uniform sample's indices or
 the PER strata's uniforms. From ``ts.rng`` for the whole chunk up front
-(the uniform indices as ``floor(u * size)``), or handed in (the tests
+(the agent's ``draw``; the uniform indices as ``floor(u * size)``), or
+handed in (the tests
 recreate the JAX step's draws, indices included).
 
 Not yet ported: ``learner.journal_replay`` (the transition journal and the
@@ -215,16 +216,18 @@ def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), td_err.detach(), list(grads)
 
+    def draw(ts: TrainState) -> Draws:
+        return Draws(
+            torch.rand((steps_per_chunk, num_agents), generator=ts.rng,
+                       device=device),
+            torch.randint(0, model.num_actions, (steps_per_chunk, num_agents),
+                          generator=ts.rng, device=device),
+            torch.rand((steps_per_chunk, batch), generator=ts.rng,
+                       device=device))
+
     def step(ts: TrainState, draws: Draws | None = None):
         if draws is None:
-            draws = Draws(
-                torch.rand((steps_per_chunk, num_agents), generator=ts.rng,
-                           device=device),
-                torch.randint(0, model.num_actions,
-                              (steps_per_chunk, num_agents),
-                              generator=ts.rng, device=device),
-                torch.rand((steps_per_chunk, batch), generator=ts.rng,
-                           device=device))
+            draws = draw(ts)
         params, opt_state = ts.params, ts.opt_state
         env_state, env_steps, updates = ts.env_state, ts.env_steps, ts.updates
         extras = ts.extras
@@ -309,7 +312,7 @@ def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
         return ts, metrics
 
     return Agent(name="dqn", init=init, step=step, num_agents=num_agents,
-                 steps_per_chunk=steps_per_chunk, model=model)
+                 steps_per_chunk=steps_per_chunk, model=model, draw=draw)
 
 
 def reseed_per_priorities(extras: DQNExtras, *,

@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``agents/pg.py``: Monte-Carlo
 returns-to-go with a batch-mean baseline over the unroll's active steps,
 one update per unroll.
 
-Random draws: the rollout's Gumbel noise (T, B, A) comes from ``ts.rng``,
-or from ``draws`` (the tests hand in the JAX package's draws).
+Random draws: the rollout's Gumbel noise (T, B, A) comes from ``ts.rng``
+(the agent's ``draw``), or from ``draws`` (the tests hand in the JAX
+package's draws).
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from sharetrade_tpu_torch.agents.base import (
     Agent, TrainState, build_optimizer, make_init, make_update_fn,
     portfolio_metrics)
 from sharetrade_tpu_torch.agents.rollout import (
-    collect_rollout, discounted_returns, normalize_advantages_masked,
-    replay_forward)
+    collect_rollout, discounted_returns, gumbel_noise,
+    normalize_advantages_masked, replay_forward)
 from sharetrade_tpu_torch.config import ConfigError, LearnerConfig
 from sharetrade_tpu_torch.env.core import TradingEnv
 from sharetrade_tpu_torch.models.core import Model, tree_leaves, unflatten_like
@@ -48,7 +49,13 @@ def make_pg_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
     unroll = steps_per_chunk or cfg.unroll_len
     init = make_init(model, env, optimizer, precision, num_agents)
 
+    def draw(ts: TrainState) -> torch.Tensor:
+        return gumbel_noise((unroll, num_agents, model.num_actions), ts.rng,
+                            model.device)
+
     def step(ts: TrainState, draws: torch.Tensor | None = None):
+        if draws is None:
+            draws = draw(ts)
         compute = precision.cast_compute(ts.params)
         ts, traj, bootstrap, init_carry = collect_rollout(
             model, env, ts, unroll, num_agents, params=compute, gumbel=draws)
@@ -85,4 +92,4 @@ def make_pg_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
         return ts, metrics
 
     return Agent(name="pg", init=init, step=step, num_agents=num_agents,
-                 steps_per_chunk=unroll, model=model)
+                 steps_per_chunk=unroll, model=model, draw=draw)

@@ -15,9 +15,9 @@ minibatch: the same values), so the first minibatch reuses the rollout's
 copy and no minibatch casts.
 
 Random draws: the rollout's Gumbel noise (T, B, A) and the epochs'
-permutations (epochs, B) come from ``ts.rng`` in that order, or from
-``draws`` (the tests hand in the JAX package's draws, which a torch
-generator cannot reproduce).
+permutations (epochs, B) come from ``ts.rng`` in that order (the agent's
+``draw``), or from ``draws`` (the tests hand in the JAX package's draws,
+which a torch generator cannot reproduce).
 
 ``step(ts, marker=f)`` calls ``f(name)`` as each part of the chunk has been
 enqueued — ``trunk``, ``rollout_loop``, ``gae``, then per minibatch
@@ -35,8 +35,8 @@ from sharetrade_tpu_torch.agents.base import (
     Agent, TrainState, build_optimizer, make_init, make_update_fn,
     portfolio_metrics)
 from sharetrade_tpu_torch.agents.rollout import (
-    collect_rollout, gae_advantages, normalize_advantages_masked,
-    replay_forward)
+    collect_rollout, gae_advantages, gumbel_noise,
+    normalize_advantages_masked, replay_forward)
 from sharetrade_tpu_torch.config import ConfigError, LearnerConfig
 from sharetrade_tpu_torch.env.core import TradingEnv
 from sharetrade_tpu_torch.models.core import Model, tree_leaves, unflatten_like
@@ -114,11 +114,20 @@ def make_ppo_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
         return torch.stack([total.detach(), *(a.detach() for a in aux)]), \
             list(grads)
 
+    def draw(ts: TrainState) -> Draws:
+        gumbel = gumbel_noise((unroll, num_agents, model.num_actions), ts.rng,
+                              device)
+        return Draws(gumbel, torch.stack([
+            torch.randperm(num_agents, generator=ts.rng, device=device)
+            for _ in range(cfg.ppo_epochs)]))
+
     def step(ts: TrainState, draws: Draws | None = None, marker=None):
+        if draws is None:
+            draws = draw(ts)
         compute = precision.cast_compute(ts.params)
         ts, traj, bootstrap, init_carry = collect_rollout(
             model, env, ts, unroll, num_agents, params=compute,
-            gumbel=None if draws is None else draws.gumbel, marker=marker)
+            gumbel=draws.gumbel, marker=marker)
         with torch.no_grad():
             advantages = gae_advantages(traj.reward, traj.value, traj.active,
                                         bootstrap, cfg.gamma, cfg.gae_lambda)
@@ -128,10 +137,7 @@ def make_ppo_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
         params, opt_state = ts.params, ts.opt_state
         losses = []
         for epoch in range(cfg.ppo_epochs):
-            perm = (draws.perms[epoch] if draws is not None
-                    else torch.randperm(num_agents, generator=ts.rng,
-                                        device=device))
-            perm = perm.to(device=device, dtype=torch.int64)
+            perm = draws.perms[epoch].to(device=device, dtype=torch.int64)
             for mb in range(n_mb):
                 idx = perm[mb * mb_size:(mb + 1) * mb_size]
                 traj_mb = traj.take(idx)
@@ -162,4 +168,4 @@ def make_ppo_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
 
     return Agent(name="ppo", init=init, step=step, num_agents=num_agents,
                  steps_per_chunk=unroll, model=model,
-                 minibatch_grads=minibatch_grads)
+                 minibatch_grads=minibatch_grads, draw=draw)

@@ -19,8 +19,10 @@ keeps them. Nothing in the step waits for the host; the orchestrator reads
 the chunk's metrics once.
 
 Random draws: per step and agent a uniform gate and a random action
-(``Draws``), drawn for the whole chunk from ``ts.rng`` up front, or handed
-in (the tests recreate the JAX step's own draws).
+(``Draws``), drawn for the whole chunk from ``ts.rng`` up front (the
+agent's ``draw``), or handed in (the tests recreate the JAX step's own
+draws; the chunk program hands in the draws it copied into its graph's
+buffers).
 
 ``step(ts, marker=f)`` calls ``f(name)`` as each part of every step has
 been enqueued: ``act_env`` (the selection forward, the epsilon-greedy
@@ -100,10 +102,13 @@ def make_qlearn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
     device = model.device
     init = make_init(model, env, optimizer, precision, num_agents)
 
+    def draw(ts: TrainState) -> Draws:
+        return chunk_draws(ts.rng, steps_per_chunk, num_agents,
+                           model.num_actions, device)
+
     def step(ts: TrainState, draws: Draws | None = None, marker=None):
         if draws is None:
-            draws = chunk_draws(ts.rng, steps_per_chunk, num_agents,
-                                model.num_actions, device)
+            draws = draw(ts)
         params, opt_state = ts.params, ts.opt_state
         env_state, env_steps, updates = ts.env_state, ts.env_steps, ts.updates
         compute = precision.cast_compute(params)
@@ -152,4 +157,4 @@ def make_qlearn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
         return ts, metrics
 
     return Agent(name="qlearn", init=init, step=step, num_agents=num_agents,
-                 steps_per_chunk=steps_per_chunk, model=model)
+                 steps_per_chunk=steps_per_chunk, model=model, draw=draw)

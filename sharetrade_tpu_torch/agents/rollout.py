@@ -11,8 +11,9 @@ masked advantage normalisation.
 The sequential loop is a Python loop of small tensor ops over the agent
 batch. It never synchronises with the host: no ``.item()``, no Python
 branch on a tensor's value, the representative chosen on the device.
-Trajectories are written into preallocated ``(T, B, ...)`` tensors. Making
-the loop one CUDA graph or one kernel is later work.
+Trajectories are written into preallocated ``(T, B, ...)`` tensors. On the
+card the whole chunk, this loop included, is captured in one CUDA graph
+(``agents/base.py`` ``ChunkProgram``).
 
 :func:`greedy_rollout_precomputed` is the greedy evaluation's replay: one
 agent, argmax actions, the whole episode's trunk in one banded pass;

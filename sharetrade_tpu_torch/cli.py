@@ -93,12 +93,21 @@ def cmd_train(args) -> int:
     cfg = _load_config(args)
     orch = None
     preempt_at: list[float] = []
+    grace = cfg.runtime.preempt_grace_s
+
+    def _grace_expired():
+        log.error("preemption grace (%.1fs) expired before the chunk "
+                  "boundary; hard exit", grace)
+        os._exit(EXIT_PREEMPTED)
 
     def _on_signal(signum, frame):
         if not preempt_at:
             log.warning("received %s; stopping at the next chunk boundary",
                         signal.Signals(signum).name)
             preempt_at.append(time.monotonic())
+            watchdog = threading.Timer(grace + 5.0, _grace_expired)
+            watchdog.daemon = True
+            watchdog.start()
         else:
             log.warning("received %s during the drain; hard exit",
                         signal.Signals(signum).name)
@@ -129,13 +138,11 @@ def cmd_train(args) -> int:
         except FileNotFoundError as exc:
             log.error("--resume: %s (train without --resume first)", exc)
             return 1
-        orch.start_training(background=True)
-        grace = cfg.runtime.preempt_grace_s
-        while not orch.wait(timeout=cfg.runtime.poll_interval_s):
-            if preempt_at and time.monotonic() - preempt_at[0] > grace + 5.0:
-                log.error("preemption grace (%.1fs) expired before the "
-                          "chunk boundary; hard exit", grace)
-                os._exit(EXIT_PREEMPTED)
+        # The loop runs on this, the main thread (signals still reach it
+        # between bytecodes; the grace watchdog is a timer thread): on the
+        # card the chunk's capture runs slower on a second thread
+        # (tools/torch_capture_thread.py, PERF.md section 6).
+        orch.start_training(background=False)
         elapsed = time.perf_counter() - t0
         done = orch.is_everything_done()
         if orch.preempted or (preempt_at

@@ -118,12 +118,13 @@ def unflatten_like(tree: Any, leaves: list) -> Any:
     return tree_map(lambda _: next(it), tree)
 
 
-def rows_finite(tree: Any, batch: int) -> torch.Tensor:
+def rows_finite(tree: Any, batch: int, device=None) -> torch.Tensor:
     """(batch,) bool: True where every batched leaf row of ``tree`` is
     finite — the row predicate shared by the rollout's representative
     election (agents/base.election_health) and the shared replay's.
     Leaves whose leading dim is not ``batch`` are ignored; integer leaves
-    pass."""
+    pass. With no such leaf (a stateless model's empty carry) every row
+    passes, on ``device``, as in the JAX package."""
     ok = None
     for leaf in tree_leaves(tree):
         if not isinstance(leaf, torch.Tensor) or leaf.ndim < 1 \
@@ -134,7 +135,10 @@ def rows_finite(tree: Any, batch: int) -> torch.Tensor:
         if leaf.is_floating_point():
             ok = ok & torch.isfinite(leaf).reshape(batch, -1).all(dim=-1)
     if ok is None:
-        raise ValueError(f"rows_finite: no leaf has leading dim {batch}")
+        if device is None:
+            raise ValueError(f"rows_finite: no leaf has leading dim {batch} "
+                             "and no device was given")
+        ok = torch.ones((batch,), dtype=torch.bool, device=device)
     return ok
 
 

@@ -5,11 +5,30 @@ Counterpart of the JAX package's ``runtime/orchestrator.py``:
 
 - the lifecycle FSM (awaiting-data -> ready -> training -> trained/
   completed), with StartTraining stashed until data arrives;
-- the loop: each chunk is one ``agent.step`` (``runtime.chunk_steps`` env
-  steps for the whole agent batch and the learner's updates), its metrics
-  read
-  back ONCE as one stacked tensor, the snapshot that
-  ``get_avg``/``get_std``/``snapshot`` answer from replaced;
+- the hot loop: each dispatch runs ``k`` chunks of the agent's step through
+  its chunk program (``agents/base.py`` ``ChunkProgram``: on the card one
+  CUDA graph replay a chunk, after an eager first chunk; on the CPU the
+  eager step). ``runtime.megachunk_factor`` K > 1 dispatches K chunks with
+  no readback between them, and falls back to K = 1 wherever even an upper
+  bound on the env-step count after K more chunks reaches the episode
+  threshold, so the completion gate stays exact;
+- sampled readback (``runtime.metrics_every_chunks``, every chunk under a
+  ``fault_hook``): between samples chunks dispatch back to back; at a
+  sample the dispatch's stacked per-chunk rows are copied to the host
+  (a pinned buffer and an event on the card, enqueued before the next
+  dispatch overwrites them);
+- the async readback pipeline (``runtime.async_pipeline``,
+  ``runtime/pipeline.py``): each sample's readback goes to ONE consumer
+  thread through a bounded queue (``runtime.pipeline_depth``); the
+  consumer runs the rows, the fault hook and the snapshot in chunk order
+  while the dispatcher keeps dispatching, and flags the rows that need a
+  dispatcher action (heal, NaN supervision, eval/checkpoint cadence,
+  completion); the dispatcher drains before acting on every flagged row
+  in chunk order, before the K = 1 exact path, and after every boundary
+  that may complete the episode or carries a ``fault_hook``. A consumer
+  fault is re-raised on the dispatcher and attributed to the chunk the
+  consumer stopped at. With the pipeline off, ``runtime.double_buffer_dispatch``
+  (K > 1) dispatches the next megachunk before reading this one back;
 - the episode gate: an episode completes when the cumulative env-step count
   reaches ``(episode + 1) x horizon`` and every agent's cursor has reached
   the horizon; the run re-arms (fresh env state and carry, learned params
@@ -18,38 +37,41 @@ Counterpart of the JAX package's ``runtime/orchestrator.py``:
   type -> RESUME / RESTART / STOP / ESCALATE). RESTART waits an exponential
   backoff (``backoff_initial_s`` doubling up to ``backoff_max_s``, with
   ``backoff_jitter``), then restores the latest intact checkpoint or, with
-  none, re-initialises; past ``max_restarts`` the run ends FAILED;
+  none, re-initialises; past ``max_restarts`` the run ends FAILED. The
+  pipeline is quiesced and replaced on every recovery;
 - per-agent heals (``partial_recovery``): a non-finite agent row is
   respawned in place, at the survivors' cursor with the representative
   row's carry, up to ``max_agent_heals`` times; shared state that is not
-  finite, every row bad, or no row bad falls back to the restart path;
+  finite, every row bad, or no row bad falls back to the restart path; a
+  row computed before the last heal (a megachunk in flight) does not heal
+  again;
 - checkpoints (``checkpoint/manager.py``): a baseline before the first chunk
   and one every ``checkpoint_every_updates`` updates, both ``save_async``;
-- preemption: :meth:`request_preempt` stops the loop at the next chunk
-  boundary and writes the ``tag_preempt`` checkpoint inside
-  ``runtime.preempt_grace_s`` (``cli train`` maps it to exit code 75), and
-  ``send_training_data(..., resume=True)`` continues from it or from the
-  newest intact step checkpoint;
+- preemption: :meth:`request_preempt` stops the loop at the next dispatch
+  boundary, drains the pipeline and writes the ``tag_preempt`` checkpoint
+  inside ``runtime.preempt_grace_s`` (``cli train`` maps it to exit code
+  75), and ``send_training_data(..., resume=True)`` continues from it or
+  from the newest intact step checkpoint;
 - greedy evaluation (:meth:`evaluate`, :meth:`evaluate_best`, every
   ``eval_every_updates``): one argmax replay of the episode in the compute
   precision (through the precomputed trunk where the model has one, else
   step by step); under ``keep_best_eval`` the best policy so far is
   ``tag_best``.
 
-Test seams as in the JAX package: ``step_override`` replaces the agent's
-step, ``fault_hook(chunk_idx, row)`` runs on every chunk's metrics row.
+The live state (``_ts``) is a property: every assignment loads the new
+state into the chunk program's buffers, which the captured graph reads.
 
-Not yet ported: the async readback pipeline, megachunks, sampled metric
-readback, roofline/obs, the DQN transition journal, actor feeds and warm
-starts. A
-non-default value of such a knob raises ``ConfigError``; where the default
-itself turns the feature on, the run goes on and logs one warning line
-naming what it does instead (:func:`check_ported`).
+Test seams as in the JAX package: ``step_override`` replaces the agent's
+step (K = 1 and the pipeline off), ``fault_hook(chunk_idx, row)`` runs on
+every chunk's metrics row.
+
+Not yet ported: roofline/obs, the tracer (``runtime.profile_dir``), the
+DQN transition journal, actor feeds and tuned profiles; a non-default
+value of such a knob raises ``ConfigError`` (:func:`check_ported`).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import random
 import threading
 import time
@@ -60,7 +82,9 @@ import torch
 
 from sharetrade_tpu_torch.agents import build_agent
 from sharetrade_tpu_torch.agents.base import (
-    Agent, TrainState, agent_health, build_optimizer, election_health)
+    Agent, ChunkProgram, MetricsReadback, StackedMetrics, TrainState,
+    agent_health, build_optimizer, election_health, state_items,
+    with_tensors)
 from sharetrade_tpu_torch.agents.rollout import (
     greedy_rollout, greedy_rollout_precomputed, supports_precomputed_trunk)
 from sharetrade_tpu_torch.checkpoint import CheckpointManager
@@ -71,7 +95,10 @@ from sharetrade_tpu_torch.models.core import tree_leaves
 from sharetrade_tpu_torch.precision import policy_from_config
 from sharetrade_tpu_torch.runtime.lifecycle import (
     Lifecycle, Phase, QueryReply, ReplyState)
+from sharetrade_tpu_torch.runtime.pipeline import AsyncPipeline, Boundary
 from sharetrade_tpu_torch.utils.logging import EventLog, get_logger
+from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+from sharetrade_tpu_torch.utils.profiling import StepTimer
 
 log = get_logger("runtime.orchestrator")
 
@@ -91,24 +118,10 @@ DEFAULT_ERROR_POLICY: dict[type, str] = {
 #: Knobs whose feature is not ported, with the default the port runs at:
 #: any other value is refused.
 _REFUSED = {
-    "runtime.megachunk_factor": 1,
-    "runtime.double_buffer_dispatch": False,
-    "runtime.pipeline_depth": 2,
     "runtime.profile_dir": None,
     "obs.enabled": False,
     "distrib.num_actors": 0,
     "tuning.profile": None,
-}
-
-#: Knobs whose DEFAULT turns on a feature that is not ported: the run goes
-#: on, does what the message says, and says so once.
-_WARNED = {
-    "runtime.async_pipeline":
-        (lambda v: bool(v), "the async readback pipeline (metrics are read "
-                            "back synchronously, once per chunk)"),
-    "runtime.metrics_every_chunks":
-        (lambda v: v != 1, "sampled metric readback (every chunk is read "
-                           "back)"),
 }
 
 
@@ -117,9 +130,8 @@ def _knob(cfg: FrameworkConfig, path: str) -> Any:
     return getattr(getattr(cfg, section), key)
 
 
-def check_ported(cfg: FrameworkConfig) -> list[str]:
-    """Raise ``ConfigError`` for a non-default value of an unported knob;
-    return the unported features the config's defaults turn on."""
+def check_ported(cfg: FrameworkConfig) -> None:
+    """Raise ``ConfigError`` for a non-default value of an unported knob."""
     for path, default in _REFUSED.items():
         value = _knob(cfg, path)
         if value != default:
@@ -128,25 +140,12 @@ def check_ported(cfg: FrameworkConfig) -> list[str]:
     if cfg.parallel.mesh_shape:
         raise ConfigError("parallel.mesh_shape: multi-device layouts are not "
                           "yet ported to sharetrade_tpu_torch")
-    return [f"{what} [{path}]" for path, (on, what) in _WARNED.items()
-            if on(_knob(cfg, path))]
 
 
 def _clone(tree):
     """A copy of a tree of tensors (dicts, lists, tuples, named tuples and
     dataclasses) that owns every tensor."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(_clone(v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_clone(v) for v in tree)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return type(tree)(**{f.name: _clone(getattr(tree, f.name))
-                             for f in dataclasses.fields(tree)})
-    return tree
+    return with_tensors(tree, {p: t.clone() for p, t in state_items(tree)})
 
 
 def _clone_state(ts: TrainState) -> TrainState:
@@ -171,10 +170,23 @@ class Orchestrator:
                                                               dict]] | None = None,
                  fault_hook: Callable[[int, dict], None] | None = None,
                  error_policy: dict[type, str] | None = None):
-        unported = check_ported(cfg)
-        if unported:
-            log.warning("not yet ported, running without: %s",
-                        "; ".join(unported))
+        check_ported(cfg)
+        rt = cfg.runtime
+        # Impossible compositions never heal by restarting: refused at
+        # construction, as in the JAX package.
+        if rt.megachunk_factor < 1:
+            raise ConfigError("runtime.megachunk_factor must be >= 1, got "
+                              f"{rt.megachunk_factor}")
+        if rt.pipeline_depth < 1:
+            raise ConfigError("runtime.pipeline_depth must be >= 1, got "
+                              f"{rt.pipeline_depth}")
+        if (rt.megachunk_factor > 1
+                and rt.metrics_every_chunks % rt.megachunk_factor != 0):
+            log.info(
+                "metrics_every_chunks=%d is not a multiple of "
+                "megachunk_factor=%d; metric samples land on megachunk "
+                "boundaries (rounded up)",
+                rt.metrics_every_chunks, rt.megachunk_factor)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lifecycle = Lifecycle()
@@ -189,13 +201,18 @@ class Orchestrator:
         self._fault_hook = fault_hook
         self._error_policy = (DEFAULT_ERROR_POLICY if error_policy is None
                               else error_policy)
+        self.metrics = MetricsRegistry(max_points=cfg.obs.max_metric_points)
         self.agent: Agent | None = None
         self.env = None
-        self._ts: TrainState | None = None
+        # The chunk program (None under step_override); set before the
+        # first state so that every state assigned goes through its load.
+        self._program: ChunkProgram | None = None
+        self._state: TrainState | None = None
         self._snapshot: dict[str, float] = {}
         self._snapshot_lock = threading.Lock()
-        # Held across each step call: a reader that copies the state under
-        # it sees a chunk boundary, never a half-applied update.
+        # Held across each dispatch: a reader that copies the state under
+        # it enqueues its copy after the last dispatched chunk, on the same
+        # stream, and so sees a chunk boundary.
         self._step_lock = threading.RLock()
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
@@ -210,8 +227,32 @@ class Orchestrator:
         self._best_eval_lock = threading.Lock()
         self._last_ckpt_updates = 0
         self.episode = 0
+        #: Chunks whose rows the loop has committed (retried chunks twice).
         self.chunks = 0
         self.last_error: BaseException | None = None
+        # The async pipeline, live while a supervised run is in flight;
+        # _committed_idx is the consumer's per-row progress cursor (the
+        # synchronous loop's chunk index), read for fault attribution.
+        self._pl: AsyncPipeline | None = None
+        self._committed_idx = 0
+        self._timer: StepTimer | None = None
+        #: The last run's pipeline: boundaries consumed and the largest
+        #: queue depth seen (kept after shutdown).
+        self.pipeline_stats: dict[str, int] = {}
+
+    # ---- the live state ---------------------------------------------------
+
+    @property
+    def _ts(self) -> TrainState | None:
+        return self._state
+
+    @_ts.setter
+    def _ts(self, ts: TrainState | None) -> None:
+        # A heal, re-arm, restore or resume hands in fresh tensors: the
+        # captured graph reads its own buffers, so the values go there.
+        if self._program is not None and ts is not None:
+            ts = self._program.load(ts)
+        self._state = ts
 
     # ---- protocol: SendTrainingData ------------------------------------
 
@@ -235,6 +276,8 @@ class Orchestrator:
             initial_budget=env_cfg.initial_budget,
             initial_shares=env_cfg.initial_shares, device=self.device)
         self.agent = build_agent(self.cfg, self.env, device=self.device)
+        self._program = (None if self._step_override is not None
+                         else ChunkProgram(self.agent))
         template = self.agent.init(self.cfg.seed)
         self.episode = 0
         if resume:
@@ -348,8 +391,8 @@ class Orchestrator:
 
     @staticmethod
     def _read_metrics(metrics: dict[str, Any]) -> dict[str, float]:
-        """One device-to-host read for the whole chunk's tensor metrics
-        (a ``step_override`` may return plain numbers)."""
+        """One device-to-host read for a ``step_override`` chunk's tensor
+        metrics (it may return plain numbers)."""
         keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
         row = {k: float(v) for k, v in metrics.items() if k not in keys}
         if keys:
@@ -358,91 +401,326 @@ class Orchestrator:
             row.update(zip(keys, stacked.tolist()))
         return {k: row[k] for k in metrics}
 
-    def _host_process(self, chunk_idx: int, metrics: dict[str, Any],
-                      t0: float) -> dict[str, float]:
-        """Readback, the fault hook, then the snapshot."""
+    def _dispatch(self, k: int):
+        """``k`` chunks from the live state, under the step lock; returns
+        the chunk program's :class:`StackedMetrics` (a ``step_override``'s
+        metrics dict as it is)."""
+        with self._step_lock:
+            if self._step_override is not None:
+                self._ts, metrics = self._step_override(self._ts)
+                return metrics
+            self._ts, stacked = self._program(self._ts, k)
+            return stacked
+
+    def _start_readback(self, metrics) -> MetricsReadback:
+        """Enqueue a dispatch's rows to the host, before the next dispatch
+        overwrites the program's buffer."""
+        if isinstance(metrics, StackedMetrics):
+            return self._program.readback(metrics)
         row = self._read_metrics(metrics)
-        row["chunk_seconds"] = time.perf_counter() - t0
-        if self._fault_hook is not None:
-            self._fault_hook(chunk_idx, row)
-        self.chunks += 1
-        with self._snapshot_lock:
-            self._snapshot = row
-        return row
+        return MetricsReadback(tuple(row), torch.tensor(
+            [list(row.values())], dtype=torch.float64))
+
+    def _new_pipeline(self) -> AsyncPipeline:
+        return AsyncPipeline(self.cfg.runtime.pipeline_depth,
+                             self._host_process,
+                             attn_check=self._row_needs_attention)
 
     def _run_supervised(self) -> None:
+        """The dispatcher, as in the JAX package: dispatches chunks and
+        makes every state-changing decision; with the pipeline on, the
+        readback and the rows' host work run on the consumer thread
+        (:meth:`_host_process`), with it off inline."""
         rt = self.cfg.runtime
         horizon = self.env.num_steps
-        step_fn = self._step_override or self.agent.step
         chunk_idx = 0
         self._last_ckpt_updates = 0
+        # A fault hook samples every chunk, so that an injected fault
+        # surfaces on the chunk that raised it.
+        metrics_every = (1 if self._fault_hook is not None
+                         else max(1, rt.metrics_every_chunks))
+        mega = rt.megachunk_factor if self._program is not None else 1
+        timer = StepTimer(rt.chunk_steps, self.cfg.parallel.num_workers,
+                          max_history=self.cfg.obs.max_timer_history or None)
+        self._timer = timer
+        updates0, env_steps0 = (int(v) for v in torch.stack(
+            [self._ts.updates, self._ts.env_steps]).tolist())
         # Baseline before the first chunk unless an INTACT checkpoint could
         # already serve a restore: "lose at most checkpoint_every_updates
         # updates" holds from chunk 0.
         if rt.checkpoint_every_updates > 0 and not self.checkpoints.any_intact():
             self.checkpoints.save_async(
-                int(self._ts.updates), self._ts,
-                metadata={"episode": self.episode,
-                          "env_steps": int(self._ts.env_steps)})
-        while not self._stop.is_set():
-            in_step = False
-            try:
-                if self._preempt.is_set():
-                    self._preempt_shutdown()
-                    return
-                t0 = time.perf_counter()
-                with self._step_lock:
-                    in_step = True
-                    self._ts, metrics = step_fn(self._ts)
-                    in_step = False
-                row = self._host_process(chunk_idx, metrics, t0)
-                chunk_idx += 1
-                if self._boundary_actions(row, horizon) == "completed":
-                    return
-            except Exception as exc:  # the supervision decider
-                self.last_error = exc
-                verb = self._decide(exc)
-                self.events.emit("worker_failed", error=repr(exc), verb=verb,
-                                 restarts=self.restarts + 1)
-                if verb == RESUME:
-                    log.warning("resuming after %r (policy: resume)", exc)
-                    if in_step:
-                        # The step updates the parameters in place: a fault
-                        # inside it leaves no state to resume from.
-                        log.warning("the failed step may have updated the "
-                                    "state in place; restoring")
-                        self._restore_or_reinit()
-                    continue
-                if verb == STOP:
-                    self.lifecycle.force(Phase.FAILED)
-                    log.error("stopping after %r (policy: stop)", exc)
-                    return
-                if verb == ESCALATE:
-                    self.lifecycle.force(Phase.FAILED)
-                    raise
-                self.restarts += 1
-                if self.restarts > rt.max_restarts:
-                    self.lifecycle.force(Phase.FAILED)
-                    log.error("restart budget exhausted: %r", exc)
-                    return
-                delay = min(rt.backoff_initial_s * 2 ** (self.restarts - 1),
-                            rt.backoff_max_s)
-                delay *= 1.0 + random.uniform(-rt.backoff_jitter,
-                                              rt.backoff_jitter)
-                log.warning("chunk failed (%r); restart %d/%d in %.2fs",
-                            exc, self.restarts, rt.max_restarts, delay)
-                if self._wait_backoff(delay):
-                    return
-                self._restore_or_reinit()
+                updates0, self._ts,
+                metadata={"episode": self.episode, "env_steps": env_steps0})
+        timer.tick()
+        last_env_steps: int | None = env_steps0
+        chunks_since = 0   # chunks since the last materialization decision
+        chunks_ahead = 0   # chunks dispatched past the last boundary row SEEN
+        self._committed_idx = 0
+        # Double-buffered dispatch (sync path, K > 1): the (readback, K,
+        # heals at dispatch) of a megachunk already dispatched while its
+        # predecessor's rows are read back. The heals mark lets the health
+        # check recognise a stale report from before a boundary heal.
+        pending: tuple[MetricsReadback, int, int] | None = None
+        # The pipeline: off under the step_override seam (lockstep).
+        pl: AsyncPipeline | None = None
+        if rt.async_pipeline and self._step_override is None:
+            self.pipeline_stats = {}
+            pl = self._new_pipeline()
+        self._pl = pl
+        # The chunk position of the boundary row being acted on in the
+        # attention path: a raise from there belongs to ITS chunk.
+        acting_chunk: int | None = None
+        try:
+            while not self._stop.is_set():
+                in_step = False
+                try:
+                    acting_chunk = None
+                    if self._preempt.is_set():
+                        self._preempt_shutdown(pl)
+                        return
+                    if pl is not None and (pl.error is not None
+                                           or pl.attention.is_set()):
+                        # A consumer fault, or rows that need an action:
+                        # drain so every queued readback lands in order.
+                        pl.drain()
+                        pl.attention.clear()
+                        if pl.error is not None:
+                            chunk_idx = self._committed_idx
+                            raise pl.error
+                        if pl.last_row is not None:
+                            last_env_steps = int(pl.last_row["env_steps"])
+                            chunks_ahead = chunk_idx - self._committed_idx
+                        # Act on EVERY flagged row, in chunk order.
+                        for row, mark, end_idx in pl.take_attention():
+                            acting_chunk = end_idx
+                            ret = self._boundary_actions(row, mark, horizon)
+                            if ret == "completed":
+                                return
+                            if ret == "rearmed":
+                                break   # later rows predate the re-arm
+                        continue
+                    if last_env_steps is None:   # after any recovery
+                        last_env_steps = int(self._ts.env_steps)
+                        chunks_since = 0
+                        chunks_ahead = 0
+                    threshold = horizon * (self.episode + 1)
+                    readback = None
+                    if pending is not None:
+                        readback, k, heals_mark = pending
+                        pending = None
+                    else:
+                        heals_mark = self.agent_heals
+                        # Fuse K chunks only while even the env-step UPPER
+                        # BOUND after K more chunks stays below the
+                        # threshold: no inner chunk can complete the episode.
+                        can_fuse = (mega > 1
+                                    and (last_env_steps + (chunks_ahead + mega)
+                                         * rt.chunk_steps) < threshold)
+                        if (pl is not None and mega > 1 and not can_fuse
+                                and chunks_ahead > 0):
+                            # Drain before the K=1 exact path: the bound
+                            # staled while boundaries were in flight. Only a
+                            # refresh that MOVED it re-enters the loop.
+                            if (pl.drain() and pl.error is None
+                                    and pl.last_row is not None):
+                                refreshed = (int(pl.last_row["env_steps"]),
+                                             chunk_idx - self._committed_idx)
+                                if refreshed != (last_env_steps, chunks_ahead):
+                                    last_env_steps, chunks_ahead = refreshed
+                                    continue
+                        k = mega if can_fuse else 1
+                        in_step = True
+                        metrics = self._dispatch(k)
+                        in_step = False
+                    chunks_since += k
+                    chunks_ahead += k
+                    est_env_steps = min(
+                        last_env_steps + chunks_ahead * rt.chunk_steps,
+                        threshold)
+                    if (chunks_since < metrics_every
+                            and est_env_steps < threshold):
+                        chunk_idx += k
+                        continue        # no readback between samples
+                    if readback is None:
+                        readback = self._start_readback(metrics)
+                    if pl is not None:
+                        boundary = Boundary(chunk_idx, k, readback, None,
+                                            heals_mark, chunks_since)
+                        if not pl.try_put(boundary):
+                            ok = pl.put(boundary, stop=self._stop)
+                            self.metrics.inc("pipeline_stalls_total")
+                            if not ok:
+                                continue   # fault/stop: the loop top acts
+                        self.metrics.record("pipeline_queue_depth",
+                                            pl.qsize())
+                        chunk_idx += k
+                        chunks_since = 0
+                        if (est_env_steps >= threshold
+                                or self._fault_hook is not None):
+                            # This boundary MAY complete the episode (or a
+                            # hook may change the state): wait for its row.
+                            if (pl.drain() and pl.error is None
+                                    and pl.last_row is not None):
+                                last_env_steps = int(pl.last_row["env_steps"])
+                                chunks_ahead = chunk_idx - self._committed_idx
+                        continue
+                    if (rt.double_buffer_dispatch and k > 1
+                            and self._fault_hook is None
+                            and (last_env_steps + (chunks_ahead + k)
+                                 * rt.chunk_steps) < threshold):
+                        # Dispatch the next megachunk before reading this
+                        # one's rows (their copy is already enqueued):
+                        # decisions below act on a state one megachunk
+                        # ahead of the rows, as in the JAX package.
+                        in_step = True
+                        ahead = self._dispatch(k)
+                        in_step = False
+                        pending = (self._start_readback(ahead), k,
+                                   self.agent_heals)
+                    row = self._host_process(Boundary(
+                        chunk_idx, k, readback, None, heals_mark,
+                        chunks_since))
+                    chunk_idx = self._committed_idx
+                    last_env_steps = int(row["env_steps"])
+                    chunks_since = 0
+                    chunks_ahead = 0
+                    if self._boundary_actions(row, heals_mark,
+                                              horizon) == "completed":
+                        return
+                except Exception as exc:  # the supervision decider
+                    last_env_steps = None   # resync after any recovery
+                    pending = None          # the megachunk in flight is stale
+                    pipeline_fault = pl is not None and exc is pl.error
+                    if pl is not None:
+                        # Queued boundaries were computed from state the
+                        # recovery rewinds: stale; the next segment
+                        # re-materializes those chunks.
+                        pl.shutdown()
+                        self._record_pipeline_stats(pl)
+                        pl = self._new_pipeline()
+                        self._pl = pl
+                    # A consumer fault belongs to the chunk the consumer
+                    # committed last; a raise from the attention path to the
+                    # row it acted on; any other to its own position.
+                    if pipeline_fault:
+                        chunk_idx = self._committed_idx
+                    elif acting_chunk is not None:
+                        chunk_idx = acting_chunk
+                    else:
+                        chunk_idx = max(chunk_idx, self._committed_idx)
+                    self.last_error = exc
+                    verb = self._decide(exc)
+                    self.events.emit("worker_failed", error=repr(exc),
+                                     verb=verb, restarts=self.restarts + 1)
+                    if verb == RESUME:
+                        log.warning("resuming after %r (policy: resume)", exc)
+                        if in_step:
+                            # The step updates the state in place: a fault
+                            # inside it leaves no state to resume from.
+                            log.warning("the failed step may have updated "
+                                        "the state in place; restoring")
+                            self._restore_or_reinit()
+                        timer.rebase()
+                        continue
+                    if verb == STOP:
+                        self.lifecycle.force(Phase.FAILED)
+                        log.error("stopping after %r (policy: stop)", exc)
+                        return
+                    if verb == ESCALATE:
+                        self.lifecycle.force(Phase.FAILED)
+                        raise
+                    self.restarts += 1
+                    self.metrics.inc("restarts_total")
+                    if self.restarts > rt.max_restarts:
+                        self.lifecycle.force(Phase.FAILED)
+                        log.error("restart budget exhausted: %r", exc)
+                        return
+                    delay = min(rt.backoff_initial_s * 2 ** (self.restarts - 1),
+                                rt.backoff_max_s)
+                    delay *= 1.0 + random.uniform(-rt.backoff_jitter,
+                                                  rt.backoff_jitter)
+                    log.warning("chunk failed (%r); restart %d/%d in %.2fs",
+                                exc, self.restarts, rt.max_restarts, delay)
+                    if self._wait_backoff(delay):
+                        return
+                    self._restore_or_reinit()
+                    timer.rebase()
+        finally:
+            self._pl = None
+            if pl is not None:
+                pl.shutdown()
+                self._record_pipeline_stats(pl)
 
-    def _boundary_actions(self, metrics: dict[str, float],
+    def _record_pipeline_stats(self, pl: AsyncPipeline) -> None:
+        self.pipeline_stats = {
+            "max_depth_seen": max(
+                self.pipeline_stats.get("max_depth_seen", 0),
+                pl.max_depth_seen),
+            "boundaries": (self.pipeline_stats.get("boundaries", 0)
+                           + pl.processed),
+        }
+
+    def _host_process(self, b: Boundary) -> dict[str, float]:
+        """The consumer half: the boundary's rows from the host copy (the
+        wait is on its event alone), then per row the fault hook and the
+        metric stream, strictly in chunk order; the boundary row, with the
+        timer's rates, becomes the snapshot. On the consumer thread with
+        the pipeline on, inline otherwise. ``_committed_idx`` advances per
+        row: the fault-attribution cursor."""
+        self._committed_idx = b.base
+        rows = b.metrics.rows()
+        for i, row in enumerate(rows):
+            if self._fault_hook is not None:
+                # Per inner chunk with its TRUE index: a fault mid-megachunk
+                # surfaces at the boundary, attributed to its chunk.
+                self._fault_hook(b.base + i, row)
+            self._committed_idx = b.base + i + 1
+            if i + 1 < b.k:
+                self.metrics.record_many(row)
+        metrics = rows[-1]
+        metrics.update(self._timer.tick(b.chunks_covered))
+        self.chunks += b.chunks_covered
+        with self._snapshot_lock:
+            self._snapshot = metrics
+        self.metrics.record_many(metrics)
+        return metrics
+
+    def _row_needs_attention(self, row: dict[str, float]) -> bool:
+        """Consumer-side hint: does this boundary row need a dispatcher
+        action (heal, NaN supervision, eval/checkpoint cadence, episode
+        completion)? Over-triggering is harmless: the dispatcher drains and
+        re-checks the exact conditions in :meth:`_boundary_actions`."""
+        rt = self.cfg.runtime
+        unhealthy = row.get("unhealthy_workers", 0)
+        if rt.partial_recovery and unhealthy > 0:
+            return True
+        if rt.partial_recovery and not np.isfinite(row.get("loss", 0.0)):
+            return True
+        if (not rt.partial_recovery
+                and unhealthy >= self.cfg.parallel.num_workers):
+            return True
+        updates = int(row.get("updates", 0))
+        last = self._last_ckpt_updates
+        for every in (rt.eval_every_updates, rt.checkpoint_every_updates):
+            if every > 0 and updates // every > last // every:
+                return True
+        return (int(row.get("env_steps", 0))
+                >= self.env.num_steps * (self.episode + 1))
+
+    def _boundary_actions(self, metrics: dict[str, float], heals_mark: int,
                           horizon: int) -> str | None:
-        """Decisions on a chunk's row: per-agent heals, NaN supervision
+        """Decisions on a boundary row: per-agent heals, NaN supervision
         (raises feed the decider), eval and checkpoint cadence, and the
-        episode gate. Returns "completed", "rearmed" or None."""
+        episode gate. Under the pipeline it runs only after a drain, so the
+        live state is at or past the row. Returns "completed", "rearmed" or
+        None."""
         rt = self.cfg.runtime
         workers = self.cfg.parallel.num_workers
-        if rt.partial_recovery and metrics.get("unhealthy_workers", 0) > 0:
+        if (rt.partial_recovery and metrics.get("unhealthy_workers", 0) > 0
+                # A stale report from a megachunk dispatched before the last
+                # heal: the next fresh one re-reports a persistent fault.
+                and heals_mark == self.agent_heals):
             # Respawn just the bad rows; past the heal budget, or beyond a
             # row respawn, the restart path takes over.
             if (self.agent_heals >= rt.max_agent_heals
@@ -473,6 +751,7 @@ class Orchestrator:
                 updates, self._ts,
                 metadata={"episode": self.episode,
                           "env_steps": int(metrics.get("env_steps", 0))})
+            self.metrics.inc("checkpoints_total")
             self.events.emit("checkpoint", updates=updates)
         self._last_ckpt_updates = updates
 
@@ -486,6 +765,7 @@ class Orchestrator:
                        + stranded >= workers)
         if done_steps and all_trained:
             self.episode += 1
+            self.metrics.inc("episodes_completed_total")
             if self.episode < rt.episodes:
                 self.events.emit("episode_completed", episode=self.episode)
                 log.info("episode %d completed; re-arming", self.episode)
@@ -500,7 +780,7 @@ class Orchestrator:
             self.lifecycle.to(Phase.COMPLETED)
             self.events.emit("training_completed",
                              env_steps=int(metrics["env_steps"]),
-                             episodes=self.episode)
+                             episodes=self.episode, **self._timer.summary())
             log.info("training completed at %d env steps",
                      int(metrics["env_steps"]))
             return "completed"
@@ -668,20 +948,23 @@ class Orchestrator:
             if self._stop.wait(min(remaining, 0.1)):
                 return True
 
-    def _preempt_shutdown(self) -> None:
-        """At a chunk boundary, inside ``runtime.preempt_grace_s``: pending
-        saves land, then the emergency ``tag_preempt`` checkpoint with the
-        resume metadata. Never raises: a failure here degrades durability
-        but must not turn a preemption into a restart."""
+    def _preempt_shutdown(self, pl: AsyncPipeline | None) -> None:
+        """At a dispatch boundary, inside ``runtime.preempt_grace_s``:
+        queued readbacks drain in order, pending saves land, then the
+        emergency ``tag_preempt`` checkpoint with the resume metadata.
+        Never raises: a failure here degrades durability but must not turn
+        a preemption into a restart."""
         grace = self.cfg.runtime.preempt_grace_s
         deadline = self._preempt_deadline or (time.monotonic() + grace)
-        log.warning("preemption requested; writing an emergency checkpoint "
-                    "(%.1fs of the %.1fs grace left)",
+        log.warning("preemption requested; draining for an emergency "
+                    "checkpoint (%.1fs of the %.1fs grace left)",
                     max(0.0, deadline - time.monotonic()), grace)
         saved = False
         try:
-            updates = int(self._ts.updates)
-            env_steps = int(self._ts.env_steps)
+            if pl is not None:
+                pl.drain(timeout_s=max(0.5, deadline - time.monotonic()))
+            updates, env_steps = (int(v) for v in torch.stack(
+                [self._ts.updates, self._ts.env_steps]).tolist())
             self.checkpoints.wait_pending(
                 timeout=max(0.5, deadline - time.monotonic()))
             self.checkpoints.save_tagged(

@@ -1,0 +1,241 @@
+"""Bounded async readback pipeline — host consumption off the dispatch path.
+
+A copy of the JAX package's ``runtime/pipeline.py`` (it imports no JAX; the
+port keeps its own copy rather than importing the JAX package). In the
+port a boundary's ``metrics`` is a readback already enqueued on the card
+(``agents/base.py`` ``MetricsReadback``): the consumer waits on its event,
+never on the whole device.
+
+The reference is a parameter-server trainer whose workers never wait on the
+aggregator (SURVEY.md §7.4 "Queryability"); Podracer-style JAX architectures
+(Anakin/Sebulba, arXiv:2104.06272) and MSRL's dataflow fragments
+(arXiv:2210.00882) get their throughput from the same inversion: device
+compute streams ahead while a host-side consumer absorbs results. This
+module is that seam for the orchestrator's hot loop
+(``runtime.async_pipeline``): the dispatcher issues megachunks back-to-back
+and hands each materialization boundary's device buffers to ONE background
+consumer thread through a bounded queue; the consumer performs the entire
+readback + host-processing block (metric rows, flight recorder, journaling,
+fault hooks, snapshot updates) strictly in chunk order.
+
+Contracts the orchestrator builds on:
+
+- **Order**: a single consumer thread pops FIFO, so rows / journal records /
+  fault hooks observe exactly the chunk order of the synchronous path.
+- **Backpressure**: the queue is bounded (``runtime.pipeline_depth``), so
+  HBM held by in-flight readback buffers is bounded and dispatch stalls
+  (``pipeline_stall``) rather than racing ahead unboundedly.
+- **Fault propagation**: an exception raised while consuming is stored (not
+  swallowed) and ``error`` is visible to the dispatcher BEFORE it commits
+  the next megachunk; the original exception object is re-raised on the
+  dispatcher thread so the supervision decider sees the true type. Chunk
+  attribution rides the orchestrator's ``_committed_idx`` (advanced per row
+  by the consumer, exactly like the synchronous loop's ``chunk_idx``).
+- **Drain barrier**: ``drain()`` blocks until every boundary enqueued at
+  call time has been consumed (or the consumer faulted) — the exactness
+  gate before episode-completion checks, ``get_avg``/``get_std`` snapshot
+  reads, and checkpoint/eval cadence decisions. Called from the consumer
+  thread itself (a fault hook querying the orchestrator) it is a no-op,
+  never a deadlock.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Any, Callable, NamedTuple
+
+
+class Boundary(NamedTuple):
+    """One materialization boundary handed from dispatcher to consumer."""
+
+    base: int             #: first chunk index covered by this readback
+    k: int                #: fused chunk count (1 on the exact path)
+    metrics: Any          #: stacked (K, ...) device metric buffers
+    transitions: Any      #: stacked transition batch (DQN journaling) | None
+    heals_mark: int       #: agent_heals at dispatch (stale-report guard)
+    chunks_covered: int   #: chunks since the previous boundary (timer input)
+
+
+_SHUTDOWN = object()
+
+
+class AsyncPipeline:
+    """Bounded queue + one consumer thread; see the module docstring.
+
+    ``consume`` is called with each :class:`Boundary` and returns the
+    boundary metric row; ``attn_check(row)`` (optional) decides whether the
+    row needs a dispatcher-side action (heal, cadence, completion) — if so
+    the ``attention`` event is set and the dispatcher drains and acts.
+    ``span`` (optional) is an ``obs.span``-shaped factory used for the
+    ``queue_wait`` consumer-idle spans.
+    """
+
+    def __init__(self, depth: int, consume: Callable[[Boundary], dict], *,
+                 attn_check: Callable[[dict], bool] | None = None,
+                 span: Callable[..., Any] | None = None,
+                 name: str = "readback-consumer"):
+        if depth < 1:
+            raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+        self.depth = depth
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._consume = consume
+        self._attn_check = attn_check
+        self._span = span
+        self._cond = threading.Condition()
+        self._closing = False
+        self.enqueued = 0         #: boundaries accepted by put/try_put
+        self.processed = 0        #: boundaries consumed (or discarded)
+        self.error: BaseException | None = None
+        self.last_row: dict | None = None
+        self.attention = threading.Event()
+        #: Every boundary row that flagged attention, in chunk order, as
+        #: (row, heals_mark, end_chunk_idx) — the dispatcher acts on EACH
+        #: (not just the newest), so cadence crossings that land on
+        #: consecutive boundaries are never coalesced into one action, and
+        #: a fault raised while acting is attributed to end_chunk_idx (the
+        #: synchronous loop's chunk_idx at that boundary), not to however
+        #: far ahead the dispatcher has run.
+        self._attn_rows: list[tuple[dict, int, int]] = []
+        self.max_depth_seen = 0   #: high-water queue occupancy (tests)
+        self.stalls = 0           #: times the dispatcher blocked on put
+        self._thread = threading.Thread(target=self._loop, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    # -- dispatcher side -------------------------------------------------
+
+    def try_put(self, b: Boundary) -> bool:
+        """Non-blocking enqueue; False when the queue is full (caller then
+        records a stall and falls back to the blocking :meth:`put`)."""
+        if self.error is not None or self._closing:
+            return True     # accept-and-drop stance: error handling is the
+                            # dispatcher's next top-of-loop action anyway
+        try:
+            self._q.put_nowait(b)
+        except queue.Full:
+            return False
+        self._account_enqueue()
+        return True
+
+    def put(self, b: Boundary, *, stop: threading.Event | None = None,
+            timeout_s: float = 0.05) -> bool:
+        """Blocking enqueue with backpressure. Returns False (item dropped)
+        when the consumer faulted or ``stop`` was set while waiting — the
+        dispatcher's top-of-loop error handling takes over. A call that
+        actually waited on a full queue counts one ``stalls``."""
+        stalled = False
+        try:
+            while True:
+                if self.error is not None or self._closing:
+                    return False
+                if stop is not None and stop.is_set():
+                    return False
+                try:
+                    self._q.put(b, timeout=timeout_s)
+                except queue.Full:
+                    stalled = True
+                    continue
+                self._account_enqueue()
+                return True
+        finally:
+            if stalled:
+                with self._cond:
+                    self.stalls += 1
+
+    def _account_enqueue(self) -> None:
+        with self._cond:
+            self.enqueued += 1
+            self.max_depth_seen = max(self.max_depth_seen, self._q.qsize())
+
+    def qsize(self) -> int:
+        return self._q.qsize()
+
+    def take_attention(self) -> list[tuple[dict, int, int]]:
+        """Pop (and clear) the attention-flagged boundary rows, in chunk
+        order. Call after :meth:`drain` — the consumer is idle then, so the
+        list is complete for everything enqueued before the barrier."""
+        with self._cond:
+            rows, self._attn_rows = self._attn_rows, []
+            return rows
+
+    # -- barriers --------------------------------------------------------
+
+    def drain(self, timeout_s: float = 60.0) -> bool:
+        """Block until every boundary enqueued at call time is consumed.
+        Returns False on timeout or a consumer fault (the fault itself is
+        surfaced via ``error``). No-op from the consumer thread itself (a
+        fault hook calling back into the orchestrator must not deadlock)."""
+        if threading.current_thread() is self._thread:
+            return True
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            target = self.enqueued
+            while self.processed < target and self.error is None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cond.wait(min(remaining, 0.1))
+            return self.error is None
+
+    def shutdown(self, timeout_s: float = 30.0) -> None:
+        """Stop the consumer: anything still queued is DISCARDED (callers
+        that need the rows drain first), the thread joins. Idempotent."""
+        with self._cond:
+            if self._closing:
+                self._thread.join(timeout_s)
+                return
+            self._closing = True
+        self._q.put(_SHUTDOWN)   # consumer discards queued items first
+        self._thread.join(timeout_s)
+
+    # -- consumer thread -------------------------------------------------
+
+    def _loop(self) -> None:
+        while True:
+            if self._span is not None:
+                # Consumer-idle time: a long queue_wait span means the
+                # pipeline is starved (dispatch-bound) — the healthy state.
+                with self._span("queue_wait", depth=self._q.qsize()):
+                    item = self._q.get()
+            else:
+                item = self._q.get()
+            if item is _SHUTDOWN:
+                with self._cond:
+                    self._cond.notify_all()
+                return
+            if self.error is not None or self._closing:
+                # Stale boundary (post-fault / post-shutdown): the restore
+                # path rewinds state and re-materializes these chunks.
+                self._mark_processed()
+                continue
+            try:
+                row = self._consume(item)
+            except BaseException as exc:   # noqa: BLE001 — supervision food
+                with self._cond:
+                    self.error = exc
+                    self.processed += 1
+                    self._cond.notify_all()
+                self.attention.set()
+                continue
+            # Attention MUST be visible before `processed` ticks: drain()
+            # returns the instant processed catches up, and a dispatcher
+            # that checks the flag right after a drain barrier has to see
+            # this row's verdict — flagging after the tick opens a window
+            # where the completion row is processed but unflagged, and the
+            # dispatcher issues one overshoot chunk past the episode end.
+            if self._attn_check is not None and self._attn_check(row):
+                with self._cond:
+                    self._attn_rows.append(
+                        (row, item.heals_mark, item.base + item.k))
+                self.attention.set()
+            with self._cond:
+                self.last_row = row
+                self.processed += 1
+                self._cond.notify_all()
+
+    def _mark_processed(self) -> None:
+        with self._cond:
+            self.processed += 1
+            self._cond.notify_all()

@@ -1,1 +1,1 @@
-"""Shared utilities (logging)."""
+"""Shared utilities: logging, the metrics registry and the step timer."""

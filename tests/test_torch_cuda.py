@@ -655,3 +655,116 @@ def test_pinned_async_save_then_restore_gives_the_same_bits(cuda, tmp_path):
     _same_bits(want, restored)
     stats = mgr.save_stats[-1]
     assert stats["d2h_ms"] > 0 and stats["writer_ms"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the chunk as a CUDA graph
+# ---------------------------------------------------------------------------
+
+_MLP = ["model.kind=mlp", "model.hidden_dim=32", "env.window=16",
+        "parallel.num_workers=4", "runtime.chunk_steps=8"]
+GRAPH_LEARNERS = {
+    "qlearn": ["learner.algo=qlearn"] + _MLP,
+    "dqn": ["learner.algo=dqn", "learner.replay_capacity=256",
+            "learner.replay_batch=16"] + _MLP,
+    "dqn_per": ["learner.algo=dqn", "learner.replay_capacity=256",
+                "learner.replay_batch=16",
+                "learner.replay_priority=per"] + _MLP,
+    "pg": ["learner.algo=pg"] + _MLP,
+    "a2c": ["learner.algo=a2c"] + _MLP,
+    "ppo": ["learner.algo=ppo", "model.kind=transformer",
+            "model.seq_mode=episode", "model.num_heads=2",
+            "model.head_dim=64", "env.window=33", "parallel.num_workers=8",
+            "runtime.chunk_steps=16", "precision.mode=bf16_mixed"],
+}
+
+
+def _graph_and_eager(learner, cuda, tmp_path):
+    """Two orchestrators of the same small run: one whose chunks go
+    through its chunk program, one whose program is taken away (its state
+    plain tensors, its chunks ``agent.step``)."""
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.runtime import Orchestrator
+
+    rng = np.random.default_rng(0)
+    prices = (50 * np.exp(np.cumsum(rng.uniform(-0.02, 0.02, 200)))).astype(
+        np.float32)
+    pair = []
+    for name in ("graph", "eager"):
+        cfg = FrameworkConfig().apply_overrides(
+            GRAPH_LEARNERS[learner] + [f"runtime.checkpoint_dir="
+                                       f"{tmp_path / name}"])
+        orch = Orchestrator(cfg, device=cuda)
+        orch.send_training_data(prices)
+        pair.append(orch)
+    pair[1]._program = None
+    return pair
+
+
+@pytest.mark.parametrize("learner", sorted(GRAPH_LEARNERS))
+def test_graph_chunks_are_bitwise_the_eager_chunks(cuda, learner, tmp_path):
+    """Four chunks of each learner through the chunk program (chunk 1
+    eager, chunk 2 captured and replayed, chunks 3-4 replayed), a re-arm
+    after chunk 2 and a poisoned row healed after chunk 3, both loaded
+    into the graph's buffers: the state (every leaf and the generator),
+    every chunk's metrics and each kernel's launch count equal four eager
+    ``agent.step`` chunks with the same re-arm and heal, bit for bit."""
+    from sharetrade_tpu_torch.agents.base import _metric_vector
+    from sharetrade_tpu_torch.ops import fused_update as fu
+
+    graph, eager = _graph_and_eager(learner, cuda, tmp_path)
+    program = graph._program
+    runs = {}
+    for name, orch in (("graph", graph), ("eager", eager)):
+        attention.reset_launch_counts()
+        fu.reset_launch_counts()
+        rows = []
+        for c in range(4):
+            if name == "graph":
+                orch._ts, stacked = program(orch._ts)
+                rows.append(stacked.values[0].clone())
+            else:
+                orch._ts, metrics = orch.agent.step(orch._ts)
+                rows.append(_metric_vector(metrics, tuple(metrics), cuda))
+            if c == 1:
+                orch.episode += 1
+                orch._reset_episode()
+            if c == 2:
+                env = orch._ts.env_state
+                budget = env.budget.clone()
+                budget[1] = float("nan")
+                orch._ts = orch._ts.replace(env_state=env.replace(
+                    budget=budget))
+                assert orch._heal_agents()
+        torch.cuda.synchronize()
+        runs[name] = rows, {**attention.launch_counts, **fu.launch_counts}
+    assert program.replays == 3 and program.capture_seconds > 0
+    _same_bits(graph.train_state, eager.train_state)
+    for a, b in zip(runs["graph"][0], runs["eager"][0]):
+        assert torch.equal(a, b)
+    assert runs["graph"][1] == runs["eager"][1]
+    assert sum(runs["graph"][1].values()) > 0
+
+
+def test_a_chunk_that_cannot_be_captured_raises(cuda, tmp_path):
+    """A step that reads a value back to the host cannot be captured: the
+    chunk program raises on the dispatch that captures and never steps
+    eagerly instead."""
+    import dataclasses
+
+    graph, _ = _graph_and_eager("qlearn", cuda, tmp_path)
+    step = graph.agent.step
+
+    def host_sync_step(ts, draws=None):
+        ts, metrics = step(ts, draws=draws)
+        float(metrics["loss"])
+        return ts, metrics
+
+    program = graph._program
+    program.agent = dataclasses.replace(graph.agent, step=host_sync_step)
+    ts, _ = program(graph._ts)              # the eager warm-up chunk
+    updates = int(ts.updates)
+    with pytest.raises(RuntimeError):
+        program(ts)
+    assert program.replays == 0 and program.capture_seconds is None
+    assert int(ts.updates) == updates

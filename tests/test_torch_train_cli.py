@@ -76,7 +76,7 @@ def test_cli_train_sigterm_exits_75(tmp_path):
     try:
         deadline = time.monotonic() + 120
         for line in proc.stderr:
-            if "not yet ported" in line or time.monotonic() > deadline:
+            if "loaded" in line or time.monotonic() > deadline:
                 break
         time.sleep(1.0)
         proc.send_signal(signal.SIGTERM)
@@ -138,8 +138,8 @@ def test_preempt_mid_episode_and_trained_only_not_computed(tmp_path):
     assert orch.get_avg(trained_only=True).state is ReplyState.NOT_COMPUTED
 
 
-@pytest.mark.parametrize("knob", ["runtime.megachunk_factor=2",
-                                  "runtime.pipeline_depth=3",
+@pytest.mark.parametrize("knob", ["runtime.profile_dir=trace",
+                                  "obs.enabled=true",
                                   "learner.remat=true",
                                   "model.remat_blocks=true",
                                   "model.seq_mode=window"])
@@ -147,6 +147,17 @@ def test_unported_knobs_are_refused(knob, tmp_path):
     with pytest.raises(ConfigError, match="not yet ported"):
         orch = _orchestrator(tmp_path, knob)
         orch.send_training_data(_prices(60))
+
+
+@pytest.mark.parametrize("knob", ["runtime.megachunk_factor=2",
+                                  "runtime.pipeline_depth=3"])
+def test_megachunk_and_pipeline_knobs_are_accepted(knob, tmp_path):
+    orch = _orchestrator(tmp_path, knob, "runtime.async_pipeline=true")
+    orch.send_training_data(_prices(12 + 64))
+    orch.start_training(background=False)
+    assert orch.lifecycle.phase is Phase.COMPLETED
+    assert orch.snapshot()["env_steps"] == 64
+    assert orch.pipeline_stats["boundaries"] >= 1
 
 
 def _serve_cmd(*extra):

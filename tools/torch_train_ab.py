@@ -23,7 +23,8 @@ then the synchronous final save) and with
 ``runtime.checkpoint_every_updates=0`` (no baseline; the final save
 stays), alternating, after one warm-up run. Each run gives the baseline
 ``save_async`` call's host time and its ``save_stats``, each chunk's step
-time (``chunk_seconds``: the writer of the baseline runs beside chunk 0),
+time (wall clock from one chunk's row to the next: the writer of the
+baseline runs beside chunk 0),
 the wait for that writer before the final save, the final save's time, and
 the run's wall time. Then the medians of each setting. Flagship only;
 ``--repeats 0`` skips it.
@@ -119,10 +120,10 @@ def one_run(torch, prices, extra: list[str]) -> dict:
     with tempfile.TemporaryDirectory(prefix="train-ab-") as ckpts:
         cfg = FrameworkConfig().apply_overrides(
             CONFIG + [f"runtime.checkpoint_dir={ckpts}"] + extra)
-        chunks: list = []
+        marks: list = []
         orch = Orchestrator(cfg, device="cuda",
-                            fault_hook=lambda i, row: chunks.append(
-                                row["chunk_seconds"]))
+                            fault_hook=lambda i, row: marks.append(
+                                time.perf_counter()))
         manager = orch.checkpoints
         calls: dict[str, list] = {"save_async": [], "wait_pending": [],
                                   "save": []}
@@ -135,6 +136,8 @@ def one_run(torch, prices, extra: list[str]) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         orch.stop()
+        # Hook to hook: a fault hook reads every chunk's row back.
+        chunks = [b - a for a, b in zip([t0] + marks, marks)]
         return {"wall_s": wall, "chunk_s": chunks,
                 "save_async_s": calls["save_async"],
                 "wait_pending_before_final_s": calls["wait_pending"][:1],
