@@ -94,10 +94,38 @@ Phases, in order (any failure exits non-zero before the final line):
                flagship), chunk ms, capture seconds, graph nodes and peak
                device memory of each, and the flagship's replayed chunk
                timed and profiled as in (a).
-11. cli_defaults — ``cli train --eval`` and ``cli serve`` with no ``--set``
+11. journal  — DQN's transition journal at the JAX defaults
+               (``learner.algo=dqn``, ``learner.journal_replay=true``:
+               q_mlp 203 -> 200 -> 3, 10 agents, 200-step chunks,
+               replay_capacity 65,536, replay_batch 256, the 5,845-step
+               series) through the orchestrator's defaults: (a) one
+               episode each of uniform replay and PER, counts reset just
+               before and read just after: records, rows against the
+               expected 58,450, stamps strictly increasing, and the rows,
+               decoded, equal to the final replay buffer's bit for bit
+               (each pushed row journaled exactly once), 200 fused_update
+               launches a replay; (b) the first four chunks eagerly,
+               encoded as the orchestrator journals them, byte-equal to
+               the graph run's first four records; (c) preempted after
+               chunk 10 and resumed: the warm-started buffer equals the
+               checkpoint's bit for bit (uniform and PER), and the uniform
+               run ends bit-equal to (a)'s with no stamp journaled twice;
+               (d) a fault-hook restart and a heal: stamps increasing,
+               every pushed row journaled once, the restart bit-equal to
+               (a); (e) the episode journaled and not, a replayed chunk of
+               each by CUDA events, a chunk's readback ms and bytes, the
+               host's append ms; (f) ``cli train --device cuda`` with no
+               ``--set`` and ``cli query --symbol MSFT`` in a fresh working
+               directory, whose price journal the port's service recovers.
+12. cli_defaults — ``cli train --eval`` and ``cli serve`` with no ``--set``
                but the checkpoint directory; train must end on
                ``REFERENCE_DIGITS``, serve boots from train's ``tag_best``
                and warns once that ``serve.swap_poll_s`` is not ported.
+
+Every price read journals into a fresh scratch directory, and every CLI
+run works in a fresh scratch directory (the checkout on ``PYTHONPATH``):
+nothing is written into the checkout's ``journal/``, and no run recovers a
+series that a run with another ``data.synthetic_length`` journaled.
 
 The orchestrator-driven steps (``cli_train``, ``resilience``, ``reference``
 (a) and (d), ``cli_defaults``) run the chunk program at the defaults: one
@@ -122,7 +150,7 @@ import time
 import numpy as np
 
 PHASES = ("build", "kernels", "train", "serve", "cli", "cli_train",
-          "resilience", "reference", "pipeline", "cli_defaults")
+          "resilience", "reference", "pipeline", "journal", "cli_defaults")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -984,7 +1012,7 @@ def kernels_line(results: dict) -> dict:
                    if r["kernel"] == name and r["case"] == KERNEL_CASE[name])
         by_path = {path: results[path]["launches"].get(name, 0)
                    for path in ("train", "serve", "resilience", "reference",
-                                "pipeline")
+                                "pipeline", "journal")
                    if path in results}
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -1121,12 +1149,11 @@ def phase_train(torch) -> dict:
     """The training main path; see the module docstring."""
     from sharetrade_tpu_torch.agents import build_agent
     from sharetrade_tpu_torch.config import FrameworkConfig
-    from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.env.trading import make_trading_env
     from sharetrade_tpu_torch.models.core import tree_leaves
 
     cfg = FrameworkConfig().apply_overrides(FLAGSHIP_TRAIN)
-    prices = PriceDataService(config=cfg.data).request("MSFT").series.prices
+    prices = _prices(cfg.data)
     env = make_trading_env(prices, window=cfg.env.window,
                            initial_budget=cfg.env.initial_budget,
                            initial_shares=cfg.env.initial_shares,
@@ -1208,7 +1235,6 @@ def phase_train(torch) -> dict:
 def phase_serve(torch) -> dict:
     """The serving main path; see the module docstring."""
     from sharetrade_tpu_torch.config import FrameworkConfig
-    from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.env.trading import obs_dim
     from sharetrade_tpu_torch.models import build_model
     from sharetrade_tpu_torch.ops import attention
@@ -1218,7 +1244,7 @@ def phase_serve(torch) -> dict:
 
     cfg = FrameworkConfig().apply_overrides(FLAGSHIP)
     window = cfg.env.window
-    prices = PriceDataService(config=cfg.data).request("MSFT").series.prices
+    prices = _prices(cfg.data)
     model = build_model(cfg.model, obs_dim(window), device="cuda")
     params = model.init(torch.Generator().manual_seed(cfg.seed))
     policy = policy_from_config(cfg.precision)
@@ -1306,6 +1332,41 @@ def phase_serve(torch) -> dict:
 
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
+#: This run's scratch directory (``main`` makes it and removes it at the
+#: end): every price read journals into a fresh directory under it, and
+#: every CLI run works in a fresh directory under it, so nothing is written
+#: into the checkout's journal/ and no run recovers a series another run
+#: journaled (the cache recovered from a journal wins over the config's
+#: ``data.synthetic_length``, as in the JAX package).
+_SCRATCH = ""
+
+
+def _fresh_dir(prefix: str) -> str:
+    import tempfile
+    return tempfile.mkdtemp(prefix=prefix, dir=_SCRATCH)
+
+
+def _prices(data) -> np.ndarray:
+    """The MSFT prices of ``data`` (a ``DataConfig``) through the port's
+    data service, journaled into a fresh scratch directory; the service is
+    closed again."""
+    import dataclasses
+
+    from sharetrade_tpu_torch.data.service import PriceDataService
+    service = PriceDataService(config=dataclasses.replace(
+        data, journal_dir=_fresh_dir("prices-")))
+    try:
+        return service.request("MSFT").series.prices
+    finally:
+        service.close()
+
+
+def _cli_env() -> dict:
+    """The environment of a CLI run from the scratch directory: the
+    checkout on ``PYTHONPATH``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return env
 
 
 def phase_cli() -> dict:
@@ -1320,7 +1381,8 @@ def phase_cli() -> dict:
             cmd += ["--set", item]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300, cwd=_ROOT)
+                              timeout=300, cwd=_fresh_dir("cli-"),
+                              env=_cli_env())
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     summary = json.loads(lines[-1]) if lines else {}
     ok = (proc.returncode == 0 and len(lines) >= 2
@@ -1347,7 +1409,8 @@ def phase_cli_train() -> dict:
             cmd += ["--set", item]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600, cwd=_ROOT)
+                              timeout=600, cwd=_fresh_dir("cli-"),
+                              env=_cli_env())
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     summary = json.loads(lines[-1]) if lines else {}
     launches = summary.get("kernel_launches", {})
@@ -1407,13 +1470,11 @@ def phase_resilience(torch) -> dict:
     import shutil
     import tempfile
     from sharetrade_tpu_torch.config import FrameworkConfig
-    from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.ops import attention
     from sharetrade_tpu_torch.runtime import Orchestrator, Phase
 
     base = FrameworkConfig().apply_overrides(RESILIENCE)
-    prices = PriceDataService(config=base.data).request(
-        "MSFT").series.prices
+    prices = _prices(base.data)
     root = tempfile.mkdtemp(prefix="resilience-")
     problems: list[str] = []
     row: dict = {"phase": "resilience", "config": RESILIENCE,
@@ -1468,8 +1529,8 @@ def phase_resilience(torch) -> dict:
 
     # A 4-chunk episode saving every 32 updates: the writer of the save at
     # chunk 2's boundary runs beside chunk 3, none beside chunks 2 and 4.
-    series = PriceDataService(config=FrameworkConfig().apply_overrides(
-        ["data.synthetic_length=4297"]).data).request("MSFT").series.prices
+    series = _prices(FrameworkConfig().apply_overrides(
+        ["data.synthetic_length=4297"]).data)
     t_run, marks_t = run("t", "runtime.checkpoint_every_updates=32",
                          series=series)
     completed(t_run, "t")
@@ -1600,7 +1661,7 @@ def phase_resilience(torch) -> dict:
     # tag_best save is timed on its own.
     cfg = FrameworkConfig().apply_overrides(
         FLAGSHIP_TRAIN + [f"runtime.checkpoint_dir={os.path.join(root, 'f')}"])
-    series = PriceDataService(config=cfg.data).request("MSFT").series.prices
+    series = _prices(cfg.data)
     f_orch = Orchestrator(cfg, device="cuda")
     f_orch.send_training_data(series, params=params)
     shapes: list = []
@@ -1675,7 +1736,8 @@ def phase_resilience(torch) -> dict:
         cmd += ["--set", item]
     t0 = time.perf_counter()
     train = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=600, cwd=_ROOT)
+                           timeout=600, cwd=_fresh_dir("cli-"),
+                           env=_cli_env())
     lines = [ln for ln in train.stdout.splitlines() if ln.startswith("{")]
     summary = json.loads(lines[-1]) if lines else {}
     best_path = os.path.join(g_dir, "tag_best", "meta.json")
@@ -1686,7 +1748,8 @@ def phase_resilience(torch) -> dict:
     for item in FLAGSHIP + [f"runtime.checkpoint_dir={g_dir}"]:
         cmd += ["--set", item]
     serve = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=300, cwd=_ROOT)
+                           timeout=300, cwd=_fresh_dir("cli-"),
+                           env=_cli_env())
     served = [json.loads(ln) for ln in serve.stdout.splitlines()
               if ln.startswith("{")]
     row["g"] = {"train_rc": train.returncode, "train_summary": summary,
@@ -1785,13 +1848,12 @@ def phase_reference(torch) -> dict:
     import tempfile
     from sharetrade_tpu_torch.agents import build_agent
     from sharetrade_tpu_torch.config import FrameworkConfig
-    from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.env.trading import make_trading_env
     from sharetrade_tpu_torch.ops import fused_update
     from sharetrade_tpu_torch.runtime import Orchestrator, Phase
 
     base = FrameworkConfig().apply_overrides(REFERENCE)
-    prices = PriceDataService(config=base.data).request("MSFT").series.prices
+    prices = _prices(base.data)
     horizon = len(prices) - base.env.window
     workers, steps = base.parallel.num_workers, base.runtime.chunk_steps
     root = tempfile.mkdtemp(prefix="reference-")
@@ -1804,10 +1866,12 @@ def phase_reference(torch) -> dict:
     # (a) one episode of the default Q-learning through the orchestrator,
     # the final partial chunk included, then the greedy eval.
     marks: list = []
+    hooked: list[tuple[int, float]] = []   # (chunk index, env_steps) a row
 
     def record(i, r):
         marks.append((time.perf_counter(),
                       fused_update.launch_counts["fused_update"], dict(r)))
+        hooked.append((i, r.get("env_steps")))
 
     cfg = FrameworkConfig().apply_overrides(
         REFERENCE + [f"runtime.checkpoint_dir={os.path.join(root, 'qlearn')}"])
@@ -1846,7 +1910,8 @@ def phase_reference(torch) -> dict:
         problems.append(f"qlearn: {len(chunk_ms)} chunks, env_steps "
                         f"{last.get('env_steps')}, updates "
                         f"{last.get('updates')}; expected {chunks} chunks "
-                        f"and {horizon} steps")
+                        f"and {horizon} steps (restarts {orch.restarts}, "
+                        f"last error {orch.last_error!r}, rows {hooked})")
     if set(per_chunk) != {REFERENCE_LAUNCHES["qlearn"]}:
         problems.append(f"qlearn: fused_update launches per chunk {per_chunk}")
     if not (row["qlearn"]["losses_finite"]
@@ -1913,8 +1978,7 @@ def phase_reference(torch) -> dict:
         c = FrameworkConfig().apply_overrides(
             REFERENCE + DQN_RESUME
             + [f"runtime.checkpoint_dir={os.path.join(root, name)}"])
-        series = PriceDataService(config=c.data).request(
-            "MSFT").series.prices
+        series = _prices(c.data)
         o = Orchestrator(c, device="cuda",
                          fault_hook=None if hook is None
                          else lambda i, r: hook(o, i, r))
@@ -2073,13 +2137,12 @@ def phase_pipeline(torch) -> dict:
     import tempfile
     from sharetrade_tpu_torch.agents import build_agent
     from sharetrade_tpu_torch.config import FrameworkConfig
-    from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.env.trading import make_trading_env
     from sharetrade_tpu_torch.runtime import Orchestrator, Phase
     from sharetrade_tpu_torch.utils.logging import EventLog
 
     base = FrameworkConfig().apply_overrides(REFERENCE)
-    prices = PriceDataService(config=base.data).request("MSFT").series.prices
+    prices = _prices(base.data)
     horizon = len(prices) - base.env.window
     workers, steps = base.parallel.num_workers, base.runtime.chunk_steps
     chunks = -(-horizon // steps)
@@ -2175,7 +2238,7 @@ def phase_pipeline(torch) -> dict:
 
     # (c) the flagship: three PPO chunks, eager against graph.
     cfg = FrameworkConfig().apply_overrides(FLAGSHIP_TRAIN)
-    series = PriceDataService(config=cfg.data).request("MSFT").series.prices
+    series = _prices(cfg.data)
     env = make_trading_env(series, window=cfg.env.window, device="cuda")
     flagship = build_agent(cfg, env, device="cuda")
     row["flagship"] = _eager_vs_graph(torch, flagship, cfg.seed)
@@ -2202,6 +2265,399 @@ def phase_pipeline(torch) -> dict:
     return row
 
 
+#: The journal phase: DQN at the JAX package's defaults (the 203 -> 200 -> 3
+#: Q-network, 10 agents, 200-step chunks, replay_capacity 65,536,
+#: replay_batch 256, the 6,046-tick series: horizon 5,845) with the
+#: transition journal on (``learner.journal_replay``), through the
+#: orchestrator's defaults (graph, async pipeline, sampled readback).
+JOURNAL = ["learner.algo=dqn", "learner.journal_replay=true"]
+#: (c) preempts once this many chunks are done, (d) raises in chunk
+#: JOURNAL_FAULT_CHUNK (once) and poisons agent 3 after chunk
+#: JOURNAL_POISON_CHUNK (once).
+JOURNAL_PREEMPT_CHUNK = 10
+JOURNAL_FAULT_CHUNK = 8
+JOURNAL_POISON_CHUNK = 4
+
+
+def _journal_records(path: str) -> list[tuple[int, int, bytes]]:
+    """``(env-step stamp, rows, payload)`` of each transition record of the
+    journal at ``path`` (sealed segments first), in order."""
+    from sharetrade_tpu_torch.data.journal import (
+        iter_framed_records, segment_paths)
+    from sharetrade_tpu_torch.data.transitions import peek_transitions_header
+    out = []
+    for p in (*segment_paths(path), path):
+        for _, payload in iter_framed_records(p):
+            head = peek_transitions_header(payload)
+            if head is not None:
+                out.append((head[2], head[0], payload))
+    return out
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+def _journal_vs_replay(path: str, replay) -> dict:
+    """The journal's records against a replay buffer that never wrapped:
+    rows, stamps (strictly increasing: no chunk journaled twice), and
+    whether its rows, decoded in order, are the buffer's first rows bit
+    for bit (each pushed row journaled exactly once)."""
+    from sharetrade_tpu_torch.data.transitions import read_tail_transitions
+    recs = _journal_records(path)
+    stamps = [s for s, _, _ in recs]
+    rows = sum(n for _, n, _ in recs)
+    size = int(replay.size)
+    tail = read_tail_transitions(path, 0)
+    equal = tail is not None and rows == size and all(
+        np.array_equal(_bits(got), _bits(want[:size].cpu().numpy()))
+        for got, want in zip(tail[:4], (replay.obs, replay.action,
+                                        replay.reward, replay.next_obs)))
+    return {"records": len(recs), "rows": rows, "replay_size": size,
+            "stamps_increasing": all(a < b for a, b in
+                                     zip(stamps, stamps[1:])),
+            "rows_equal_replay": bool(equal),
+            "bytes": sum(len(p) for _, _, p in recs)}
+
+
+def _replay_equal(torch, a, b) -> bool:
+    """Two replay buffers' slots, write position and size bit for bit."""
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+               ("obs", "action", "reward", "next_obs", "pos", "size"))
+
+
+def phase_journal(torch) -> dict:
+    """DQN's transition journal and its warm start through the chunk
+    graph, and the price journal through the CLI; see the module
+    docstring."""
+    import dataclasses
+    import shutil
+    from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.agents.base import (
+        ChunkProgram, _split_transitions)
+    from sharetrade_tpu_torch.config import DataConfig, FrameworkConfig
+    from sharetrade_tpu_torch.data.journal import Journal
+    from sharetrade_tpu_torch.data.service import PriceDataService
+    from sharetrade_tpu_torch.data.transitions import encode_transitions
+    from sharetrade_tpu_torch.env.trading import make_trading_env
+    from sharetrade_tpu_torch.runtime import Orchestrator, Phase
+    from sharetrade_tpu_torch.utils.logging import EventLog
+
+    root = _fresh_dir("journal-")
+    problems: list[str] = []
+    row: dict = {"phase": "journal", "card": _nvidia_smi()}
+
+    def config(name, *extra, journal=True):
+        return FrameworkConfig().apply_overrides(
+            REFERENCE + (JOURNAL if journal else ["learner.algo=dqn"])
+            + list(extra)
+            + [f"runtime.checkpoint_dir={os.path.join(root, name, 'ckpt')}",
+               f"data.journal_dir={os.path.join(root, name, 'journal')}"])
+
+    def journal_path(name):
+        return os.path.join(root, name, "journal", "transitions.journal")
+
+    base = config("base")
+    prices = _prices(base.data)
+    horizon = len(prices) - base.env.window
+    workers, steps = base.parallel.num_workers, base.runtime.chunk_steps
+    chunks = -(-horizon // steps)
+    expected_rows = workers * horizon
+    row.update(prices=len(prices), horizon=horizon, chunks=chunks,
+               expected_rows=expected_rows)
+    runs = 0
+
+    def run(name, *extra, journal=True, hook=None, resume=False,
+            draw_hook=None, before=None):
+        """One run to its end through the orchestrator; returns it and its
+        facts (wall s, the timer's chunk ms, journal appends' host ms)."""
+        nonlocal runs
+        runs += 1
+        cfg = config(name, *extra, journal=journal)
+        log_path = os.path.join(root, f"events-{runs}.jsonl")
+        events = EventLog(log_path)
+        o = Orchestrator(cfg, device="cuda", event_log=events,
+                         fault_hook=None if hook is None
+                         else lambda i, r: hook(o, i, r))
+        append_ms: list[float] = []
+        append = o._journal_transitions
+
+        def timed_append(transitions, env_steps):
+            t = time.perf_counter()
+            append(transitions, env_steps)
+            append_ms.append((time.perf_counter() - t) * 1e3)
+
+        o._journal_transitions = timed_append
+        o.send_training_data(prices, resume=resume)
+        if draw_hook is not None:
+            o._program.agent = dataclasses.replace(
+                o.agent, draw=draw_hook(o, o.agent.draw))
+        if before is not None:
+            before(o)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o.start_training(background=False)
+        wall = time.perf_counter() - t0
+        o.stop()
+        events.close()
+        done = [json.loads(ln) for ln in open(log_path)
+                if '"training_completed"' in ln]
+        timer = done[0] if done else {}
+        facts = {"completed": o.lifecycle.phase is Phase.COMPLETED,
+                 "wall_s": wall, "chunks": o.chunks,
+                 "mean_chunk_ms": (timer.get("mean_chunk_seconds") or 0) * 1e3,
+                 "restarts": o.restarts, "agent_heals": o.agent_heals,
+                 "pipeline_stalls": o.metrics.counters().get(
+                     "pipeline_stalls_total", 0.0),
+                 "checkpoints": o.metrics.counters().get(
+                     "checkpoints_total", 0.0)}
+        if append_ms:
+            facts["append_ms_median"] = statistics.median(append_ms)
+            facts["append_ms_max"] = max(append_ms)
+        if not facts["completed"] and not o.preempted:
+            problems.append(f"{name}: ended {o.lifecycle.phase.value} "
+                            f"({o.last_error!r})")
+        return o, facts
+
+    # ---- the counted window: counts reset just before, read just after.
+    _reset_launch_counts()
+    # (a) one journaled episode, uniform and PER: the rows journaled
+    # against the expected count, each exactly once.
+    finals = {}
+    for name, extra in (("uniform", []),
+                        ("per", ["learner.replay_priority=per"])):
+        o, facts = run(name, *extra)
+        program = o._program
+        facts.update(_journal_vs_replay(journal_path(name),
+                                        o.train_state.extras.replay))
+        facts.update(capture_s=program.capture_seconds,
+                     graph_nodes=program.nodes, replays=program.replays,
+                     launches_per_replay=program.launches_per_replay)
+        row[f"a_{name}"] = facts
+        if not (facts["rows"] == expected_rows
+                and facts["records"] == chunks
+                and facts["stamps_increasing"]
+                and facts["rows_equal_replay"]):
+            problems.append(f"a {name}: {facts['records']} records, "
+                            f"{facts['rows']} rows (expected {chunks}, "
+                            f"{expected_rows}), stamps increasing "
+                            f"{facts['stamps_increasing']}, rows equal the "
+                            f"replay {facts['rows_equal_replay']}")
+        if program.launches_per_replay != {
+                "fused_update": REFERENCE_LAUNCHES["dqn"]}:
+            problems.append(f"a {name}: launches per replay "
+                            f"{program.launches_per_replay}")
+        finals[name] = o
+    torch.cuda.synchronize()
+    row["launches"] = _all_launch_counts()
+    # ---- end of the counted window.
+
+    # (b) the first four chunks eagerly, their transitions encoded as the
+    # orchestrator journals them: byte-equal to the graph run's records
+    # (chunk 1 its eager warm-up, 2 its capture's first replay, 3-4
+    # replays), stamps included.
+    env = make_trading_env(prices, window=base.env.window, device="cuda")
+    agent = build_agent(base, env, device="cuda")
+    ts = agent.init(base.seed)
+    records = _journal_records(journal_path("uniform"))
+    same = []
+    for c in range(4):
+        ts, metrics = agent.step(ts)
+        _, tr = _split_transitions(metrics)
+        host = {k: v.cpu().numpy() for k, v in tr.items()}
+        valid = host["valid"].reshape(-1)
+        flat = {k: host[k].reshape((-1,) + host[k].shape[2:])[valid]
+                for k in ("obs", "action", "reward", "next_obs")}
+        payload = encode_transitions(
+            flat["obs"], flat["action"], flat["reward"], flat["next_obs"],
+            env_steps=int(metrics["env_steps"]))
+        same.append(payload == records[c][2])
+    row["b"] = {"chunks_byte_equal": same}
+    if not all(same):
+        problems.append(f"b: graph records differ from eager chunks {same}")
+    del agent, env, ts
+
+    # (c) preempted once JOURNAL_PREEMPT_CHUNK chunks are done, resumed:
+    # the warm-started replay equals the checkpoint's, and the uniform run
+    # ends bit-equal to (a)'s.
+    def preempt_after(o, draw):
+        def hooked(ts):
+            if int(ts.env_steps) >= JOURNAL_PREEMPT_CHUNK * steps:
+                o.request_preempt()
+            return draw(ts)
+        return hooked
+
+    c_row = {}
+    for name, extra in (("uniform", []),
+                        ("per", ["learner.replay_priority=per"])):
+        tag = f"resume_{name}"
+        p1, _ = run(tag, *extra, draw_hook=preempt_after)
+        warm = {}
+
+        def compare(o, warm=warm):
+            saved, _meta = o.checkpoints.restore_tagged(
+                o.agent.init(o.cfg.seed), "preempt")
+            warm["equal"] = _replay_equal(torch, o._ts.extras.replay,
+                                          saved.extras.replay)
+            warm["size"] = int(o._ts.extras.replay.size)
+
+        if name == "uniform":
+            p2, facts = run(tag, *extra, resume=True, before=compare)
+            facts.update(_journal_vs_replay(journal_path(tag),
+                                            p2.train_state.extras.replay))
+            facts["bit_equal_uninterrupted"] = _bit_equal(
+                torch, p2.train_state, finals["uniform"].train_state)
+        else:
+            # PER reseeds the priorities by design: its rows are checked,
+            # not its run.
+            cfg = config(tag, *extra)
+            p2 = Orchestrator(cfg, device="cuda")
+            p2.send_training_data(prices, resume=True)
+            compare(p2)
+            p2.stop()
+            facts = {}
+        facts.update(preempted=p1.preempted, preempt_saved=p1.preempt_saved,
+                     warm_start_equal_checkpoint=warm.get("equal"),
+                     warm_rows=warm.get("size"))
+        c_row[name] = facts
+        if not (p1.preempted and p1.preempt_saved and warm.get("equal")
+                and warm.get("size", 0) > 0):
+            problems.append(f"c {name}: preempted {p1.preempted}, saved "
+                            f"{p1.preempt_saved}, warm-started rows "
+                            f"{warm.get('size')} equal to the checkpoint's "
+                            f"{warm.get('equal')}")
+        if name == "uniform" and not (
+                facts["bit_equal_uninterrupted"]
+                and facts["stamps_increasing"]
+                and facts["rows"] == expected_rows
+                and facts["rows_equal_replay"]):
+            problems.append(f"c uniform: bit-equal "
+                            f"{facts['bit_equal_uninterrupted']}, rows "
+                            f"{facts['rows']}, stamps increasing "
+                            f"{facts['stamps_increasing']}, rows equal the "
+                            f"replay {facts['rows_equal_replay']}")
+        del p1, p2
+    row["c"] = c_row
+
+    # (d) a fault in chunk JOURNAL_FAULT_CHUNK + 1 (a supervised restart
+    # from the last checkpoint, whose chunks re-run) and a poisoned agent
+    # healed in place: nothing journaled twice, every pushed row once.
+    fired: list[int] = []
+
+    def fault(o, i, r):
+        if i == JOURNAL_FAULT_CHUNK and not fired:
+            fired.append(i)
+            raise RuntimeError("injected fault")
+
+    poisoned: list[int] = []
+
+    def poison(o, i, r):
+        if i == JOURNAL_POISON_CHUNK and not poisoned:
+            poisoned.append(i)
+            env_state = o._ts.env_state
+            budget = env_state.budget.clone()
+            budget[3] = float("nan")
+            o._ts = o._ts.replace(env_state=env_state.replace(budget=budget))
+
+    d_row = {}
+    for name, hook in (("restart", fault), ("heal", poison)):
+        o, facts = run(name, "runtime.backoff_initial_s=0.01",
+                       "runtime.backoff_max_s=0.05", hook=hook)
+        facts.update(_journal_vs_replay(journal_path(name),
+                                        o.train_state.extras.replay))
+        if name == "restart":
+            facts["bit_equal_uninterrupted"] = _bit_equal(
+                torch, o.train_state, finals["uniform"].train_state)
+            ok = (o.restarts == 1 and facts["rows"] == expected_rows
+                  and facts["bit_equal_uninterrupted"])
+        else:
+            ok = o.agent_heals == 1 and o.restarts == 0
+        ok = (ok and facts["completed"] and facts["stamps_increasing"]
+              and facts["rows_equal_replay"])
+        d_row[name] = facts
+        if not ok:
+            problems.append(f"d {name}: {facts}")
+        del o
+    row["d"] = d_row
+
+    # (e) what journaling costs: the episode with and without it, a
+    # replayed chunk of each by CUDA events, and one chunk's readback.
+    plain, plain_facts = run("plain", journal=False)
+    del plain
+    env = make_trading_env(prices, window=base.env.window, device="cuda")
+    e_row = {"plain": plain_facts,
+             "journaled": {k: row["a_uniform"][k] for k in (
+                 "wall_s", "mean_chunk_ms", "append_ms_median",
+                 "append_ms_max")}}
+    for name, cfg in (("plain", config("e", journal=False)), ("journaled",
+                                                               base)):
+        agent = build_agent(cfg, env, device="cuda")
+        e_row[name]["graph"] = _graph_chunk_profile(torch, agent, cfg.seed)
+        program = ChunkProgram(agent)
+        ts = agent.init(cfg.seed)
+        for _ in range(3):
+            ts, stacked = program(ts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        readback = program.readback(stacked)
+        readback.rows()
+        host = readback.transitions()
+        e_row[name]["readback_ms"] = (time.perf_counter() - t0) * 1e3
+        e_row[name]["readback_bytes"] = stacked.values.numel() * 8 + (
+            0 if host is None else sum(v.nbytes for v in host.values()))
+        del agent, program, ts, stacked
+    row["e"] = e_row
+
+    # (f) cli query and a default cli train in a fresh working directory:
+    # the price journal they leave is recovered by the port's service.
+    cwd = _fresh_dir("cli-journal-")
+
+    def cli(*args, timeout):
+        return subprocess.run(
+            [sys.executable, "-m", "sharetrade_tpu_torch.cli", *args],
+            capture_output=True, text=True, timeout=timeout, cwd=cwd,
+            env=_cli_env())
+
+    train = cli("train", "--device", "cuda", timeout=600)
+    query = cli("query", "--symbol", "MSFT", timeout=120)
+    price_journal = os.path.join(cwd, "journal", "price-events.journal")
+
+    def refuse(symbol, start=None, end=None):
+        raise RuntimeError("a recovered cache must not fetch")
+
+    fetches, recovered, rows = [], [], None
+    if os.path.exists(price_journal):
+        with Journal(price_journal) as j:
+            fetches = [e["type"] for e in j.replay()]
+        service = PriceDataService(provider=refuse, config=DataConfig(
+            journal_dir=os.path.join(cwd, "journal")))
+        try:
+            recovered = service.cached_symbols()
+            if recovered == ["MSFT"]:
+                rows = len(service.request("MSFT").series)
+        finally:
+            service.close()
+    lines = [ln for ln in train.stdout.splitlines() if ln.startswith("{")]
+    summary = json.loads(lines[-1]) if lines else {}
+    query_line = (json.loads(query.stdout.strip().splitlines()[-1])
+                  if query.stdout.strip() else {})
+    row["f"] = {"train_rc": train.returncode, "query_rc": query.returncode,
+                "query": query_line, "fetch_events": fetches,
+                "recovered": recovered, "recovered_rows": rows,
+                "train_avg_portfolio": summary.get("avg_portfolio")}
+    if not (train.returncode == 0 and query.returncode == 0
+            and fetches == ["prices_fetched"] and recovered == ["MSFT"]
+            and rows == len(prices) and query_line.get("rows") == len(prices)
+            and query_line.get("symbol") == "MSFT"
+            and np.isfinite(summary.get("avg_portfolio", float("nan")))):
+        problems.append(f"f: {row['f']}")
+        row["f"]["stderr_tail"] = train.stderr[-1500:] + query.stderr[-500:]
+    finals.clear()
+    shutil.rmtree(root, ignore_errors=True)
+    row["problems"] = problems
+    return row
+
+
 def phase_cli_defaults() -> dict:
     """``cli train --eval`` and then ``cli serve`` as a user runs them, at
     the JAX package's defaults (the reference workload), with no ``--set``
@@ -2214,7 +2670,7 @@ def phase_cli_defaults() -> dict:
         train = subprocess.run(
             [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train",
              "--eval"] + where, capture_output=True, text=True, timeout=600,
-            cwd=_ROOT)
+            cwd=_fresh_dir("cli-"), env=_cli_env())
         row["train_seconds"] = time.perf_counter() - t0
         lines = [ln for ln in train.stdout.splitlines() if ln.startswith("{")]
         summary = json.loads(lines[-1]) if lines else {}
@@ -2225,7 +2681,7 @@ def phase_cli_defaults() -> dict:
         serve = subprocess.run(
             [sys.executable, "-m", "sharetrade_tpu_torch.cli", "serve",
              "--duration", "3"] + where, capture_output=True, text=True,
-            timeout=300, cwd=_ROOT)
+            timeout=300, cwd=_fresh_dir("cli-"), env=_cli_env())
         row["serve_seconds"] = time.perf_counter() - t0
     served = [json.loads(ln) for ln in serve.stdout.splitlines()
               if ln.startswith("{")]
@@ -2261,7 +2717,6 @@ def phase_profile(torch, *, ticks: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from sharetrade_tpu_torch.config import FrameworkConfig
-    from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.env.trading import obs_dim
     from sharetrade_tpu_torch.models import build_model
     from sharetrade_tpu_torch.precision import policy_from_config
@@ -2269,7 +2724,7 @@ def phase_profile(torch, *, ticks: int = 20) -> dict:
 
     cfg = FrameworkConfig().apply_overrides(FLAGSHIP)
     window, batch = cfg.env.window, cfg.serve.max_batch
-    prices = PriceDataService(config=cfg.data).request("MSFT").series.prices
+    prices = _prices(cfg.data)
     model = build_model(cfg.model, obs_dim(window), device="cuda")
     policy = policy_from_config(cfg.precision)
     params = policy.cast_compute(
@@ -2334,6 +2789,17 @@ def main(argv=None) -> int:
         return 1
     import sharetrade_tpu_torch  # noqa: F401 — fails outside a checkout
 
+    import shutil
+    import tempfile
+    global _SCRATCH
+    _SCRATCH = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        return _run_phases(torch, phases)
+    finally:
+        shutil.rmtree(_SCRATCH, ignore_errors=True)
+
+
+def _run_phases(torch, phases: list[str]) -> int:
     print(_nvidia_smi(), flush=True)
     # Full float32 matrix products for every f32 comparison (no TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2398,6 +2864,13 @@ def main(argv=None) -> int:
             print(f"chip_smoke: the chunk program / hot loop failed: "
                   f"{results['pipeline']['problems']}", file=sys.stderr)
             return 1
+    if "journal" in phases:
+        results["journal"] = phase_journal(torch)
+        _print(results["journal"])
+        if results["journal"]["problems"]:
+            print(f"chip_smoke: the journaled DQN path failed: "
+                  f"{results['journal']['problems']}", file=sys.stderr)
+            return 1
     if "cli_defaults" in phases:
         row = phase_cli_defaults()
         _print(row)
@@ -2408,7 +2881,8 @@ def main(argv=None) -> int:
     if "profile" in phases:
         _print(phase_profile(torch))
     if "kernels" in phases and {"serve", "train", "resilience",
-                                "reference", "pipeline"} & set(phases):
+                                "reference", "pipeline",
+                                "journal"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``agents/__init__.py``: the five learners
 (``learner.algo``) behind one ``build_agent``. The value-based ones
 (``qlearn``, ``dqn``) drive a Q-head and need ``model.kind="mlp"``; the
-others drive actor-critic heads. ``learner.journal_replay`` (DQN's
-transition journal) is not yet ported and raises ``ConfigError``.
+others drive actor-critic heads. Under ``learner.journal_replay`` the DQN
+agent returns each chunk's transitions (``collect_transitions``), which the
+orchestrator journals.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from sharetrade_tpu_torch.agents.dqn import make_dqn_agent
 from sharetrade_tpu_torch.agents.pg import make_pg_agent
 from sharetrade_tpu_torch.agents.ppo import make_ppo_agent
 from sharetrade_tpu_torch.agents.qlearn import make_qlearn_agent
-from sharetrade_tpu_torch.config import ConfigError, FrameworkConfig
+from sharetrade_tpu_torch.config import FrameworkConfig
 from sharetrade_tpu_torch.env.core import TradingEnv
 from sharetrade_tpu_torch.models import build_model
 from sharetrade_tpu_torch.models.core import Model
@@ -47,14 +48,12 @@ def build_agent(cfg: FrameworkConfig, env: TradingEnv,
         raise ValueError(
             f"learner.algo={algo!r} requires model.kind='mlp' (got "
             f"{cfg.model.kind!r}); use a2c/ppo for {cfg.model.kind} policies")
-    if algo == "dqn" and cfg.learner.journal_replay:
-        raise ConfigError("learner.journal_replay=True (the DQN transition "
-                          "journal and its warm start) is not yet ported to "
-                          "sharetrade_tpu_torch")
     if model is None:
         model = build_model(cfg.model, env.obs_dim, head=_HEADS[algo],
                             device=device)
+    extra = ({"collect_transitions": cfg.learner.journal_replay}
+             if algo == "dqn" else {})
     return _FACTORIES[algo](
         model, env, cfg.learner, num_agents=cfg.parallel.num_workers,
         steps_per_chunk=cfg.runtime.chunk_steps,
-        precision=policy_from_config(cfg.precision))
+        precision=policy_from_config(cfg.precision), **extra)

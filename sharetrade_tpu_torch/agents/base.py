@@ -12,13 +12,16 @@ into a scan (``megachunk_step``). Here :class:`ChunkProgram` is that
 program: on the CPU it calls the step eagerly; on the card it runs the
 first chunk eagerly, then captures one chunk in a CUDA graph and replays it
 once per chunk (K replays for a K-chunk dispatch). Per-chunk metrics come
-back stacked on a leading ``(K,)`` axis either way.
+back stacked on a leading ``(K,)`` axis either way, and so do a DQN chunk's
+transitions when the agent collects them (``learner.journal_replay``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import gc
 import time
 from dataclasses import dataclass, replace
 from typing import Any, Callable, NamedTuple
@@ -350,29 +353,68 @@ def _metric_vector(metrics: dict[str, Any], keys: tuple[str, ...],
                         for k in keys])
 
 
+def _split_transitions(metrics: dict) -> tuple[dict, dict | None]:
+    """A step's metrics without its ``transitions`` entry, and that entry
+    (None when the agent collects none)."""
+    if "transitions" not in metrics:
+        return metrics, None
+    metrics = dict(metrics)
+    return metrics, metrics.pop("transitions")
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """No automatic cyclic collection inside the block. A collection that
+    fires on the capturing thread runs the finalizers of dead cycles (an
+    earlier program's CUDA graph, pinned readback buffers, events), and
+    their CUDA calls invalidate the capture; torch does not collect
+    before a capture any more. Garbage waits for the next collection."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class StackedMetrics(NamedTuple):
     """One dispatch's per-chunk metrics: ``values`` (K, n) float64 in
-    ``keys`` order, on the program's device. On the card the buffer is the
-    program's own and the next dispatch overwrites it: read it back first
-    (:meth:`ChunkProgram.readback`)."""
+    ``keys`` order, on the program's device, and, when the agent collects
+    them, its transitions: per field a (K, T, B, ...) tensor. On the card
+    the buffers are the program's own and the next dispatch overwrites
+    them: read them back first (:meth:`ChunkProgram.readback`)."""
 
     keys: tuple[str, ...]
     values: torch.Tensor
+    transitions: dict[str, torch.Tensor] | None = None
 
 
 class MetricsReadback:
-    """A dispatch's metric rows on their way to the host: on the card a
-    pinned buffer the copy was enqueued into, and the event recorded after
-    it; :meth:`rows` waits on that event alone."""
+    """A dispatch's metric rows (and transitions) on their way to the host:
+    on the card pinned buffers the copies were enqueued into, and the event
+    recorded after them; :meth:`rows` and :meth:`transitions` wait on that
+    event alone."""
 
     def __init__(self, keys: tuple[str, ...], host: torch.Tensor,
-                 event=None):
+                 event=None, transitions: dict | None = None):
         self.keys, self._host, self._event = keys, host, event
+        self._transitions = transitions
 
-    def rows(self) -> list[dict[str, float]]:
+    def _wait(self) -> None:
         if self._event is not None:
             self._event.synchronize()
+
+    def rows(self) -> list[dict[str, float]]:
+        self._wait()
         return [dict(zip(self.keys, row)) for row in self._host.tolist()]
+
+    def transitions(self) -> dict | None:
+        """Per field a (K, T, B, ...) numpy array, or None."""
+        if self._transitions is None:
+            return None
+        self._wait()
+        return {k: v.numpy() for k, v in self._transitions.items()}
 
 
 def _graph_nodes(graph) -> int | None:
@@ -406,6 +448,10 @@ class ChunkProgram:
       generator (``agent.draw``: it advances exactly as in an eager step),
       copies them into the draw buffers, replays the graph and copies the
       metric vector into row k of a ``(K_max, n)`` buffer;
+    - when the agent collects transitions, the tensors the captured step
+      wrote them into are one more set of static buffers, and each replay
+      copies them into slot k of a ``(K_max, T, B, ...)`` buffer per field
+      (the warm-up chunk's likewise);
     - each kernel's launches in one replay are counted at capture (the
       wrappers count while the capture records, and those counts are taken
       back) and added to the wrappers' ``launch_counts`` on every replay.
@@ -427,6 +473,8 @@ class ChunkProgram:
         self._draws: dict[str, torch.Tensor] | None = None
         self._vector: torch.Tensor | None = None
         self._rows: torch.Tensor | None = None
+        self._transitions: dict[str, torch.Tensor] | None = None
+        self._tr_rows: dict[str, torch.Tensor] | None = None
         self._live: TrainState | None = None
         self._per_replay: list[tuple[dict, str, int]] = []
         #: Capture facts (the card): seconds to capture and instantiate,
@@ -455,19 +503,26 @@ class ChunkProgram:
         if k < 1:
             raise ValueError(f"megachunk factor must be >= 1, got {k}")
         if not self.cuda:
-            vectors = []
+            vectors, taken = [], []
             for _ in range(k):
                 ts, metrics = self.agent.step(ts,
                                               draws=self.agent.draw(ts))
+                metrics, transitions = _split_transitions(metrics)
                 self.keys = self.keys or tuple(metrics)
                 vectors.append(_metric_vector(metrics, self.keys,
                                               self.device))
-            return ts, StackedMetrics(self.keys, torch.stack(vectors))
+                taken.append(transitions)
+            stacked = (None if taken[0] is None else
+                       {name: torch.stack([t[name] for t in taken])
+                        for name in taken[0]})
+            return ts, StackedMetrics(self.keys, torch.stack(vectors),
+                                      stacked)
         ts = self.load(ts)
         for j in range(k):
             if not self._warm:
-                ts, vector = self._warm_up(ts)
+                ts, vector, transitions = self._warm_up(ts)
                 self._rows_for(k)[j].copy_(vector)
+                self._transitions_slot(k, j, transitions)
                 continue
             if self._graph is None:
                 ts = self._capture(ts)
@@ -478,20 +533,31 @@ class ChunkProgram:
             for counts, name, n in self._per_replay:
                 counts[name] += n
             self._rows_for(k)[j].copy_(self._vector)
-        return ts, StackedMetrics(self.keys, self._rows[:k])
+            self._transitions_slot(k, j, self._transitions)
+        return ts, StackedMetrics(
+            self.keys, self._rows[:k],
+            None if self._tr_rows is None
+            else {name: t[:k] for name, t in self._tr_rows.items()})
 
     def readback(self, stacked: StackedMetrics) -> MetricsReadback:
         """Enqueue the copy of ``stacked`` to the host (before the next
-        dispatch overwrites it): a pinned buffer and an event on the card,
-        the rows as they are on the CPU."""
+        dispatch overwrites it): pinned buffers and one event after the
+        copies on the card, the tensors as they are on the CPU."""
         if not self.cuda:
-            return MetricsReadback(stacked.keys, stacked.values)
-        host = torch.empty(stacked.values.shape, dtype=torch.float64,
-                           pin_memory=True)
-        host.copy_(stacked.values, non_blocking=True)
+            return MetricsReadback(stacked.keys, stacked.values,
+                                   transitions=stacked.transitions)
+
+        def to_host(t: torch.Tensor) -> torch.Tensor:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            return host
+
+        host = to_host(stacked.values)
+        transitions = (None if stacked.transitions is None else
+                       {k: to_host(v) for k, v in stacked.transitions.items()})
         event = torch.cuda.Event()
         event.record()
-        return MetricsReadback(stacked.keys, host, event)
+        return MetricsReadback(stacked.keys, host, event, transitions)
 
     # ---- the card ---------------------------------------------------------
 
@@ -506,19 +572,39 @@ class ChunkProgram:
             self._rows = rows
         return self._rows
 
-    def _warm_up(self, ts: TrainState) -> tuple[TrainState, torch.Tensor]:
-        """The run's first chunk, eagerly, on a side stream: the new state
-        and its metric vector."""
+    def _transitions_slot(self, k: int, j: int,
+                          transitions: dict | None) -> None:
+        """Copy one chunk's transitions into slot ``j`` of the ``(K, T, B,
+        ...)`` buffers, grown (never shrunk) to ``k``; slots already
+        written in this dispatch are kept."""
+        if transitions is None:
+            return
+        if (self._tr_rows is None
+                or next(iter(self._tr_rows.values())).shape[0] < k):
+            rows = {name: torch.zeros((k,) + t.shape, dtype=t.dtype,
+                                      device=self.device)
+                    for name, t in transitions.items()}
+            if self._tr_rows is not None:
+                for name, old in self._tr_rows.items():
+                    rows[name][:old.shape[0]].copy_(old)
+            self._tr_rows = rows
+        for name, t in transitions.items():
+            self._tr_rows[name][j].copy_(t)
+
+    def _warm_up(self, ts: TrainState):
+        """The run's first chunk, eagerly, on a side stream: the new state,
+        its metric vector and its transitions (or None)."""
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             ts, metrics = self.agent.step(ts, draws=self.agent.draw(ts))
+            metrics, transitions = _split_transitions(metrics)
             self.keys = tuple(metrics)
             vector = _metric_vector(metrics, self.keys, self.device)
         current.wait_stream(side)
         self._warm = True
-        return ts, vector
+        return ts, vector, transitions
 
     def _capture(self, ts: TrainState) -> TrainState:
         """Capture one chunk from ``ts``'s values; returns the live state."""
@@ -541,10 +627,12 @@ class ChunkProgram:
         try:
             # thread_local: the readback consumer and the checkpoint writer
             # may wait on events from their own threads meanwhile.
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with _gc_paused(), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 new_ts, metrics = self.agent.step(captured_ts,
                                                   draws=captured_draws)
                 _copy_into(buffers, state_items(new_ts), "the stepped state")
+                metrics, transitions = _split_transitions(metrics)
                 vector = _metric_vector(metrics, self.keys, self.device)
             graph.instantiate()
         finally:
@@ -558,5 +646,6 @@ class ChunkProgram:
         self.nodes = _graph_nodes(graph)
         self._graph, self._buffers, self._draws = graph, buffers, draw_buffers
         self._vector, self._per_replay = vector, per_replay
+        self._transitions = transitions
         self._live = with_tensors(ts, buffers).replace(rng=ts.rng)
         return self._live

@@ -22,8 +22,13 @@ the PER strata's uniforms. From ``ts.rng`` for the whole chunk up front
 handed in (the tests
 recreate the JAX step's draws, indices included).
 
-Not yet ported: ``learner.journal_replay`` (the transition journal and the
-warm start from it); it raises ``ConfigError`` in ``build_agent``.
+``collect_transitions`` (``learner.journal_replay``) makes each chunk also
+return its transitions under ``metrics["transitions"]``: the step's
+``obs``, ``action``, ``reward``, ``next_obs`` and ``valid`` (the active
+mask), written into (T, B, ...) tensors allocated once per chunk, which the
+orchestrator journals (``data/transitions.py``) and warm-starts the replay
+from (``fill_replay_from_arrays``; ``fill_replay_from_events`` for legacy
+JSON ``transitions`` events).
 """
 
 from __future__ import annotations
@@ -168,6 +173,7 @@ class Draws(NamedTuple):
 
 def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
                    num_agents: int = 10, steps_per_chunk: int = 200,
+                   collect_transitions: bool = False,
                    precision=None) -> Agent:
     if cfg.replay_priority not in ("uniform", "per"):
         raise ConfigError(
@@ -239,6 +245,7 @@ def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
                              device=device)
         rewards_sum = torch.zeros((), dtype=torch.float32, device=device)
         zero = torch.zeros((), dtype=torch.float32, device=device)
+        taken: list[tuple] = []       # per step (obs, action, reward, next, valid)
         for i in range(steps_per_chunk):
             with torch.no_grad():
                 obs_raw = env.observe(env_state)
@@ -255,6 +262,8 @@ def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
                                        env.observe(env_state), zero)
                 replay, push_idx, push_write = replay.push_with_plan(
                     obs, actions, rewards, next_obs, active)
+                if collect_transitions:
+                    taken.append((obs, actions, rewards, next_obs, active))
                 weights = None
                 if use_per:
                     sum_tree.set_priorities(
@@ -309,10 +318,28 @@ def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
             if use_per:
                 metrics["per_max_priority"] = per.max_priority
                 metrics["per_beta"] = per_beta(env_steps, cfg)
+            if collect_transitions:
+                metrics["transitions"] = stack_transitions(taken)
         return ts, metrics
 
     return Agent(name="dqn", init=init, step=step, num_agents=num_agents,
                  steps_per_chunk=steps_per_chunk, model=model, draw=draw)
+
+
+#: The fields of a chunk's transitions, in the journal's order, and ``valid``.
+TRANSITION_FIELDS = ("obs", "action", "reward", "next_obs", "valid")
+
+
+def stack_transitions(taken: list[tuple]) -> dict[str, torch.Tensor]:
+    """Per-step ``(obs, action, reward, next_obs, valid)`` tensors written
+    into (T, B, ...) tensors, one stack per field (five kernels a chunk,
+    not five a step)."""
+    out = {}
+    for name, steps in zip(TRANSITION_FIELDS, zip(*taken)):
+        buf = torch.empty((len(steps),) + steps[0].shape,
+                          dtype=steps[0].dtype, device=steps[0].device)
+        out[name] = torch.stack(steps, out=buf)
+    return out
 
 
 def reseed_per_priorities(extras: DQNExtras, *,
@@ -335,6 +362,32 @@ def reseed_per_priorities(extras: DQNExtras, *,
                      replay=extras.replay,
                      per=PerState(tree=sum_tree.from_leaves(leaves),
                                   max_priority=per.max_priority))
+
+
+def fill_replay_from_journal(replay: ReplayBuffer, journal) -> ReplayBuffer:
+    """Push the legacy JSON ``transitions`` events of ``journal`` (its
+    tail that fits the buffer) into ``replay``; packed binary records are
+    read by ``data/transitions.read_tail_transitions`` instead."""
+    return fill_replay_from_events(
+        replay, [e for e in journal.replay() if e.get("type") == "transitions"])
+
+
+def fill_replay_from_events(replay: ReplayBuffer,
+                            events: list[dict]) -> ReplayBuffer:
+    """Push JSON ``transitions`` events (oldest first) into ``replay``:
+    only the newest events that cover the capacity, each in
+    capacity-sized slices, so "newest wins" holds deterministically."""
+    capacity = replay.obs.shape[0]
+    kept, rows = [], 0
+    for event in reversed(events):
+        kept.append(event)
+        rows += len(event["action"])
+        if rows >= capacity:
+            break
+    for event in reversed(kept):
+        replay = fill_replay_from_arrays(replay, event["obs"], event["action"],
+                                         event["reward"], event["next_obs"])
+    return replay
 
 
 def fill_replay_from_arrays(replay: ReplayBuffer, obs, action, reward,

@@ -7,6 +7,19 @@
     python -m sharetrade_tpu_torch.cli serve [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
         [--duration S] [--sessions N] [--device cuda|cpu] [--params p.npz]
+    python -m sharetrade_tpu_torch.cli query [--config cfg.json]
+        [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
+
+Every command reads its prices through the event-sourced data service
+(``data/service.py``): fetches are journaled to
+``<data.journal_dir>/price-events.journal`` (``journal/`` under the cwd by
+default), in the JAX package's format, and a later run recovers its cache
+from there. ``train`` and ``serve`` close the service on every exit, a
+SIGTERM's included, so the journal's writer lock is released.
+
+``query`` prints one JSON line, as the JAX package's ``cli query`` does:
+``symbol``, ``rows`` in the requested range, and its ``first`` and
+``last`` dates. It touches no device.
 
 ``train`` runs the training orchestrator (runtime/orchestrator.py) over the
 symbol's prices until ``runtime.episodes`` episodes are done, as the JAX
@@ -46,9 +59,9 @@ once.
 
 The device is ``cuda`` unless ``--device`` says otherwise; without a GPU
 and without ``--device cpu`` the command fails with a message saying so.
-Not yet ported: ``query``, ``actor``, ``learner``, ``fleet``, ``obs``,
-``--mesh``, the tuned-profile resolution, the weight-swap watcher,
-``--rate`` and ``--listen``.
+Not yet ported: ``actor``, ``learner``, ``fleet``, ``obs``, ``--mesh``,
+the tuned-profile resolution, the weight-swap watcher, ``--rate`` and
+``--listen``.
 """
 
 from __future__ import annotations
@@ -91,7 +104,7 @@ def cmd_train(args) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     cfg = _load_config(args)
-    orch = None
+    orch = service = None
     preempt_at: list[float] = []
     grace = cfg.runtime.preempt_grace_s
 
@@ -119,8 +132,8 @@ def cmd_train(args) -> int:
                      for s in (signal.SIGTERM, signal.SIGINT)}
     try:
         symbol = args.symbol.split(",")[0].strip()
-        prices = PriceDataService(config=cfg.data).request(
-            symbol, args.start, args.end).series.prices
+        service = PriceDataService(config=cfg.data)
+        prices = service.request(symbol, args.start, args.end).series.prices
         log.info("loaded %d prices for %s", len(prices), symbol)
         orch = Orchestrator(cfg, device=device)
         if preempt_at:
@@ -191,6 +204,8 @@ def cmd_train(args) -> int:
             signal.signal(s, h)
         if orch is not None:
             orch.stop()
+        if service is not None:
+            service.close()
 
 
 def _serve_boot_params(cfg, template):
@@ -266,7 +281,7 @@ def cmd_serve(args) -> int:
 
     prev_handlers = {s: signal.signal(s, _on_signal)
                      for s in (signal.SIGTERM, signal.SIGINT)}
-    engine = None
+    engine = service = None
     try:
         service = PriceDataService(config=cfg.data)
         prices = service.request(args.symbol.split(",")[0].strip(),
@@ -333,6 +348,27 @@ def cmd_serve(args) -> int:
             signal.signal(s, h)
         if engine is not None:
             engine.stop(drain=False, timeout_s=5.0)
+        if service is not None:
+            service.close()
+
+
+def cmd_query(args) -> int:
+    from sharetrade_tpu_torch.data.service import PriceDataService
+
+    cfg = _load_config(args)
+    service = PriceDataService(config=cfg.data)
+    try:
+        response = service.request(args.symbol, args.start, args.end)
+    finally:
+        service.close()
+    series = response.series
+    print(json.dumps({
+        "symbol": response.symbol,
+        "rows": len(series),
+        "first": str(series.dates[0]) if len(series) else None,
+        "last": str(series.dates[-1]) if len(series) else None,
+    }), flush=True)
+    return 0
 
 
 def _common(p) -> None:
@@ -379,6 +415,15 @@ def main(argv=None) -> int:
                         "the run's checkpoints (tag_best, then the newest "
                         "step), else a seeded init")
     p.set_defaults(fn=cmd_serve)
+    p = sub.add_parser("query", help="one symbol's price rows through the "
+                                     "data service (journaled)")
+    p.add_argument("--config", default=None, help="JSON config file")
+    p.add_argument("--set", action="append", default=[],
+                   metavar="SECTION.KEY=VALUE", help="config override")
+    p.add_argument("--symbol", default="MSFT")
+    p.add_argument("--start", default=None)
+    p.add_argument("--end", default=None)
+    p.set_defaults(fn=cmd_query)
     args = parser.parse_args(argv)
     from sharetrade_tpu_torch.utils.logging import configure
     configure()

@@ -56,7 +56,22 @@ Counterpart of the JAX package's ``runtime/orchestrator.py``:
   ``eval_every_updates``): one argmax replay of the episode in the compute
   precision (through the precomputed trunk where the model has one, else
   step by step); under ``keep_best_eval`` the best policy so far is
-  ``tag_best``.
+  ``tag_best``;
+- DQN's journal-backed replay (``learner.journal_replay``): every chunk's
+  transitions (read back with its metrics, so a journaled run reads back
+  every chunk and never double-buffers) are appended to
+  ``<data.journal_dir>/transitions.journal`` as packed records stamped
+  with the chunk's env-step count (``data/transitions.py``), on the
+  consumer thread; a fresh run truncates the journal; a restore, a
+  re-initialisation and ``--resume`` warm-start the replay buffer from its
+  tail (PER priorities reseeded at the stored maximum), and its high-water
+  stamp keeps a replayed chunk from being journaled twice; the journal is
+  compacted (or, segmented by ``data.journal_segment_records``, its old
+  segments retired) at ``2 x replay_capacity`` rows, and flushed at the
+  preemption drain and at completion. The JAX package appends through its
+  C++ async writer when that library is built; the port appends through
+  the pure-Python journal whatever ``data.async_transition_writer`` and
+  ``data.use_native_journal`` say (the same file format).
 
 The live state (``_ts``) is a property: every assignment loads the new
 state into the chunk program's buffers, which the captured graph reads.
@@ -65,13 +80,14 @@ Test seams as in the JAX package: ``step_override`` replaces the agent's
 step (K = 1 and the pipeline off), ``fault_hook(chunk_idx, row)`` runs on
 every chunk's metrics row.
 
-Not yet ported: roofline/obs, the tracer (``runtime.profile_dir``), the
-DQN transition journal, actor feeds and tuned profiles; a non-default
-value of such a knob raises ``ConfigError`` (:func:`check_ported`).
+Not yet ported: roofline/obs, the tracer (``runtime.profile_dir``), actor
+feeds and tuned profiles; a non-default value of such a knob raises
+``ConfigError`` (:func:`check_ported`).
 """
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
@@ -87,8 +103,16 @@ from sharetrade_tpu_torch.agents.base import (
     with_tensors)
 from sharetrade_tpu_torch.agents.rollout import (
     greedy_rollout, greedy_rollout_precomputed, supports_precomputed_trunk)
+from sharetrade_tpu_torch.agents.dqn import (
+    ReplayBuffer, fill_replay_from_arrays, fill_replay_from_events,
+    reseed_per_priorities)
 from sharetrade_tpu_torch.checkpoint import CheckpointManager
 from sharetrade_tpu_torch.config import ConfigError, FrameworkConfig
+from sharetrade_tpu_torch.data.journal import segment_paths
+from sharetrade_tpu_torch.data.service import _open_journal
+from sharetrade_tpu_torch.data.transitions import (
+    append_transitions, compact_transitions, read_tail_transitions,
+    retire_transition_segments)
 from sharetrade_tpu_torch.device import resolve_device
 from sharetrade_tpu_torch.env.trading import make_trading_env
 from sharetrade_tpu_torch.models.core import tree_leaves
@@ -239,6 +263,24 @@ class Orchestrator:
         #: The last run's pipeline: boundaries consumed and the largest
         #: queue depth seen (kept after shutdown).
         self.pipeline_stats: dict[str, int] = {}
+        # DQN's transitions journal (learner.journal_replay), the env-step
+        # stamp journaled last, and rows appended since the last compaction.
+        self._transitions_journal = None
+        self._journal_high_water = 0
+        self._journal_rows_since_compact = 0
+        if cfg.learner.algo == "dqn" and cfg.learner.journal_replay:
+            self._transitions_journal = self._open_transitions_journal()
+
+    def _open_transitions_journal(self):
+        """``<data.journal_dir>/transitions.journal``, segmented when
+        ``data.journal_segment_records`` > 0, with the group-commit
+        watermarks (``data.journal_fsync_*``)."""
+        data = self.cfg.data
+        return _open_journal(
+            os.path.join(data.journal_dir, "transitions.journal"),
+            fsync_every_records=data.journal_fsync_every_records,
+            fsync_interval_s=data.journal_fsync_interval_s,
+            segment_records=data.journal_segment_records)
 
     # ---- the live state ---------------------------------------------------
 
@@ -265,7 +307,8 @@ class Orchestrator:
         when there is none), ``train_state`` (a converted JAX state or a
         ``.npz`` one, ``convert.py``), a seeded init with ``params`` in
         place of its weights (the optimizer state started fresh; DQN's
-        target network a copy of them), or a seeded init."""
+        target network a copy of them), or a seeded init. Every state but
+        ``resume``'s starts a fresh transitions journal."""
         prices = np.asarray(prices)
         if prices.ndim == 2 and prices.shape[0] > 1:
             raise ConfigError("multi-asset portfolios are not yet ported to "
@@ -280,6 +323,11 @@ class Orchestrator:
                          else ChunkProgram(self.agent))
         template = self.agent.init(self.cfg.seed)
         self.episode = 0
+        if not resume and self._transitions_journal is not None:
+            # A fresh run does not inherit another run's experience: the
+            # journal is truncated and its high-water stamp reset.
+            self._transitions_journal.compact([])
+            self._journal_high_water = 0
         if resume:
             self._resume(template)
         elif train_state is not None:
@@ -306,7 +354,7 @@ class Orchestrator:
         completed episode resumed with more episodes to go re-arms."""
         state, step, saved_meta = self._restore_for_resume(template)
         horizon = self.env.num_steps
-        self._ts = self._adopt(state)
+        self._ts = self._adopt(self._warm_start_replay(state))
         # The index rides the metadata (heals inflate env_steps past
         # horizon-per-episode); clamp to episodes-1: the final checkpoint
         # of a completed run is written after the counter moved past it.
@@ -417,9 +465,13 @@ class Orchestrator:
         overwrites the program's buffer."""
         if isinstance(metrics, StackedMetrics):
             return self._program.readback(metrics)
+        metrics = dict(metrics)
+        transitions = metrics.pop("transitions", None)
         row = self._read_metrics(metrics)
         return MetricsReadback(tuple(row), torch.tensor(
-            [list(row.values())], dtype=torch.float64))
+            [list(row.values())], dtype=torch.float64),
+            transitions=None if transitions is None else
+            {k: v.detach().cpu()[None] for k, v in transitions.items()})
 
     def _new_pipeline(self) -> AsyncPipeline:
         return AsyncPipeline(self.cfg.runtime.pipeline_depth,
@@ -440,6 +492,8 @@ class Orchestrator:
         metrics_every = (1 if self._fault_hook is not None
                          else max(1, rt.metrics_every_chunks))
         mega = rt.megachunk_factor if self._program is not None else 1
+        # A journaled run reads every chunk's transitions back.
+        journaled = self._transitions_journal is not None
         timer = StepTimer(rt.chunk_steps, self.cfg.parallel.num_workers,
                           max_history=self.cfg.obs.max_timer_history or None)
         self._timer = timer
@@ -538,7 +592,7 @@ class Orchestrator:
                     est_env_steps = min(
                         last_env_steps + chunks_ahead * rt.chunk_steps,
                         threshold)
-                    if (chunks_since < metrics_every
+                    if (chunks_since < metrics_every and not journaled
                             and est_env_steps < threshold):
                         chunk_idx += k
                         continue        # no readback between samples
@@ -566,7 +620,7 @@ class Orchestrator:
                                 chunks_ahead = chunk_idx - self._committed_idx
                         continue
                     if (rt.double_buffer_dispatch and k > 1
-                            and self._fault_hook is None
+                            and not journaled and self._fault_hook is None
                             and (last_env_steps + (chunks_ahead + k)
                                  * rt.chunk_steps) < threshold):
                         # Dispatch the next megachunk before reading this
@@ -670,7 +724,13 @@ class Orchestrator:
         row: the fault-attribution cursor."""
         self._committed_idx = b.base
         rows = b.metrics.rows()
+        transitions = b.metrics.transitions()
         for i, row in enumerate(rows):
+            if transitions is not None:
+                # Per inner chunk, stamped with that chunk's env steps.
+                self._journal_transitions(
+                    {k: v[i] for k, v in transitions.items()},
+                    int(row["env_steps"]))
             if self._fault_hook is not None:
                 # Per inner chunk with its TRUE index: a fault mid-megachunk
                 # surfaces at the boundary, attributed to its chunk.
@@ -776,6 +836,9 @@ class Orchestrator:
                 updates, self._ts,
                 metadata={"episode": self.episode,
                           "env_steps": int(metrics.get("env_steps", 0))})
+            # Completion is a durability point: every journaled chunk is on
+            # disk when the lifecycle says done.
+            self._flush_journal()
             self.lifecycle.to(Phase.TRAINED)
             self.lifecycle.to(Phase.COMPLETED)
             self.events.emit("training_completed",
@@ -859,10 +922,10 @@ class Orchestrator:
         try:
             state, step = self.checkpoints.restore(template)
             self._surface_restore_fallback()
-            self._ts = state
+            self._ts = self._warm_start_replay(state)
             self.events.emit("restored", step=step)
         except FileNotFoundError:
-            self._ts = template
+            self._ts = self._warm_start_replay(template)
             self.events.emit("reinitialized")
 
     def _surface_restore_fallback(self) -> None:
@@ -972,6 +1035,7 @@ class Orchestrator:
                 metadata={"updates": updates, "env_steps": env_steps,
                           "episode": self.episode, "preempted": True})
             saved = True
+            self._flush_journal()
             self.events.emit("preempted", updates=updates,
                              env_steps=env_steps, episode=self.episode)
             log.warning("emergency checkpoint tag_preempt written "
@@ -982,6 +1046,93 @@ class Orchestrator:
                           "was already durable")
         self.preempt_saved = saved
         self.preempted = True
+
+    # ---- journal-backed replay (learner.journal_replay) -------------------
+
+    def _flush_journal(self) -> None:
+        if self._transitions_journal is not None:
+            self._transitions_journal.flush()
+
+    def _journal_transitions(self, transitions: dict, env_steps: int) -> None:
+        """Append one chunk's transitions, ``(T, B, ...)`` numpy arrays, as
+        one packed record stamped ``env_steps``: rows flattened (T, B)
+        row-major under the ``valid`` mask (the order the replay pushes
+        them in). A chunk at or below the high-water stamp (replayed after a
+        restore) is not journaled again. Every ``replay_capacity`` new rows
+        the journal keeps only its newest ``2 x replay_capacity`` rows."""
+        if self._transitions_journal is None:
+            return
+        if env_steps <= self._journal_high_water:
+            return
+        self._journal_high_water = env_steps
+        valid = np.asarray(transitions["valid"]).reshape(-1)
+        if not valid.any():
+            return
+        flat = {k: np.asarray(v).reshape((-1,) + np.asarray(v).shape[2:])
+                for k, v in transitions.items() if k != "valid"}
+        append_transitions(
+            self._transitions_journal, flat["obs"][valid],
+            flat["action"][valid], flat["reward"][valid],
+            flat["next_obs"][valid], env_steps=env_steps)
+        capacity = self.cfg.learner.replay_capacity
+        self._journal_rows_since_compact += int(valid.sum())
+        segmented = self.cfg.data.journal_segment_records > 0
+        if self._journal_rows_since_compact >= capacity:
+            if segmented:
+                retired, freed = retire_transition_segments(
+                    self._transitions_journal, 2 * capacity)
+                if freed:
+                    self.metrics.inc("journal_compacted_bytes_total", freed)
+                if retired:
+                    self.metrics.inc("journal_segments_retired_total",
+                                     retired)
+            else:
+                compact_transitions(self._transitions_journal, 2 * capacity)
+            self._journal_rows_since_compact = 0
+        if segmented:
+            self.metrics.record(
+                "journal_segments",
+                len(segment_paths(self._transitions_journal.path)) + 1)
+
+    def _warm_start_replay(self, state: TrainState) -> TrainState:
+        """``state`` with DQN's replay rebuilt from the transitions
+        journal's tail: the rows stamped at or below ``state.env_steps``
+        (the chunks after it re-run and push their own), the newest that
+        fit the capacity, pushed oldest first into a fresh buffer (legacy
+        JSON ``transitions`` events first); under PER the sum-tree is
+        reseeded at the stored max priority. The journal's high-water stamp
+        is recovered either way. ``state`` itself when nothing was
+        journaled."""
+        if self._transitions_journal is None:
+            return state
+        capacity = self.cfg.learner.replay_capacity
+        cutoff = int(state.env_steps)
+        events = [e for e in self._transitions_journal.replay()
+                  if e.get("type") == "transitions"]
+        tail = read_tail_transitions(self._transitions_journal.path,
+                                     capacity if cutoff > 0 else 1,
+                                     cutoff_env_steps=cutoff,
+                                     journal=self._transitions_journal)
+        self._journal_high_water = max(
+            [self._journal_high_water]
+            + [e.get("env_steps", 0) for e in events]
+            + ([tail[4]] if tail is not None else []))
+        fresh = ReplayBuffer.create(capacity, self.agent.model.obs_dim,
+                                    self.device)
+        warm = fill_replay_from_events(
+            fresh, [e for e in events if e.get("env_steps", 0) <= cutoff])
+        if tail is not None and cutoff > 0:
+            warm = fill_replay_from_arrays(warm, *tail[:4])
+        size = int(warm.size)
+        if size == 0:
+            return state            # nothing journaled yet: as restored
+        log.info("warm-started replay buffer with %d journaled transitions",
+                 size)
+        self.events.emit("replay_warm_started", size=size)
+        extras = state.extras
+        return state.replace(extras=reseed_per_priorities(type(extras)(
+            target_params=extras.target_params, replay=warm,
+            per=extras.per)))
 
     # ---- queries ----------------------------------------------------------
 
@@ -1117,3 +1268,6 @@ class Orchestrator:
         if self._thread is not None:
             self._thread.join(timeout=60)
         self.checkpoints.wait_pending(timeout=60)
+        if self._transitions_journal is not None:
+            self._transitions_journal.close()
+            self._transitions_journal = None

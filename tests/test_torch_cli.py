@@ -3,7 +3,7 @@
 The episode transformer (the model ``learner.algo=ppo`` trains) at a small
 width (window 16, head_dim 16, 4-row batches over 8 slots, 12 sessions)
 serves synthetic closed-loop load for one second: a ``serving_ready`` line, then a summary with completed
-requests and no failures.
+requests and no failures; the run leaves only its price journal.
 """
 
 import json
@@ -49,7 +49,12 @@ def test_cli_serve_on_cpu(tmp_path):
     assert summary["drained"] and summary["stopped_clean"]
     # On the CPU the kernel wrapper takes its plain version: no launches.
     assert summary["flash_fwd_launches"] == 0
-    assert list(tmp_path.iterdir()) == []     # writes nothing around it
+    # Writes nothing around it but its price journal (data.journal_dir),
+    # as the JAX cli serve leaves it: one fetch event, lock released.
+    assert [p.name for p in tmp_path.iterdir()] == ["journal"]
+    from sharetrade_tpu_torch.data.journal import Journal
+    with Journal(str(tmp_path / "journal" / "price-events.journal")) as j:
+        assert [e["type"] for e in j.replay()] == ["prices_fetched"]
 
 
 def test_cli_serve_params_from_npz(tmp_path):

@@ -679,6 +679,12 @@ GRAPH_LEARNERS = {
 }
 
 
+#: DQN with its transitions collected (``learner.journal_replay``).
+JOURNAL_LEARNERS = {
+    f"{name}_journal": GRAPH_LEARNERS[name] + ["learner.journal_replay=true"]
+    for name in ("dqn", "dqn_per")}
+
+
 def _graph_and_eager(learner, cuda, tmp_path):
     """Two orchestrators of the same small run: one whose chunks go
     through its chunk program, one whose program is taken away (its state
@@ -692,8 +698,9 @@ def _graph_and_eager(learner, cuda, tmp_path):
     pair = []
     for name in ("graph", "eager"):
         cfg = FrameworkConfig().apply_overrides(
-            GRAPH_LEARNERS[learner] + [f"runtime.checkpoint_dir="
-                                       f"{tmp_path / name}"])
+            {**GRAPH_LEARNERS, **JOURNAL_LEARNERS}[learner]
+            + [f"runtime.checkpoint_dir={tmp_path / name}",
+               f"data.journal_dir={tmp_path / (name + '-journal')}"])
         orch = Orchestrator(cfg, device=cuda)
         orch.send_training_data(prices)
         pair.append(orch)
@@ -744,6 +751,106 @@ def test_graph_chunks_are_bitwise_the_eager_chunks(cuda, learner, tmp_path):
         assert torch.equal(a, b)
     assert runs["graph"][1] == runs["eager"][1]
     assert sum(runs["graph"][1].values()) > 0
+
+
+@pytest.mark.parametrize("learner", sorted(JOURNAL_LEARNERS))
+def test_graph_transitions_are_bitwise_the_eager_transitions(cuda, learner,
+                                                             tmp_path):
+    """DQN collecting its transitions: four chunks through the chunk
+    program with a re-arm after chunk 2 and a heal after chunk 3, as in
+    the test above; every chunk's transitions (obs, action, reward,
+    next_obs, valid: the captured step's static buffers, copied into the
+    dispatch's slot and read back) equal the eager chunks' bit for bit, as
+    do the states; after the heal every row is valid again."""
+    from sharetrade_tpu_torch.agents.base import _split_transitions
+
+    graph, eager = _graph_and_eager(learner, cuda, tmp_path)
+    program = graph._program
+    runs = {}
+    for name, orch in (("graph", graph), ("eager", eager)):
+        chunks = []
+        for c in range(4):
+            if name == "graph":
+                orch._ts, stacked = program(orch._ts)
+                got = program.readback(stacked).transitions()
+                chunks.append({k: torch.from_numpy(v[0].copy())
+                               for k, v in got.items()})
+            else:
+                orch._ts, metrics = orch.agent.step(orch._ts)
+                _, tr = _split_transitions(metrics)
+                chunks.append({k: v.cpu() for k, v in tr.items()})
+            if c == 1:
+                orch.episode += 1
+                orch._reset_episode()
+            if c == 2:
+                env = orch._ts.env_state
+                budget = env.budget.clone()
+                budget[1] = float("nan")
+                orch._ts = orch._ts.replace(env_state=env.replace(
+                    budget=budget))
+                assert orch._heal_agents()
+        runs[name] = chunks
+    assert program.replays == 3
+    _same_bits(graph.train_state, eager.train_state)
+    for a, b in zip(runs["graph"], runs["eager"]):
+        assert sorted(a) == ["action", "next_obs", "obs", "reward", "valid"]
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+    assert bool(runs["graph"][3]["valid"].all())
+    graph.stop()
+    eager.stop()
+
+
+def test_a_dead_graph_collected_during_the_capture_does_not_break_it(
+        cuda, tmp_path):
+    """A CUDA graph dead in a reference cycle (as an earlier run's chunk
+    program is, held by an exception's traceback) whose cycle becomes
+    garbage while the next chunk is captured: with the collector at its
+    most eager, a collection there would run the graph's destructor on the
+    capturing thread and invalidate the capture. The chunk program pauses
+    the collector for the capture, so the capture and its replays hold,
+    and the graph is collected after it."""
+    import dataclasses
+    import gc
+    import weakref
+
+    graph_run, _ = _graph_and_eager("qlearn", cuda, tmp_path)
+    x = torch.zeros(1024, device=cuda)
+    dead = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(dead):
+        x.add_(1)
+    dead.replay()
+    torch.cuda.synchronize()
+    gone = weakref.ref(dead)
+    stock = [dead]
+    del dead
+    step = graph_run.agent.step
+    capturing = []
+
+    def step_dropping_a_graph(ts, draws=None):
+        if torch.cuda.is_current_stream_capturing() and stock:
+            cycle = [stock.pop()]
+            cycle.append(cycle)
+            del cycle
+            capturing.append([[] for _ in range(64)])   # allocations: gen 0
+        return step(ts, draws=draws)
+
+    program = graph_run._program
+    program.agent = dataclasses.replace(graph_run.agent,
+                                        step=step_dropping_a_graph)
+    ts, _ = program(graph_run._ts)              # the eager warm-up chunk
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        ts, _ = program(ts)                     # captured, then replayed
+        ts, _ = program(ts)
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*threshold)
+    assert capturing and program.replays == 2
+    gc.collect()
+    assert gone() is None
+    graph_run.stop()
 
 
 def test_a_chunk_that_cannot_be_captured_raises(cuda, tmp_path):

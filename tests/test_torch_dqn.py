@@ -18,7 +18,9 @@
   ``state.npz`` bit for bit, and a JAX DQN state converts
   (``convert.train_state_from_jax``) into the port's layout, extras
   included (the chunk pairs above start from such a conversion).
-- ``learner.journal_replay=true`` raises ``ConfigError``.
+
+``learner.journal_replay`` (the transition journal and its warm start) is
+held in tests/test_torch_journal_replay.py.
 """
 
 import jax
@@ -29,11 +31,9 @@ import torch
 
 from sharetrade_tpu.ops import sum_tree as jtree
 from sharetrade_tpu_torch import convert
-from sharetrade_tpu_torch.agents import build_agent
 from sharetrade_tpu_torch.agents import dqn as tdqn
 from sharetrade_tpu_torch.checkpoint import CheckpointManager
-from sharetrade_tpu_torch.config import ConfigError, FrameworkConfig
-from sharetrade_tpu_torch.env.trading import make_trading_env
+from sharetrade_tpu_torch.config import FrameworkConfig
 from sharetrade_tpu_torch.ops import sum_tree as ttree
 
 import test_torch_reference as ref
@@ -202,14 +202,6 @@ def test_dqn_state_round_trips_a_checkpoint_and_converts(tmp_path):
             (priority == "per")
         for name in a:
             assert torch.equal(a[name], b[name]), name
-
-
-def test_journal_replay_is_refused():
-    cfg = FrameworkConfig().apply_overrides(
-        ref._overrides("dqn", "learner.journal_replay=true"))
-    with pytest.raises(ConfigError, match="journal_replay"):
-        build_agent(cfg, make_trading_env(ref._prices(), window=ref.WINDOW,
-                                          device="cpu"), device="cpu")
 
 
 def test_dqn_preempt_and_resume_ends_bit_equal(tmp_path):

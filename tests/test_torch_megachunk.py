@@ -28,6 +28,9 @@ window 8, hidden 8, 4 workers, 16-step chunks, a 256-step episode (a
   an always-failing hook spends the same restart budget with the same
   events as the JAX orchestrator, pipeline on; a preemption mid-run drains
   the pipeline, and the resumed run ends bit-equal to an uninterrupted one.
+- The chunk program pauses the cyclic collector for the length of its
+  capture and leaves it as it found it (the card's capture test is in
+  tests/test_torch_cuda.py).
 """
 
 import dataclasses
@@ -384,3 +387,26 @@ def test_preempt_drains_the_pipeline_and_resumes_bitwise(tmp_path):
     resumed.stop()
     assert resumed.is_everything_done().state is ReplyState.COMPLETED
     assert_same_state(straight, resumed)
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_capture_pauses_the_cyclic_collector(enabled):
+    """``_gc_paused``, which the chunk program's capture runs under: no
+    automatic collection inside, the collector's state as before after it,
+    also when the block raises."""
+    import gc
+
+    from sharetrade_tpu_torch.agents.base import _gc_paused
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with _gc_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() is enabled
+        with pytest.raises(KeyError):
+            with _gc_paused():
+                raise KeyError("inside")
+        assert gc.isenabled() is enabled
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -6,7 +6,8 @@ chunks) trains PPO through ``python -m sharetrade_tpu_torch.cli train
 ``Orchestrator`` in process (the episode gate, the re-arm between episodes,
 GetAvg/GetStd in both their progressive and trained-only forms, the
 stashed StartTraining), and under SIGTERM (exit 75 at a chunk boundary).
-The checkpoint chain: ``train --eval`` preempted by SIGTERM (exit 75,
+The run leaves its checkpoints and its price journal, which replays to
+one ``prices_fetched`` event. The checkpoint chain: ``train --eval`` preempted by SIGTERM (exit 75,
 ``tag_preempt`` written), ``train --resume --eval`` (completes, keeps
 ``tag_best``), then ``serve`` from the same directory boots from
 ``tag_best`` (``params_step`` its update count); ``--resume`` with nothing
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 
 from sharetrade_tpu_torch.config import ConfigError, FrameworkConfig
+from sharetrade_tpu_torch.data.journal import Journal
 from sharetrade_tpu_torch.runtime.lifecycle import Phase, ReplyState
 from sharetrade_tpu_torch.runtime.orchestrator import Orchestrator
 
@@ -65,8 +67,12 @@ def test_cli_train_on_cpu(tmp_path):
     # On the CPU every kernel wrapper takes its plain version.
     assert set(summary["kernel_launches"].values()) == {0}
     assert "The average of the portfolios" in out.stderr
-    # Nothing around it but the run's checkpoints (runtime.checkpoint_dir).
-    assert [p.name for p in tmp_path.iterdir()] == ["checkpoints"]
+    # Nothing around it but the run's checkpoints (runtime.checkpoint_dir)
+    # and its price journal (data.journal_dir), as the JAX cli train leaves.
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["checkpoints",
+                                                          "journal"]
+    with Journal(str(tmp_path / "journal" / "price-events.journal")) as j:
+        assert [e["type"] for e in j.replay()] == ["prices_fetched"]
 
 
 def test_cli_train_sigterm_exits_75(tmp_path):
