@@ -121,6 +121,33 @@ Phases, in order (any failure exits non-zero before the final line):
                but the checkpoint directory; train must end on
                ``REFERENCE_DIGITS``, serve boots from train's ``tag_best``
                and warns once that ``serve.swap_poll_s`` is not ported.
+13. families — the other policy families at full width (``FAMILIES``:
+               the window transformer L 2, H 4, Dh 64 fp32 and H 2, Dh 128
+               bf16, with unroll 32; with an 8-expert MoE FFN, top-2 and
+               top-0; the LSTM (hidden 200) and the TCN (64 channels, 7
+               blocks) with unroll 128; the window transformer over the
+               2-asset MSFT/AAPL portfolio, 405 inputs, 5 actions, 404
+               tokens), 10 agents, PPO: (a) three chunks eagerly, each
+               kernel's launches per chunk (the three attention kernels
+               must launch on every transformer), chunk ms and losses,
+               then the same three chunks through the orchestrator's
+               defaults (no restarts allowed) over a series of exactly
+               three chunks, bit-equal, with the same launches, the
+               capture's seconds and graph nodes, then three more replays
+               timed alone; (b) for the transformers, one replay minibatch
+               through the kernels and the plain attention (``MB_*``);
+               (c) the serving engine on each family: 64 sessions for 4
+               ticks (one cold, three warm), every device batch against the
+               plain path on its own rows and, but for the MoE top-2 whose
+               routing spans the batch, every answer against the plain
+               model stepped session by session with its carry threaded
+               (``FAMILY_SERVE_ATOL`` per compute dtype), then 2 s in
+               closed loop (qps, p50, p99), and ``cli serve`` for 2 s on
+               each (the portfolio: ``cli train --symbol MSFT,AAPL`` over
+               three chunks); (d) ``flash_fwd`` (and at the replay's bh the
+               backward) at the window shapes, timed beside SDPA with
+               ``is_causal``, and ``fused_update`` over each family's
+               leaves (``FAMILY_UPDATE_CASES``) against its plain version.
 
 Every price read journals into a fresh scratch directory, and every CLI
 run works in a fresh scratch directory (the checkout on ``PYTHONPATH``):
@@ -150,7 +177,8 @@ import time
 import numpy as np
 
 PHASES = ("build", "kernels", "train", "serve", "cli", "cli_train",
-          "resilience", "reference", "pipeline", "journal", "cli_defaults")
+          "resilience", "reference", "pipeline", "journal", "cli_defaults",
+          "families")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -505,23 +533,24 @@ def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
     if not timed:
         return rows
 
-    # The library yardstick: SDPA with the band mask. Its backward alone
-    # (one forward kept, autograd.grad timed with retain_graph) is the same
-    # function as the two kernels together; forward + backward is kept
-    # beside it.
+    # The library yardstick: SDPA with the band mask (``is_causal`` where
+    # the band is plain causal). Its backward alone (one forward kept,
+    # autograd.grad timed with retain_graph) is the same function as the
+    # two kernels together; forward + backward is kept beside it.
     idx = torch.arange(seq, device="cuda")
     band = idx[None, :] <= idx[:, None]
     if window is not None:
         band = band & (idx[None, :] > idx[:, None] - window)
+    mask = (dict(is_causal=True) if window is None
+            else dict(attn_mask=band))
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
 
     def library_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=band,
-                                           scale=scale)
+        o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale, **mask)
         torch.autograd.grad(o, (qg, kg, vg), dout)
 
-    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=band,
-                                             scale=scale)
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale,
+                                             **mask)
     library_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
         lib_out, (qg, kg, vg), dout, retain_graph=True), iters=10)
     library_fwd_bwd_ms = _time_ms(torch, library_fwd_bwd, iters=10)
@@ -531,7 +560,8 @@ def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
     rows_bytes = 2 * batch * heads * seq * 4            # lse, delta
     library = {"library_bwd_ms": library_bwd_ms,
                "library_fwd_bwd_ms": library_fwd_bwd_ms,
-               "library": "SDPA with the band mask: backward alone "
+               "library": "SDPA with the band mask (is_causal when "
+                          "unbanded): backward alone "
                           "(library_bwd_ms), forward + backward "
                           "(library_fwd_bwd_ms); both kernels together"}
     dq_fn = lambda: attention.flash_bwd_dq(  # noqa: E731
@@ -562,11 +592,21 @@ def check_flash_bwd(torch, *, name: str, batch: int, heads: int, seq: int,
 def _model_params(torch, model: str = "flagship"):
     """A parameter tree on the card: the flagship's (34 leaves), the
     reference Q-network's (``q_mlp``, 203 -> 200 -> 3: 4 leaves, 41,403
-    parameters) or the actor-critic MLP's (``ac_mlp``: 8 leaves, 81,804
-    parameters)."""
+    parameters), the actor-critic MLP's (``ac_mlp``: 8 leaves, 81,804
+    parameters) or a family's of ``FAMILIES`` at its full width (the
+    portfolio's over 2 assets: 405 inputs, 5 actions)."""
     from sharetrade_tpu_torch.models.mlp import ac_mlp, q_mlp
     from sharetrade_tpu_torch.models.transformer_episode import (
         episode_transformer_policy)
+    if model in FAMILIES:
+        from sharetrade_tpu_torch.config import FrameworkConfig
+        from sharetrade_tpu_torch.models import build_model
+        cfg = FrameworkConfig().apply_overrides(FAMILY_BASE + FAMILIES[model])
+        assets = len(PORTFOLIO_SYMBOLS) if model == "ppo_portfolio" else 1
+        return build_model(
+            cfg.model, assets * cfg.env.window + 1 + assets, device="cuda",
+            num_actions=2 * assets + 1, num_assets=assets).init(
+                torch.Generator().manual_seed(0))
     build = {
         "flagship": lambda: episode_transformer_policy(
             203, 3, num_layers=2, num_heads=2, head_dim=128, device="cuda"),
@@ -994,6 +1034,21 @@ KERNELS = {
                      {"bfloat16": "vec16+persistent",
                       "float32": "vec16+persistent"}),
 }
+#: Where the port's main paths launch each kernel: ``file::function`` of the
+#: call into the kernel's wrapper (``ops/attention.flash_attention``, whose
+#: forward runs ``flash_fwd`` and whose backward ``flash_bwd_dq`` and
+#: ``flash_bwd_dkv``; ``ops/fused_update.fused_apply``).
+_ATTENTION_SITES = [
+    "sharetrade_tpu_torch/models/transformer_episode.py::"
+    "episode_transformer_policy",
+    "sharetrade_tpu_torch/models/transformer.py::transformer_policy",
+]
+LAUNCH_SITES = {
+    "flash_fwd": _ATTENTION_SITES,
+    "flash_bwd_dq": _ATTENTION_SITES,
+    "flash_bwd_dkv": _ATTENTION_SITES,
+    "fused_update": ["sharetrade_tpu_torch/agents/base.py::make_update_fn"],
+}
 #: The kernels-phase case each kernel's line reports: the main paths' shape.
 KERNEL_CASE = {"flash_fwd": "serving_bf16", "flash_bwd_dq": "replay_bf16",
                "flash_bwd_dkv": "replay_bf16",
@@ -1012,8 +1067,17 @@ def kernels_line(results: dict) -> dict:
                    if r["kernel"] == name and r["case"] == KERNEL_CASE[name])
         by_path = {path: results[path]["launches"].get(name, 0)
                    for path in ("train", "serve", "resilience", "reference",
-                                "pipeline", "journal")
+                                "pipeline", "journal", "families")
                    if path in results}
+        # The same kernel at the families' shapes (families (d)).
+        family_rows = [
+            {k: r[k] for k in (
+                "case", "shape", "dtype", "model", "grad_dtype", "leaves",
+                "parameters", "max_abs_err", "kernel_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_bwd_ms")
+             if k in r}
+            for r in results.get("families", {}).get("kernels", [])
+            if r["kernel"] == name]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "also_replaces": also,
@@ -1023,6 +1087,8 @@ def kernels_line(results: dict) -> dict:
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_bwd_ms", row.get("library_ms")),
             "case": row["case"], "design": design,
+            "launch_sites": LAUNCH_SITES[name],
+            **({"family_rows": family_rows} if family_rows else {}),
         })
     return {"kernels": entries}
 
@@ -1038,32 +1104,47 @@ def _reset_launch_counts() -> None:
     fused_update.reset_launch_counts()
 
 
-def _minibatch_check(torch, cfg, env, agent, ts) -> dict:
-    """One PPO minibatch (agents 0..127 of a fresh rollout from ``ts``)
-    through the kernels, through the plain attention and through the fp32
-    model, held as the MB_* constants state."""
+def _plain_attention(cfg):
+    """The plain attention in the shape of ``cfg``'s transformer's
+    ``attention_fn``: banded ``(q, k, v, window)`` in episode mode, causal
+    ``(q, k, v)`` in window mode."""
+    from sharetrade_tpu_torch.ops import attention
+    if cfg.model.seq_mode == "episode":
+        sm_scale = cfg.model.head_dim ** -0.5
+        return lambda q, k, v, w: attention.reference_attention(
+            q, k, v, causal=True, sm_scale=sm_scale, local_window=w)
+    return lambda q, k, v: attention.reference_attention(q, k, v,
+                                                         causal=True)
+
+
+def _minibatch_check(torch, cfg, env, agent, ts,
+                     overrides=FLAGSHIP_TRAIN) -> dict:
+    """One PPO minibatch (the first minibatch's agents of a fresh rollout
+    from ``ts``) through the kernels, through the plain attention and
+    through the fp32 model, held as the MB_* constants state.
+    ``overrides`` is ``cfg``'s config (its fp32 form is the reference)."""
     from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.agents.ppo import num_minibatches
     from sharetrade_tpu_torch.agents.rollout import (
         collect_rollout, gae_advantages, normalize_advantages_masked,
         replay_forward)
     from sharetrade_tpu_torch.config import FrameworkConfig
     from sharetrade_tpu_torch.models import build_model
-    from sharetrade_tpu_torch.ops import attention
     from sharetrade_tpu_torch.precision import policy_from_config
 
     def plain_agent(c):
-        sm_scale = c.model.head_dim ** -0.5
-        model = build_model(
-            c.model, env.obs_dim, device="cuda",
-            attention_fn=lambda q, k, v, w: attention.reference_attention(
-                q, k, v, causal=True, sm_scale=sm_scale, local_window=w))
+        model = build_model(c.model, env.obs_dim, device="cuda",
+                            attention_fn=_plain_attention(c),
+                            num_actions=env.num_actions,
+                            num_assets=env.num_assets)
         return build_agent(c, env, model, device="cuda")
 
     compute = policy_from_config(cfg.precision).cast_compute(ts.params)
     _, traj, bootstrap, init_carry = collect_rollout(
         agent.model, env, ts, cfg.runtime.chunk_steps,
         cfg.parallel.num_workers, params=compute)
-    idx = torch.arange(cfg.parallel.num_workers // cfg.learner.ppo_minibatches,
+    workers = cfg.parallel.num_workers
+    idx = torch.arange(workers // num_minibatches(cfg.learner, workers),
                        device="cuda")
     with torch.no_grad():
         adv = gae_advantages(traj.reward, traj.value, traj.active, bootstrap,
@@ -1075,7 +1156,7 @@ def _minibatch_check(torch, cfg, env, agent, ts) -> dict:
     carry32 = {k: v.float() if v.is_floating_point() else v
                for k, v in carry.items()}
     cfg32 = FrameworkConfig().apply_overrides(
-        FLAGSHIP_TRAIN + ["precision.mode=fp32"])
+        list(overrides) + ["precision.mode=fp32"])
     paths = {"kernel": (agent, compute, carry),
              "plain": (plain_agent(cfg), compute, carry),
              "fp32": (plain_agent(cfg32), ts.params, carry32)}
@@ -2709,6 +2790,435 @@ def phase_cli_defaults() -> dict:
     return row
 
 
+#: The families phase: the other policy families at full width, each a
+#: config of benchmarks/run_all.py (``ppo_transformer``,
+#: ``ppo_transformer_bf16``, ``ppo_lstm``, ``ppo_tcn``) or the README's
+#: (the window transformer with ``moe_experts=8``, top-2 and the
+#: dense-mask top-0; the 2-asset portfolio of ``--symbol MSFT,AAPL``), at
+#: the JAX defaults otherwise: 10 agents, window 201, adagrad, 4 epochs of
+#: 2 minibatches (4 requested, the largest divisor of 10 below).
+_FAMILY_TRANSFORMER = ["model.kind=transformer", "model.num_layers=2",
+                       "model.num_heads=4", "model.head_dim=64",
+                       "learner.unroll_len=32", "runtime.chunk_steps=32"]
+FAMILIES = {
+    "ppo_transformer": _FAMILY_TRANSFORMER,
+    "ppo_transformer_bf16": [
+        "model.kind=transformer", "model.num_layers=2", "model.num_heads=2",
+        "model.head_dim=128", "precision.mode=bf16_mixed",
+        "learner.unroll_len=32", "runtime.chunk_steps=32"],
+    "ppo_transformer_moe_top2": _FAMILY_TRANSFORMER + [
+        "model.moe_experts=8", "model.moe_top_k=2"],
+    "ppo_transformer_moe_top0": _FAMILY_TRANSFORMER + [
+        "model.moe_experts=8", "model.moe_top_k=0"],
+    "ppo_lstm": ["model.kind=lstm", "learner.unroll_len=128",
+                 "runtime.chunk_steps=128"],
+    "ppo_tcn": ["model.kind=tcn", "model.hidden_dim=64",
+                "learner.unroll_len=128", "runtime.chunk_steps=128"],
+    "ppo_portfolio": _FAMILY_TRANSFORMER,
+}
+FAMILY_BASE = ["learner.algo=ppo", "parallel.num_workers=10"]
+#: fused_update over each family's leaf list (3-D leaves among them: the
+#: TCN's (3, 64, 64) filters, the MoE's (8, 256, 1024) expert matrices),
+#: adagrad, with the gradient dtype its training path gives it: float32,
+#: or under bf16_mixed bf16 and the compute copy emitted; the MoE's and the
+#: TCN's 3-D leaves in both. Held as UPDATE_CASES are (families (d)).
+FAMILY_UPDATE_CASES = [
+    dict(name=f"{family}_adagrad_{tag}", optimizer="adagrad",
+         grad_dtype={"f32": "float32", "bf16": "bfloat16"}[tag],
+         emit=tag == "bf16", model=family)
+    for family, tag in (
+        ("ppo_transformer", "f32"), ("ppo_transformer_bf16", "bf16"),
+        ("ppo_transformer_moe_top2", "f32"),
+        ("ppo_transformer_moe_top2", "bf16"), ("ppo_lstm", "f32"),
+        ("ppo_tcn", "f32"), ("ppo_tcn", "bf16"), ("ppo_portfolio", "f32"))]
+#: The portfolio family's symbols (``cli train --symbol MSFT,AAPL``).
+PORTFOLIO_SYMBOLS = ("MSFT", "AAPL")
+FAMILY_CHUNKS = 3
+#: Closed-loop serving of each family: sessions, seconds.
+FAMILY_SERVE_SESSIONS, FAMILY_SERVE_S = 192, 2.0
+#: Ticks of the checked serving batch: one cold, then warm.
+FAMILY_SERVE_TICKS = 4
+#: Serving the families, (logits, values) against the plain path on the
+#: same rows. float32: the kernel and the plain attention sum the same f32
+#: products in another order (errors of about 1e-7 to 1e-6 on logits of
+#: order 0.1 and values of order 1 on the H100, PERF.md), so 1e-4 leaves
+#: two orders for depth and batch. bfloat16: the flagship's LOGIT_ATOL /
+#: VALUE_ATOL.
+FAMILY_SERVE_ATOL = {"float32": (1e-4, 1e-4),
+                     "bfloat16": (LOGIT_ATOL, VALUE_ATOL)}
+
+
+def _family_prices(name: str, data) -> np.ndarray:
+    """The family's series: MSFT's prices, or the portfolio's (2, T)
+    matrix of MSFT and AAPL on their common dates (``cli train``'s
+    ``align_series``), journaled into a fresh scratch directory."""
+    import dataclasses
+
+    from sharetrade_tpu_torch.data.ingest import align_series
+    from sharetrade_tpu_torch.data.service import PriceDataService
+    if name != "ppo_portfolio":
+        return _prices(data)
+    service = PriceDataService(config=dataclasses.replace(
+        data, journal_dir=_fresh_dir("prices-")))
+    try:
+        return align_series([service.request(s).series
+                             for s in PORTFOLIO_SYMBOLS])
+    finally:
+        service.close()
+
+
+def _family_env(prices, cfg):
+    from sharetrade_tpu_torch.env.portfolio import make_portfolio_env
+    from sharetrade_tpu_torch.env.trading import make_trading_env
+    make = make_portfolio_env if prices.ndim == 2 else make_trading_env
+    return make(prices, window=cfg.env.window,
+                initial_budget=cfg.env.initial_budget,
+                initial_shares=cfg.env.initial_shares, device="cuda")
+
+
+def _family_train(torch, name, cfg, overrides, prices) -> tuple[dict, list]:
+    """(a) FAMILY_CHUNKS chunks eagerly (``agent.step``, each read back),
+    then the same chunks through the orchestrator at its defaults (an eager
+    first chunk, then graph replays, the async readback pipeline,
+    checkpoints) over a series of exactly that many chunks: the final
+    states bit-equal, every kernel's launches equal; then three replays
+    timed alone (``replay_chunk_ms``); (b) for the
+    transformers, one replay minibatch through the kernels and the plain
+    attention (MB_* rules)."""
+    import shutil
+    import tempfile
+    from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.runtime import Orchestrator, Phase
+
+    window, steps = cfg.env.window, cfg.runtime.chunk_steps
+    series = prices[..., :window + FAMILY_CHUNKS * steps]
+    env = _family_env(series, cfg)
+    agent = build_agent(cfg, env, device="cuda")
+    problems: list[str] = []
+    row: dict = {"config": overrides, "obs_dim": env.obs_dim,
+                 "num_actions": env.num_actions}
+    ts = agent.init(cfg.seed)
+    torch.cuda.synchronize()
+    chunk_ms, per_chunk, losses = [], [], []
+    for _ in range(FAMILY_CHUNKS):
+        before = _all_launch_counts()
+        t0 = time.perf_counter()
+        ts, metrics = agent.step(ts)
+        losses.append({k: float(metrics[k]) for k in (
+            "loss", "policy_loss", "value_loss", "entropy")})      # syncs
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        after = _all_launch_counts()
+        per_chunk.append({k: after[k] - before[k] for k in after})
+    row["eager"] = {"chunk_ms": chunk_ms, "launches_per_chunk": per_chunk,
+                    "losses": losses}
+    if not all(np.isfinite(list(x.values())).all() for x in losses):
+        problems.append(f"{name}: non-finite losses")
+    if cfg.model.kind == "transformer" and any(
+            c[k] <= 0 for c in per_chunk
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        problems.append(f"{name}: an attention kernel did not launch")
+    if any(c["fused_update"] <= 0 for c in per_chunk):
+        problems.append(f"{name}: fused_update did not launch")
+
+    root = tempfile.mkdtemp(prefix="family-", dir=_SCRATCH)
+    # No restarts: a fault fails the check at once instead of backing off.
+    ocfg = cfg.apply_overrides(["runtime.episodes=1", "runtime.max_restarts=0",
+                                f"runtime.checkpoint_dir={root}"])
+    orch = Orchestrator(ocfg, device="cuda")
+    orch.send_training_data(series)
+    before = _all_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    orch.start_training(background=False)
+    wall_s = time.perf_counter() - t0
+    after = _all_launch_counts()
+    program = orch._program
+    completed = orch.lifecycle.phase is Phase.COMPLETED
+    bit_equal = _bit_equal(torch, orch.train_state, ts)
+    launches = {k: after[k] - before[k] for k in after}
+    eager_total = {k: sum(c[k] for c in per_chunk) for k in per_chunk[0]}
+    # A replayed chunk alone, after the run (the state goes on past it).
+    replay_ms, live = [], orch.train_state
+    for _ in range(3):
+        t1 = time.perf_counter()
+        live, stacked = program(live)
+        stacked.values.cpu()                                   # syncs
+        replay_ms.append((time.perf_counter() - t1) * 1e3)
+    row["orchestrator"] = {
+        "completed": completed, "wall_s": wall_s,
+        "agent_steps_per_s": (cfg.parallel.num_workers * FAMILY_CHUNKS
+                              * steps / wall_s),
+        "bit_equal_eager": bit_equal, "capture_s": program.capture_seconds,
+        "graph_nodes": program.nodes, "replays": program.replays,
+        "replay_chunk_ms": replay_ms, "launches": launches,
+        "launches_per_replay": program.launches_per_replay}
+    orch.stop()
+    del orch
+    shutil.rmtree(root, ignore_errors=True)
+    if not (completed and bit_equal):
+        problems.append(f"{name}: orchestrator run completed {completed}, "
+                        f"bit-equal to the eager chunks {bit_equal}")
+    if launches != eager_total or program.replays != FAMILY_CHUNKS + 2 or \
+            program.launches_per_replay != {
+                k: n for k, n in per_chunk[-1].items() if n}:
+        problems.append(f"{name}: launches {launches} / per replay "
+                        f"{program.launches_per_replay}, eager {per_chunk}")
+    # The main path's launches end here: the minibatch check compares.
+    row["launches"] = _all_launch_counts()
+    if cfg.model.kind == "transformer":
+        row["minibatch"] = _minibatch_check(torch, cfg, env, agent,
+                                            agent.init(cfg.seed + 1),
+                                            overrides)
+        if row["minibatch"]["failed"]:
+            problems.append(f"{name}: one minibatch through the kernels "
+                            f"disagrees with the plain attention's: "
+                            f"{row['minibatch']['failed']}")
+    del agent, env, ts
+    return row, problems
+
+
+def _family_serve(torch, name, cfg, prices) -> tuple[dict, list]:
+    """(c) The serving engine on the family's model (its generic program):
+    ``FAMILY_SERVE_TICKS`` ticks of ``max_batch`` sessions, the first cold
+    and the others warm (each session moves on by its served action),
+    checked two ways within ``FAMILY_SERVE_ATOL`` for the compute dtype:
+
+    - every device batch the engine ran, recorded with its padded rows and
+      the carries it gathered, against the plain path on the same inputs
+      (the plain attention for the transformers; the LSTM and the TCN run
+      no kernel here, so for them this is the model against itself);
+    - where a row's answer does not depend on the rest of its batch (all
+      but the MoE top-2, whose routing groups and capacity span the batch),
+      every answer against the plain model stepped tick by tick from the
+      init carry, a session's carry threaded through, apart from the
+      engine: this holds the arena's carry bookkeeping (the LSTM's
+      ``(h, c)`` across warm ticks).
+
+    Then ``FAMILY_SERVE_S`` seconds in closed loop."""
+    import dataclasses
+
+    from sharetrade_tpu_torch.models import build_model
+    from sharetrade_tpu_torch.models.core import tree_map
+    from sharetrade_tpu_torch.precision import policy_from_config
+    from sharetrade_tpu_torch.serve import ServeEngine
+    from sharetrade_tpu_torch.serve.driver import (make_sessions,
+                                                   run_closed_loop)
+
+    window = cfg.env.window
+    env = _family_env(prices[..., :window + 2], cfg)
+    kw = dict(num_actions=env.num_actions, num_assets=env.num_assets)
+    model = build_model(cfg.model, env.obs_dim, device="cuda", **kw)
+    params = model.init(torch.Generator().manual_seed(cfg.seed))
+    policy = policy_from_config(cfg.precision)
+    recorded, recording = [], [False]
+
+    def apply_recorded(p, obs, rows):
+        out, new_rows = model.apply_batch(p, obs, rows)
+        if recording[0]:
+            recorded.append((obs.clone(), tree_map(torch.clone, rows),
+                             out.logits.clone(), out.value.clone()))
+        return out, new_rows
+
+    engine = ServeEngine(dataclasses.replace(model,
+                                             apply_batch=apply_recorded),
+                         cfg.serve, params, precision=policy)
+    engine.warmup()
+    _reset_launch_counts()
+    before = dict(engine.counters)
+    sessions = make_sessions(prices, window, cfg.serve.max_batch,
+                             seed=cfg.seed, prefix="first")
+    asked, served = [], []
+    recording[0] = True
+    for _ in range(FAMILY_SERVE_TICKS):
+        obs = np.stack([s.observation() for s in sessions])
+        sids = [s.sid for s in sessions]
+        results = [h.wait(120.0) for h in [
+            engine.submit(sid, o) for sid, o in zip(sids, obs)]]
+        if any(r is None for r in results):
+            break
+        for sess, r in zip(sessions, results):
+            sess.advance(r.action)
+        asked.append((sids, obs))
+        served.append(results)
+    recording[0] = False
+    load = run_closed_loop(
+        engine, make_sessions(prices, window, FAMILY_SERVE_SESSIONS,
+                              seed=cfg.seed + 1, prefix="c"),
+        concurrency=FAMILY_SERVE_SESSIONS, duration_s=FAMILY_SERVE_S)
+    drained = engine.drain(60.0)
+    torch.cuda.synchronize()
+    launches = _all_launch_counts()
+    counters = {k: v - before[k] for k, v in engine.counters.items()}
+    stopped = engine.stop(drain=False, timeout_s=10.0)
+    if len(served) < FAMILY_SERVE_TICKS:
+        return {"failed_ticks": True}, [f"{name}: a request of the checked "
+                                        "ticks failed"]
+    # The main path's launches end here: the plain path compares.
+    plain = (build_model(cfg.model, env.obs_dim, device="cuda",
+                         attention_fn=_plain_attention(cfg), **kw)
+             if cfg.model.kind == "transformer" else model)
+    compute = policy.cast_compute(params)
+    dname = "bfloat16" if policy.mixed else "float32"
+    logit_atol, value_atol = FAMILY_SERVE_ATOL[dname]
+    batch_err = [0.0, 0.0]
+    with torch.inference_mode():
+        for obs, rows, logits, value in recorded:
+            ref, _ = plain.apply_batch(compute, obs, rows)
+            batch_err[0] = max(batch_err[0],
+                               (logits - ref.logits).abs().max().item())
+            batch_err[1] = max(batch_err[1],
+                               (value - ref.value).abs().max().item())
+        session_err = None
+        if not (cfg.model.moe_experts and cfg.model.moe_top_k > 0):
+            session_err = [0.0, 0.0]
+            init = tree_map(lambda c: c[None].expand(
+                (len(sessions),) + c.shape).contiguous(), policy.cast_carry(
+                    model.init_carry(), model))
+            carry, last = init, None
+            for (sids, obs), results in zip(asked, served):
+                if last is not None:
+                    # A session that wrapped comes back as a new one.
+                    fresh = torch.tensor([a != b for a, b in zip(sids, last)],
+                                         device="cuda")
+                    carry = tree_map(lambda c, c0: torch.where(
+                        fresh.reshape((-1,) + (1,) * (c.ndim - 1)), c0, c),
+                        carry, init)
+                ref, carry = plain.apply_batch(
+                    compute, torch.from_numpy(obs).cuda(), carry)
+                carry = tree_map(lambda c, c0: c.to(c0.dtype), carry, init)
+                session_err[0] = max(session_err[0], float(np.abs(
+                    np.stack([r.logits for r in results])
+                    - ref.logits.cpu().numpy()).max()))
+                session_err[1] = max(session_err[1], float(np.abs(
+                    np.array([r.value for r in results])
+                    - ref.value.cpu().numpy()).max()))
+                last = sids
+    row = {"qps": load["qps"], "p50_ms": load.get("p50_ms"),
+           "p99_ms": load.get("p99_ms"), "requests": load.get("completed"),
+           "failed": load["failed"] + counters["failed"],
+           "counters": counters, "launches": launches,
+           "checked_ticks": FAMILY_SERVE_TICKS,
+           "checked_batches": len(recorded),
+           "batch_logit_max_abs_err": batch_err[0],
+           "batch_value_max_abs_err": batch_err[1],
+           "session_logit_max_abs_err": session_err and session_err[0],
+           "session_value_max_abs_err": session_err and session_err[1],
+           "tolerance": {"logit_atol": logit_atol, "value_atol": value_atol}}
+    problems: list[str] = []
+    for what, err in (("batches", batch_err), ("sessions", session_err)):
+        if err and (err[0] > logit_atol or err[1] > value_atol):
+            problems.append(f"{name}: served outputs ({what}) disagree with "
+                            f"the plain path: {err}")
+    if not recorded or row["failed"] or not (drained and stopped):
+        problems.append(f"{name}: serving failed requests or did not stop")
+    if cfg.model.kind == "transformer" and launches["flash_fwd"] != \
+            cfg.model.num_layers * counters["generic_batches"]:
+        problems.append(f"{name}: flash_fwd launches != layers x batches")
+    del engine, model, plain, params, recorded
+    return row, problems
+
+
+def _family_cli(name: str, cfg, overrides) -> tuple[dict, list]:
+    """The family through the CLI, as a user runs it, in a fresh working
+    directory with an empty checkpoint directory: ``cli serve`` for 2 s
+    (the seeded init); for the portfolio ``cli train --symbol MSFT,AAPL``
+    over a series of three chunks instead (``cli serve`` serves the first
+    symbol, as the JAX package's does)."""
+    import tempfile
+    portfolio = name == "ppo_portfolio"
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli"]
+    cmd += (["train", "--symbol", ",".join(PORTFOLIO_SYMBOLS)] if portfolio
+            else ["serve", "--duration", "2", "--sessions", "128"])
+    steps = FAMILY_CHUNKS * cfg.runtime.chunk_steps
+    extra = ([f"data.synthetic_length={cfg.env.window + steps}"]
+             if portfolio else [])
+    with tempfile.TemporaryDirectory(prefix="family-cli-") as ckpts:
+        for item in overrides + extra + [f"runtime.checkpoint_dir={ckpts}"]:
+            cmd += ["--set", item]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300, cwd=_fresh_dir("cli-"),
+                              env=_cli_env())
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    summary = json.loads(lines[-1]) if lines else {}
+    attention = cfg.model.kind == "transformer"
+    if portfolio:
+        ok = (summary.get("env_steps") == steps and np.isfinite(
+            summary.get("avg_portfolio", float("nan")))
+              and summary.get("kernel_launches", {}).get("flash_fwd", 0) > 0)
+    else:
+        ok = (summary.get("completed", 0) > 0
+              and summary.get("failed", 1) == 0
+              and (summary.get("flash_fwd_launches", 0) > 0) == attention)
+    ok = ok and proc.returncode == 0
+    row = {"command": "train" if portfolio else "serve",
+           "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+           "summary": summary, "ok": bool(ok)}
+    if not ok:
+        row["stderr_tail"] = proc.stderr[-2000:]
+    return row, ([] if ok else [f"{name}: cli {row['command']} failed"])
+
+
+def _family_kernel_rows(torch) -> list[dict]:
+    """(d) The attention kernels at the window families' shapes, causal
+    with no band: float32 D 64 (4 heads) and bf16 D 128 (2 heads), T 202
+    (the window transformer) and 404 (the 2-asset portfolio), at the
+    rollout's bh (10 agents x heads), the replay's (32 steps x 5 agents x
+    heads) and the serving batch's (64 x heads); the backward at the
+    replay's. Timed as the kernels phase times, beside SDPA with
+    ``is_causal``. Then fused_update over each family's leaves
+    (``FAMILY_UPDATE_CASES``) against its plain version."""
+    rows = []
+    for dtype, heads, dim in ((torch.float32, 4, 64),
+                              (torch.bfloat16, 2, 128)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for seq in (202, 404):
+            for where, batch in (("rollout", 10), ("replay", 160),
+                                 ("serving", 64)):
+                case = dict(name=f"window_{where}_{tag}_t{seq}", batch=batch,
+                            heads=heads, seq=seq, head_dim=dim, window=None,
+                            dtype=dtype)
+                rows.append(check_flash_fwd(torch, **case))
+                if where == "replay":
+                    rows += check_flash_bwd(torch, **case)
+    rows += [check_fused_update(torch, **case) for case in FAMILY_UPDATE_CASES]
+    return [{**r, "phase": "families"} for r in rows]
+
+
+def phase_families(torch) -> dict:
+    """The other policy families; see the module docstring."""
+    from sharetrade_tpu_torch.config import FrameworkConfig
+
+    row: dict = {"phase": "families"}
+    problems: list[str] = []
+    totals: dict = {}
+    for name, extra in FAMILIES.items():
+        overrides = FAMILY_BASE + extra
+        cfg = FrameworkConfig().apply_overrides(overrides)
+        prices = _family_prices(name, cfg.data)
+        t0 = time.perf_counter()
+        _reset_launch_counts()
+        train, bad = _family_train(torch, name, cfg, overrides, prices)
+        launches = train["launches"]
+        problems += bad
+        serve, bad = _family_serve(torch, name, cfg, prices)
+        problems += bad
+        cli, bad = _family_cli(name, cfg, overrides)
+        problems += bad
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n + serve.get(
+                "launches", {}).get(k, 0)
+        row[name] = {"train": train, "serve": serve, "cli": cli,
+                     "seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    row["kernels"] = _family_kernel_rows(torch)
+    problems += [f"{r['kernel']}:{r['case']} disagrees with its plain "
+                 "version" for r in row["kernels"] if not r["ok"]]
+    row["launches"] = totals
+    row["problems"] = problems
+    return row
+
+
 def phase_profile(torch, *, ticks: int = 20) -> dict:
     """Where a serving tick's device time goes, at the flagship width: the
     cold program (prefill of a full 64-row batch) and the warm program
@@ -2878,11 +3388,18 @@ def _run_phases(torch, phases: list[str]) -> int:
             print("chip_smoke: cli train / serve at the defaults failed",
                   file=sys.stderr)
             return 1
+    if "families" in phases:
+        results["families"] = phase_families(torch)
+        _print(results["families"])
+        if results["families"]["problems"]:
+            print(f"chip_smoke: the policy families failed: "
+                  f"{results['families']['problems']}", file=sys.stderr)
+            return 1
     if "profile" in phases:
         _print(phase_profile(torch))
     if "kernels" in phases and {"serve", "train", "resilience",
-                                "reference", "pipeline",
-                                "journal"} & set(phases):
+                                "reference", "pipeline", "journal",
+                                "families"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,7 +50,8 @@ def build_agent(cfg: FrameworkConfig, env: TradingEnv,
             f"{cfg.model.kind!r}); use a2c/ppo for {cfg.model.kind} policies")
     if model is None:
         model = build_model(cfg.model, env.obs_dim, head=_HEADS[algo],
-                            device=device)
+                            device=device, num_actions=env.num_actions,
+                            num_assets=env.num_assets)
     extra = ({"collect_transitions": cfg.learner.journal_replay}
              if algo == "dqn" else {})
     return _FACTORIES[algo](

@@ -30,7 +30,7 @@ import torch
 
 from sharetrade_tpu_torch.config import LearnerConfig
 from sharetrade_tpu_torch.env.core import TradingEnv
-from sharetrade_tpu_torch.models.core import rows_finite
+from sharetrade_tpu_torch.models.core import rows_finite, tree_map
 from sharetrade_tpu_torch.ops.fused_update import (
     OPTIMIZERS, fused_apply, init_state)
 from sharetrade_tpu_torch.precision import FP32, PrecisionPolicy
@@ -197,9 +197,11 @@ def batched_reset(env: TradingEnv, num_agents: int):
     return env.reset().map(lambda x: x.expand((num_agents,) + x.shape))
 
 
-def batched_carry(model, num_agents: int) -> dict:
-    carry = model.init_carry()
-    return {k: v.expand((num_agents,) + v.shape) for k, v in carry.items()}
+def batched_carry(model, num_agents: int):
+    """One session's initial carry broadcast over the agent batch (a dict,
+    or the LSTM's ``(h, c)`` tuple)."""
+    return tree_map(lambda v: v.expand((num_agents,) + v.shape),
+                    model.init_carry())
 
 
 def healthy_mask(obs: torch.Tensor) -> torch.Tensor:

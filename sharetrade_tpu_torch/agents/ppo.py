@@ -39,7 +39,8 @@ from sharetrade_tpu_torch.agents.rollout import (
     normalize_advantages_masked, replay_forward)
 from sharetrade_tpu_torch.config import ConfigError, LearnerConfig
 from sharetrade_tpu_torch.env.core import TradingEnv
-from sharetrade_tpu_torch.models.core import Model, tree_leaves, unflatten_like
+from sharetrade_tpu_torch.models.core import (
+    Model, tree_leaves, tree_map, unflatten_like)
 from sharetrade_tpu_torch.precision import FP32
 from sharetrade_tpu_torch.utils.logging import get_logger
 
@@ -141,8 +142,8 @@ def make_ppo_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
             for mb in range(n_mb):
                 idx = perm[mb * mb_size:(mb + 1) * mb_size]
                 traj_mb = traj.take(idx)
-                carry_mb = {k: v.index_select(0, idx)
-                            for k, v in init_carry.items()}
+                carry_mb = tree_map(lambda v: v.index_select(0, idx),
+                                    init_carry)
                 terms, grads = minibatch_grads(
                     compute, traj_mb, carry_mb,
                     advantages.index_select(1, idx),

@@ -19,8 +19,10 @@ card the whole chunk, this loop included, is captured in one CUDA graph
 agent, argmax actions, the whole episode's trunk in one banded pass;
 :func:`greedy_rollout` the same for the other models, step by step.
 
-Not yet ported: the scanned replay of recurrent models without a banded
-replay (``replay_forward`` raises for them; no such model is ported).
+The replay of a stateless model folds the trajectory batch-major into
+groups of at most ``_MAX_FOLD_ROWS`` rows, as the JAX package does (the
+MoE's top-k routing groups tokens in that order); a model with a carry (the
+LSTM) replays step by step from the unroll's initial carry.
 """
 
 from __future__ import annotations
@@ -31,9 +33,8 @@ import torch
 
 from sharetrade_tpu_torch.agents.base import (
     TrainState, election_health, quarantine_mask, select_rows)
-from sharetrade_tpu_torch.config import ConfigError
 from sharetrade_tpu_torch.env.core import TradingEnv
-from sharetrade_tpu_torch.models.core import Model
+from sharetrade_tpu_torch.models.core import Model, tree_leaves, tree_map
 
 
 class StepData(NamedTuple):
@@ -304,7 +305,7 @@ def greedy_rollout(model: Model, env: TradingEnv, params, carry0,
     horizon = env.num_steps if horizon is None else horizon
     with torch.no_grad():
         state = env.reset().map(lambda x: x[None])
-        carry = {k: v[None] for k, v in carry0.items()}
+        carry = tree_map(lambda v: v[None], carry0)
         rewards = torch.empty((horizon,), dtype=torch.float32,
                               device=state.t.device)
         for i in range(horizon):
@@ -314,26 +315,62 @@ def greedy_rollout(model: Model, env: TradingEnv, params, carry0,
     return state, rewards
 
 
+#: Most observation rows per folded forward call of a stateless replay
+#: (the JAX package's cap; with MoE top-k it also fixes the routing groups).
+_MAX_FOLD_ROWS = 2048
+
+
+def _mean_aux(out, device) -> torch.Tensor:
+    """``out.aux`` as a float32 scalar on ``device``. A model's constant
+    0.0 is filled on the device: a host tensor copied up would refuse a
+    CUDA graph's capture."""
+    if isinstance(out.aux, torch.Tensor):
+        return out.aux.float().mean()
+    return torch.full((), float(out.aux), dtype=torch.float32, device=device)
+
+
 def replay_forward(model: Model, params: Any, traj: StepData, init_carry):
     """Recompute ``(logits (T, B, A), values (T, B), aux)`` along a stored
-    trajectory under ``params`` — the differentiable forward of the loss:
-    the shared-trunk replay when the model has it, else the per-agent
-    banded replay, else (a stateless model) one batched forward over all
-    T x B rows (the JAX package folds them into groups of at most 1,024
-    rows; every row's forward is independent, so one pass computes the
-    same)."""
+    trajectory under ``params`` — the differentiable forward of the loss;
+    ``aux`` is the mean of the model's ``ModelOut.aux`` over the replay
+    (the MoE balance term; 0 for dense models). In order of preference:
+
+    - the shared-trunk replay, or the per-agent banded replay, when the
+      model has one (the episode transformer);
+    - a stateless model (empty carry): the (T, B) trajectory folded
+      batch-major, (T, B) -> (B, T) before the merge, in groups of ``fold``
+      steps, ``fold`` the largest divisor of T with ``fold x B`` at most
+      ``_MAX_FOLD_ROWS`` (one group at the configs here); aux the mean
+      over the groups. The row order and the group boundaries are the JAX
+      package's: the MoE's top-k routing drops picks by them;
+    - a model with a carry: ``model.apply_batch`` step by step from
+      ``init_carry`` (the JAX package's scan), aux the mean over steps."""
     if model.apply_unroll_shared is not None:
         return model.apply_unroll_shared(params, traj.obs, init_carry)
     if model.apply_unroll is not None:
         return model.apply_unroll(params, traj.obs, init_carry)
-    if model.apply_batch is not None and not init_carry:
-        t, b = traj.obs.shape[:2]
-        out, _ = model.apply_batch(params, traj.obs.reshape(t * b, -1),
-                                   init_carry)
-        return (out.logits.reshape(t, b, -1), out.value.reshape(t, b),
-                torch.zeros((), dtype=torch.float32, device=traj.obs.device))
-    raise ConfigError(f"the scanned replay of {model.name} is not yet ported "
-                      "to sharetrade_tpu_torch")
+    t, b = traj.obs.shape[:2]
+    device = traj.obs.device
+    logits, values, aux = [], [], []
+    if not tree_leaves(init_carry):
+        fold = max(f for f in range(1, t + 1)
+                   if t % f == 0 and (f * b <= _MAX_FOLD_ROWS or f == 1))
+        for g in range(t // fold):
+            obs_g = traj.obs[g * fold:(g + 1) * fold]        # (fold, B, D)
+            out, _ = model.apply_batch(
+                params, obs_g.transpose(0, 1).reshape(b * fold, -1),
+                init_carry)
+            logits.append(out.logits.reshape(b, fold, -1).transpose(0, 1))
+            values.append(out.value.reshape(b, fold).transpose(0, 1))
+            aux.append(_mean_aux(out, device))
+        return torch.cat(logits), torch.cat(values), torch.stack(aux).mean()
+    carry = init_carry
+    for i in range(t):
+        out, carry = model.apply_batch(params, traj.obs[i], carry)
+        logits.append(out.logits)
+        values.append(out.value)
+        aux.append(_mean_aux(out, device))
+    return torch.stack(logits), torch.stack(values), torch.stack(aux).mean()
 
 
 def discounted_returns(rewards: torch.Tensor, active: torch.Tensor,

@@ -22,7 +22,9 @@ SIGTERM's included, so the journal's writer lock is released.
 ``last`` dates. It touches no device.
 
 ``train`` runs the training orchestrator (runtime/orchestrator.py) over the
-symbol's prices until ``runtime.episodes`` episodes are done, as the JAX
+symbol's prices (several symbols, ``--symbol MSFT,AAPL``: their (A, T) price
+matrix on the common dates, ``data/ingest.align_series``, and the
+multi-asset portfolio env) until ``runtime.episodes`` episodes are done, as the JAX
 package's ``cli train`` does: the reference's final log line ("The average
 of the portfolios: ..."), then one JSON line with ``avg_portfolio``,
 ``std_portfolio``, ``env_steps``, ``updates``, ``agent_steps_per_sec``,
@@ -41,7 +43,8 @@ next chunk boundary, writes ``tag_preempt`` and exits 75.
 
 ``serve`` runs the continuous-batching engine (serve/engine.py) on the
 model the configured learner trains (``learner.algo`` picks the Q-head or
-the actor-critic heads, as in the JAX package) under synthetic closed-loop
+the actor-critic heads, as in the JAX package; over the first symbol of
+``--symbol``, as there) under synthetic closed-loop
 session load
 (serve/driver.py), as the JAX package's ``cli serve`` does: a
 ``serving_ready`` JSON line once the engine is warm, then one summary JSON
@@ -90,6 +93,7 @@ def _load_config(args):
 
 def cmd_train(args) -> int:
     from sharetrade_tpu_torch.convert import load_npz, load_train_state_npz
+    from sharetrade_tpu_torch.data.ingest import align_series
     from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.device import resolve_device
     from sharetrade_tpu_torch.ops import attention, fused_update
@@ -131,10 +135,19 @@ def cmd_train(args) -> int:
     prev_handlers = {s: signal.signal(s, _on_signal)
                      for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        symbol = args.symbol.split(",")[0].strip()
+        symbols = [s.strip() for s in args.symbol.split(",") if s.strip()]
         service = PriceDataService(config=cfg.data)
-        prices = service.request(symbol, args.start, args.end).series.prices
-        log.info("loaded %d prices for %s", len(prices), symbol)
+        if len(symbols) > 1:
+            # The multi-asset portfolio: the symbols on their common dates.
+            prices = align_series([
+                service.request(s, args.start, args.end).series
+                for s in symbols])
+            log.info("loaded %s prices for %d assets %s", prices.shape,
+                     len(symbols), symbols)
+        else:
+            prices = service.request(symbols[0], args.start,
+                                     args.end).series.prices
+            log.info("loaded %d prices for %s", len(prices), symbols[0])
         orch = Orchestrator(cfg, device=device)
         if preempt_at:
             orch.request_preempt()

@@ -7,7 +7,13 @@ arrays. The port's parameters are the same tree with ``torch.Tensor`` leaves:
     embed/port/policy/value   {"w": (in, out), "b": (out,)}
     final_ln                  {"scale": (d,), "bias": (d,)}
     blocks[i]                 {"ln1", "qkv", "proj", "ln2", "mlp_in",
-                               "mlp_out"} with the same leaves
+                               "mlp_out"} with the same leaves, or "moe":
+                              {"gate": (d, E), "w_in": (E, d, 4d),
+                               "w_out": (E, 4d, d)} in place of the MLP
+    pos, asset                (window+1, d), (A, d) (the window transformer)
+    LSTM                      input/gates/policy/value dense layers
+    TCN                       embed/port/policy/value, blocks[i].conv
+                              {"w": (K, C_in, C_out), "b"} and .mix
 
 Dense weights keep the JAX ``(in, out)`` layout: the port multiplies
 ``x @ w`` (``models.core.dense``) and does not use ``torch.nn.Linear``,
@@ -23,8 +29,10 @@ A whole training state carries over the same way
 optax state, a ``(ScaleByRssState | ScaleByAdamState | EmptyState,
 EmptyState)`` tuple that becomes the port's NamedTuples of the same field
 names (``ops/fused_update.py``); the batched env state
-(``t, budget, shares, share_value``); the model carry (a stateless model's
-empty tuple becomes ``{}``); ``env_steps`` and ``updates``; and DQN's
+(``t, budget, shares, share_value``; the portfolio env's shares and
+share values with a trailing asset axis); the model carry (a dict, the
+LSTM's ``(h, c)`` tuple, or a stateless model's empty tuple, which becomes
+``{}``); ``env_steps`` and ``updates``; and DQN's
 extras (target params, replay buffer, PER sum-tree levels and max
 priority; ``agents/dqn.py``). Every leaf keeps its dtype and bytes, so the round trip is
 bitwise. The JAX random key has no torch counterpart: the port's state gets
@@ -203,16 +211,25 @@ def train_state_from_jax(ts: Any, *, device: torch.device | str = "cpu",
         return _tensor(x, device)
 
     env = ts.env_state
-    # A stateless model's JAX carry is an empty tuple.
-    carry = ts.carry if isinstance(ts.carry, dict) else {}
     return TrainState(
         params=params_from_jax(ts.params, device=device),
         opt_state=opt_state_from_jax(ts.opt_state, device=device),
-        carry={k: tensor(v) for k, v in carry.items()},
+        carry=_carry(ts.carry, tensor),
         env_state=EnvState(*(tensor(getattr(env, f)) for f in _ENV_FIELDS)),
         rng=torch.Generator(device=device).manual_seed(seed),
         env_steps=tensor(ts.env_steps), updates=tensor(ts.updates),
         extras=extras_from_jax(getattr(ts, "extras", None), device=device))
+
+
+def _carry(carry: Any, leaf) -> Any:
+    """A model carry with ``leaf`` applied to its leaves: a dict stays a
+    dict, the LSTM's ``(h, c)`` (a tuple, or the list an unflattened file
+    gives) a tuple, a stateless model's empty carry (JAX ``()``) ``{}``."""
+    if isinstance(carry, dict):
+        return {k: leaf(v) for k, v in carry.items()}
+    if isinstance(carry, (list, tuple)) and carry:
+        return tuple(leaf(v) for v in carry)
+    return {}
 
 
 def extras_from_jax(extras: Any, *, device: torch.device | str = "cpu"):
@@ -308,7 +325,7 @@ def train_state_leaves(ts: Any) -> dict[str, Any]:
     tree = {
         "params": ts.params,
         "opt_state": _fields(ts.opt_state[0]),
-        "carry": ts.carry if isinstance(ts.carry, dict) else {},
+        "carry": _carry(ts.carry, lambda x: x),
         "env_state": {f: getattr(env, f) for f in _ENV_FIELDS},
         "env_steps": ts.env_steps,
         "updates": ts.updates,
@@ -359,7 +376,7 @@ def decode_train_state(arrays: dict[str, np.ndarray], dtypes: dict[str, str],
     return TrainState(
         params=tree["params"],
         opt_state=_opt_state_from_fields(tree.get("opt_state", {}), device),
-        carry=tree.get("carry", {}),
+        carry=_carry(tree.get("carry", {}), lambda x: x),
         env_state=EnvState(*(tree["env_state"][f] for f in _ENV_FIELDS)),
         rng=_generator(device, arrays.get("rng"), seed),
         env_steps=tree["env_steps"], updates=tree["updates"],

@@ -1,1 +1,2 @@
-"""Trading environment (only what serving needs so far)."""
+"""Trading environments: the single-asset one (``trading.py``) and the
+multi-asset portfolio (``portfolio.py``), behind ``core.TradingEnv``."""

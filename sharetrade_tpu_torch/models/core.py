@@ -23,6 +23,10 @@ _EPS = 1e-6
 class ModelOut(NamedTuple):
     logits: torch.Tensor   # (B, num_actions) float32
     value: torch.Tensor    # (B,) float32
+    # The auxiliary loss the forward wants added to the training loss: the
+    # MoE load-balance term (parallel/moe.py), weighted by
+    # ``learner.aux_loss_coef``; 0.0 for models without one.
+    aux: torch.Tensor | float = 0.0
 
 
 @dataclass(frozen=True)
@@ -102,14 +106,18 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """``fn`` applied to every leaf of a nested dict/list/tuple tree, in
-    :func:`tree_leaves` order (tuples come back as lists)."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied to every leaf of a nested dict/list/tuple tree (and
+    the matching leaves of the trees in ``rest``, which share its
+    structure), in :func:`tree_leaves` order; lists and tuples keep their
+    type."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def unflatten_like(tree: Any, leaves: list) -> Any:
@@ -157,6 +165,20 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mean = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def tick_window_features(obs: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, obs_dim) observations -> (B, window, 3) scale-invariant per-tick
+    features: price relative to the window's last price, log-return (0 for
+    the first tick) and a zero channel (the window transformer marks its
+    portfolio token there). Shared by the window transformer and the TCN."""
+    prices = obs[:, :window].float()
+    anchor = torch.clamp(prices[:, -1:], min=_EPS)
+    rel = prices / anchor - 1.0
+    logp = torch.log(torch.clamp(prices, min=_EPS))
+    log_ret = torch.cat([torch.zeros_like(logp[:, :1]),
+                         logp[:, 1:] - logp[:, :-1]], dim=1)
+    return torch.stack([rel, log_ret, torch.zeros_like(rel)], dim=-1)
 
 
 def portfolio_features(budget: torch.Tensor, shares: torch.Tensor,

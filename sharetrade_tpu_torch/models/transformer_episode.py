@@ -152,7 +152,7 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
             bsz, s_len, d_model).to(dtype)
         x = x + dense(blk["proj"], attn_out)
         h = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
-        return x + ffn_apply(blk, h)
+        return x + ffn_apply(blk, h)[0]     # dense FFN: its aux is 0
 
     def block_apply(blk, x, positions, kv_offset=0):
         """One banded pre-LN block over (B, S, d). Returns ``(x, (k_tail,

@@ -114,8 +114,9 @@ from sharetrade_tpu_torch.data.transitions import (
     append_transitions, compact_transitions, read_tail_transitions,
     retire_transition_segments)
 from sharetrade_tpu_torch.device import resolve_device
+from sharetrade_tpu_torch.env.portfolio import make_portfolio_env
 from sharetrade_tpu_torch.env.trading import make_trading_env
-from sharetrade_tpu_torch.models.core import tree_leaves
+from sharetrade_tpu_torch.models.core import tree_leaves, tree_map
 from sharetrade_tpu_torch.precision import policy_from_config
 from sharetrade_tpu_torch.runtime.lifecycle import (
     Lifecycle, Phase, QueryReply, ReplyState)
@@ -301,7 +302,8 @@ class Orchestrator:
     def send_training_data(self, prices, *, resume: bool = False,
                            train_state: TrainState | None = None,
                            params: Any = None) -> None:
-        """Build the env and the agent from a 1-D price series. The state
+        """Build the env and the agent from a price series: 1-D for the
+        single-asset env, (A, T) for the multi-asset portfolio. The state
         is the latest checkpoint with ``resume`` (``tag_preempt`` when it is
         at least as new as the newest intact step; ``FileNotFoundError``
         when there is none), ``train_state`` (a converted JAX state or a
@@ -310,14 +312,17 @@ class Orchestrator:
         target network a copy of them), or a seeded init. Every state but
         ``resume``'s starts a fresh transitions journal."""
         prices = np.asarray(prices)
-        if prices.ndim == 2 and prices.shape[0] > 1:
-            raise ConfigError("multi-asset portfolios are not yet ported to "
-                              "sharetrade_tpu_torch")
         env_cfg = self.cfg.env
-        self.env = make_trading_env(
-            prices.reshape(-1), window=env_cfg.window,
-            initial_budget=env_cfg.initial_budget,
-            initial_shares=env_cfg.initial_shares, device=self.device)
+        if prices.ndim == 2 and prices.shape[0] > 1:
+            self.env = make_portfolio_env(
+                prices, window=env_cfg.window,
+                initial_budget=env_cfg.initial_budget,
+                initial_shares=env_cfg.initial_shares, device=self.device)
+        else:
+            self.env = make_trading_env(
+                prices.reshape(-1), window=env_cfg.window,
+                initial_budget=env_cfg.initial_budget,
+                initial_shares=env_cfg.initial_shares, device=self.device)
         self.agent = build_agent(self.cfg, self.env, device=self.device)
         self._program = (None if self._step_override is not None
                          else ChunkProgram(self.agent))
@@ -899,13 +904,13 @@ class Orchestrator:
             rep = int(np.flatnonzero(ok)[0])
             fresh_env = fresh_env.replace(
                 t=ts.env_state.t[rep].expand(fresh_env.t.shape))
-            fresh_carry = {k: c[rep:rep + 1].expand(c.shape)
-                           for k, c in ts.carry.items()}
+            fresh_carry = tree_map(lambda c: c[rep:rep + 1].expand(c.shape),
+                                   ts.carry)
         self._ts = ts.replace(
             env_state=type(ts.env_state)(*[
                 splice(c, n) for c, n in zip(ts.env_state.leaves(),
                                              fresh_env.leaves())]),
-            carry={k: splice(ts.carry[k], fresh_carry[k]) for k in ts.carry})
+            carry=tree_map(splice, ts.carry, fresh_carry))
         self.agent_heals += 1
         idx = [int(i) for i in np.flatnonzero(bad)]
         log.warning("respawned poisoned agent row(s) %s in place (heal %d; "

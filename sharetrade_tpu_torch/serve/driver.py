@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``serve/driver.py`` (closed loop only). One
 :class:`SessionSim` is one "user": a cursor into a price series plus a
 host-side portfolio that follows the served actions, with the trade rules of
-the trading environment. Sessions start at staggered offsets, so a batch
-mixes episode clocks and portfolios.
+the trading environment (over an (A, T) matrix, those of the portfolio
+environment, ``env/portfolio.py``). Sessions start at staggered offsets, so
+a batch mixes episode clocks and portfolios.
 
 :func:`run_closed_loop` keeps ``concurrency`` sessions with exactly one
 request in flight each (submit on completion) for ``duration_s`` and
@@ -22,22 +23,30 @@ from typing import Any
 
 import numpy as np
 
-from sharetrade_tpu_torch.env.trading import BUY, SELL
 from sharetrade_tpu_torch.serve.engine import latency_percentiles
 
 
 class SessionSim:
-    """One synthetic user session over a price series."""
+    """One synthetic user session over a price series (T,), or over an
+    (A, T) matrix of A assets: the observation is then the A windows side
+    by side, the budget and the A share counts, and action ``a`` buys one
+    share of asset ``a`` (a < A), sells one of asset ``a - A`` (a < 2A) or
+    holds, each trade by the single-asset rules. The budget is kept in
+    float32, as the env keeps it, so the session's observations are the
+    env's to the bit. At A = 1 both forms are the same session."""
 
     def __init__(self, session_id: Any, prices: np.ndarray, window: int,
                  start: int, *, budget: float = 2400.0, shares: float = 0.0):
         self.session_id = session_id
         self.prices = prices
+        grid = np.asarray(prices, np.float32)
+        self._grid = grid if grid.ndim == 2 else grid[None, :]
         self.window = window
         self.start = int(start)
         self.t = 0
-        self.budget = float(budget)
-        self.shares = float(shares)
+        self._budget0, self._shares0 = np.float32(budget), float(shares)
+        self.budget = self._budget0
+        self.shares = np.full(len(self._grid), self._shares0)
         self.generation = 0         # bumps on wrap → fresh session id
 
     @property
@@ -50,36 +59,38 @@ class SessionSim:
     def observation(self) -> np.ndarray:
         lo = self.start + self.t
         return np.concatenate(
-            [self.prices[lo:lo + self.window],
-             np.asarray([self.budget, self.shares], np.float32)]
+            [self._grid[:, lo:lo + self.window].ravel(),
+             [self.budget], self.shares]
         ).astype(np.float32)
 
     def advance(self, action: int) -> None:
         """Apply the served action with the env's trade rules, move one
         tick; restart (new generation, fresh portfolio) at series end."""
-        price = float(self.prices[self.start + self.t + self.window])
-        if action == BUY and self.budget >= price:
-            self.budget -= price
-            self.shares += 1.0
-        elif action == SELL and self.shares > 0:
-            self.budget += price
-            self.shares -= 1.0
+        assets = len(self._grid)
+        price = self._grid[:, self.start + self.t + self.window]
+        if action < assets and self.budget >= price[action]:
+            self.budget -= price[action]
+            self.shares[action] += 1.0
+        elif assets <= action < 2 * assets and self.shares[action - assets]:
+            self.budget += price[action - assets]
+            self.shares[action - assets] -= 1.0
         self.t += 1
-        if self.start + self.t + self.window >= len(self.prices):
+        if self.start + self.t + self.window >= self._grid.shape[1]:
             self.t = 0
-            self.budget = 2400.0
-            self.shares = 0.0
+            self.budget = self._budget0
+            self.shares[:] = self._shares0
             self.generation += 1
 
 
 def make_sessions(prices: Any, window: int, n: int, *,
                   seed: int = 0, prefix: str = "s") -> list[SessionSim]:
-    """``n`` sessions with staggered starts across the series. ``prefix``
-    namespaces the session ids — measurement phases that share one engine
-    must not reuse ids, or a "fresh" session would silently hit its
-    predecessor's still-warm slot carry instead of prefilling."""
+    """``n`` sessions with staggered starts across the series (T,) or the
+    (A, T) matrix. ``prefix`` namespaces the session ids — measurement
+    phases that share one engine must not reuse ids, or a "fresh" session
+    would silently hit its predecessor's still-warm slot carry instead of
+    prefilling."""
     prices = np.asarray(prices, np.float32)
-    horizon = len(prices) - window - 1
+    horizon = prices.shape[-1] - window - 1
     if horizon < 1:
         raise ValueError(f"price series too short for window={window}")
     rng = np.random.default_rng(seed)

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``serve/engine.py``: per-user
 ``(window, portfolio)`` queries are coalesced into padded device batches
 under a deadline (``serve.max_batch`` / ``serve.batch_timeout_ms``), and each
-session's recurrent carry (the episode transformer's K/V ring) lives in a
+session's recurrent carry (the episode transformer's K/V ring, the LSTM's
+``(h, c)``; any tree of dicts, lists and tuples) lives in a
 device-resident ARENA of ``slots + max_batch`` rows — one row per slot plus
 ``max_batch`` scratch rows that padding rows read and write, so a partial
 batch never touches a live session.
@@ -21,7 +22,8 @@ Structure (the JAX engine's dispatcher/consumer split):
   prefill) for fresh sessions, the WARM program (per-row-clock incremental
   step) for sessions with a slot. Each program gathers its rows' carries
   from the arena, runs the model and scatters them back. A model without a
-  prefill/serve pair (the MLPs) runs ONE GENERIC program per tick instead:
+  prefill/serve pair (the MLPs, the LSTM, the TCN, the window transformer)
+  runs ONE GENERIC program per tick instead:
   cold rows take the init carry inside the program, then every row runs
   ``model.apply_batch``. Nothing here
   waits for the device: PyTorch enqueues CUDA work asynchronously, and
@@ -54,6 +56,7 @@ import numpy as np
 import torch
 
 from sharetrade_tpu_torch.config import ConfigError, ServeConfig
+from sharetrade_tpu_torch.models.core import tree_map
 from sharetrade_tpu_torch.precision import FP32, PrecisionPolicy
 from sharetrade_tpu_torch.utils.logging import get_logger
 
@@ -210,13 +213,6 @@ def _fire(callback, result) -> None:
         log.exception("serve callback failed")
 
 
-def _tree_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
-
-
 class ServeEngine:
     """Construct, :meth:`warmup`, submit from any thread, :meth:`stop`."""
 
@@ -255,11 +251,11 @@ class ServeEngine:
             carry0 = precision.cast_carry(model.init_carry(), model)
             n_arena = cfg.slots + cfg.max_batch
             # The arena: one carry row per slot + max_batch scratch rows.
-            self._pool = _tree_map(
+            self._pool = tree_map(
                 lambda x: x.to(self.device)[None].repeat(
                     (n_arena,) + (1,) * x.ndim).contiguous(), carry0)
             # Per-row init carries for the generic program's cold reset.
-            self._carry0_rows = _tree_map(
+            self._carry0_rows = tree_map(
                 lambda x: x.to(self.device)[None].repeat(
                     (cfg.max_batch,) + (1,) * x.ndim).contiguous(), carry0)
         self._slots = SlotPool(cfg.slots)
@@ -289,9 +285,9 @@ class ServeEngine:
 
     def _warm_program(self, obs, idx):
         """One incremental step for a warm batch: gather, step, scatter."""
-        rows = _tree_map(lambda p: p.index_select(0, idx), self._pool)
+        rows = tree_map(lambda p: p.index_select(0, idx), self._pool)
         out, new_rows = self.model.apply_serve_batch(self._params, obs, rows)
-        _tree_map(lambda p, r: p.index_copy_(0, idx, r), self._pool,
+        tree_map(lambda p, r: p.index_copy_(0, idx, r), self._pool,
                   new_rows)
         return out.logits.argmax(dim=-1), out.logits, out.value
 
@@ -299,19 +295,19 @@ class ServeEngine:
         """Batched prefill for fresh (or evicted) sessions; their carries
         land in their slots."""
         out, new_rows = self.model.apply_prefill(self._params, obs)
-        _tree_map(lambda p, r: p.index_copy_(0, idx, r.to(p.dtype)),
+        tree_map(lambda p, r: p.index_copy_(0, idx, r.to(p.dtype)),
                   self._pool, new_rows)
         return out.logits.argmax(dim=-1), out.logits, out.value
 
     def _generic_program(self, obs, idx, cold):
         """One program for models without a prefill/serve pair: cold rows
         take the init carry, then every row runs ``model.apply_batch``."""
-        rows = _tree_map(
+        rows = tree_map(
             lambda p, c: torch.where(
                 cold.reshape((-1,) + (1,) * (c.ndim - 1)), c,
                 p.index_select(0, idx)), self._pool, self._carry0_rows)
         out, new_rows = self.model.apply_batch(self._params, obs, rows)
-        _tree_map(lambda p, r: p.index_copy_(0, idx, r.to(p.dtype)),
+        tree_map(lambda p, r: p.index_copy_(0, idx, r.to(p.dtype)),
                   self._pool, new_rows)
         return out.logits.argmax(dim=-1), out.logits, out.value
 

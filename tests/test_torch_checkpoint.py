@@ -621,3 +621,40 @@ def test_jax_trained_mlp_state_converts_and_trains_on(tmp_path):
         ref._close(a, b, 1e-5)
     for key in jm:
         ref._close(float(tm[key]), float(jm[key]), 1e-5, key)
+
+
+@pytest.mark.parametrize("family", ["lstm", "portfolio"])
+def test_jax_family_checkpoint_resumes_in_port(family, tmp_path):
+    """A JAX-written PPO state of the LSTM (its ``(h, c)`` carry) and of the
+    2-asset portfolio (its (B, A) env leaves), one chunk in: saved by the
+    JAX manager, restored with flax, converted, saved and restored by the
+    port's manager bit for bit, and the next chunk from it (the JAX draws
+    handed in) matches the JAX chunk within
+    tests/test_torch_families_ppo.py's tolerances."""
+    jax = pytest.importorskip("jax")
+    import test_torch_families_ppo as fam
+    from sharetrade_tpu.checkpoint import CheckpointManager as JaxManager
+
+    jagent, tagent, jts, _, actions = fam._pair(family)
+    jstep = jax.jit(jagent.step)
+    jts, _ = jstep(jts)
+    jmgr = JaxManager(str(tmp_path / "jax"), precision_mode="fp32")
+    jmgr.save(int(jts.updates), jts, metadata={"episode": 0})
+    jrestored, step = jmgr.restore(jagent.init(jax.random.PRNGKey(9)))
+    converted = convert.train_state_from_jax(
+        jax.tree.map(np.asarray, jrestored))
+    pmgr = CheckpointManager(str(tmp_path / "port"), precision_mode="fp32")
+    pmgr.save(step, converted, metadata={"episode": 0})
+    ported, _ = pmgr.restore(tagent.init(9))
+    assert type(ported.carry) is type(converted.carry)
+    want = convert.train_state_leaves(converted)
+    got = convert.train_state_leaves(ported)
+    assert sorted(k for k in got if k != "rng") == sorted(
+        k for k in want if k != "rng")
+    for k, leaf in want.items():
+        if k != "rng":
+            assert torch.equal(got[k], leaf), k
+    draws = fam._ppo_draws(jrestored.rng, actions)
+    jnext, jm = jstep(jrestored)
+    tnext, tm = tagent.step(ported, draws=draws)
+    fam._compare(jnext, jm, tnext, tm)

@@ -80,7 +80,9 @@ def test_cli_serve_params_from_npz(tmp_path):
 
 def test_cli_rejects_unported_model(tmp_path):
     out = _run(["serve", "--device", "cpu", "--duration", "1",
-                "--set", "learner.algo=ppo", "--set", "model.kind=lstm"],
+                "--set", "learner.algo=ppo", "--set", "model.kind=transformer",
+                "--set", "model.seq_mode=episode",
+                "--set", "model.moe_experts=4"],
                tmp_path)
     assert out.returncode != 0
     assert "not yet ported" in out.stderr

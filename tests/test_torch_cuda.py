@@ -677,6 +677,31 @@ GRAPH_LEARNERS = {
             "model.head_dim=64", "env.window=33", "parallel.num_workers=8",
             "runtime.chunk_steps=16", "precision.mode=bf16_mixed"],
 }
+#: The other policy families (window transformer dense / MoE top-0 / top-2,
+#: fp32 and bf16, the LSTM under PPO and A2C, the TCN, and the 2-asset
+#: portfolio), at the kernels' head dims.
+_WINDOW = ["model.kind=transformer", "model.num_heads=2", "env.window=33",
+           "parallel.num_workers=4", "runtime.chunk_steps=8"]
+GRAPH_LEARNERS.update({
+    "ppo_window": ["learner.algo=ppo", "model.head_dim=64"] + _WINDOW,
+    "ppo_window_bf16": ["learner.algo=ppo", "model.head_dim=128",
+                        "precision.mode=bf16_mixed"] + _WINDOW,
+    "ppo_window_moe_top0": ["learner.algo=ppo", "model.head_dim=64",
+                            "model.moe_experts=4"] + _WINDOW,
+    "ppo_window_moe_top2": ["learner.algo=ppo", "model.head_dim=64",
+                            "model.moe_experts=4", "model.moe_top_k=2",
+                            "model.moe_capacity_factor=0.5"] + _WINDOW,
+    "ppo_lstm": ["learner.algo=ppo", "model.kind=lstm",
+                 "model.hidden_dim=32", "env.window=33",
+                 "parallel.num_workers=4", "runtime.chunk_steps=8"],
+    "a2c_lstm": ["learner.algo=a2c", "model.kind=lstm",
+                 "model.hidden_dim=32", "env.window=33",
+                 "parallel.num_workers=4", "runtime.chunk_steps=8"],
+    "ppo_tcn": ["learner.algo=ppo", "model.kind=tcn", "model.hidden_dim=32",
+                "env.window=33", "parallel.num_workers=4",
+                "runtime.chunk_steps=8"],
+    "ppo_portfolio": ["learner.algo=ppo", "model.head_dim=64"] + _WINDOW,
+})
 
 
 #: DQN with its transitions collected (``learner.journal_replay``).
@@ -693,8 +718,10 @@ def _graph_and_eager(learner, cuda, tmp_path):
     from sharetrade_tpu_torch.runtime import Orchestrator
 
     rng = np.random.default_rng(0)
-    prices = (50 * np.exp(np.cumsum(rng.uniform(-0.02, 0.02, 200)))).astype(
-        np.float32)
+    # The portfolio learner trades two series (an (A, T) price matrix).
+    shape = (2, 200) if learner == "ppo_portfolio" else (200,)
+    prices = (50 * np.exp(np.cumsum(rng.uniform(-0.02, 0.02, shape),
+                                    axis=-1))).astype(np.float32)
     pair = []
     for name in ("graph", "eager"):
         cfg = FrameworkConfig().apply_overrides(

@@ -113,3 +113,15 @@ def test_chip_smoke_alone_fails(tmp_path):
                          cwd=tmp_path, env=env)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/__init__.py", "parallel/moe.py", "env/portfolio.py",
+    "models/lstm.py", "models/tcn.py", "models/transformer.py"])
+def test_the_policy_family_modules_are_scanned_and_imported(module):
+    """The other policy families' modules are among the files the source
+    scan reads and the modules the import check imports (both walk the
+    package)."""
+    path = PACKAGE / module
+    assert path.exists() and path in _sources()
+    assert path in sorted(PACKAGE.rglob("*.py"))

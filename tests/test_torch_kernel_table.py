@@ -19,6 +19,10 @@ the CUDA sources, so the line cannot claim a design the code lacks:
   with a loop stepping by ``gridDim.x`` (a persistent grid).
 - The TPU kernels each entry replaces are Python functions at the lines
   named.
+- ``chip_smoke.LAUNCH_SITES`` names, for every kernel, the functions of the
+  port whose main paths launch it: each exists, and its body calls the
+  kernel's entry (``flash_attention`` for the attention kernels,
+  ``fused_apply`` for the update).
 """
 
 import importlib.util
@@ -38,7 +42,12 @@ def _chip_smoke():
     return module
 
 
-KERNELS = _chip_smoke().KERNELS
+_SMOKE = _chip_smoke()
+KERNELS = _SMOKE.KERNELS
+LAUNCH_SITES = _SMOKE.LAUNCH_SITES
+#: The Python entry each kernel's launch sites call.
+_ENTRY = {"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_attention",
+          "flash_bwd_dkv": "flash_attention", "fused_update": "fused_apply"}
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 SUFFIX = {"wgmma": "_wgmma", "simt": "_simt", "vec16": "_vec"}
 _GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
@@ -145,3 +154,23 @@ def test_replaced_tpu_kernel_is_at_the_line_named(name, which):
     assert re.match(r"\s*def _\w*kernel\(", lines[int(line) - 1]), \
         f"{path}:{line} is not a kernel body: {lines[int(line) - 1]!r}"
 
+
+
+def test_every_kernel_has_launch_sites():
+    assert set(LAUNCH_SITES) == set(KERNELS) == set(_ENTRY)
+    # The window transformer (this slice's families) launches attention.
+    assert "sharetrade_tpu_torch/models/transformer.py::transformer_policy" \
+        in LAUNCH_SITES["flash_fwd"]
+
+
+@pytest.mark.parametrize("name,site", [
+    (name, site) for name in LAUNCH_SITES for site in LAUNCH_SITES[name]])
+def test_launch_site_calls_the_kernel_entry(name, site):
+    path, function = site.split("::")
+    text = (REPO / path).read_text()
+    m = re.search(rf"^def {function}\(", text, re.M)
+    assert m, f"{path} defines no top-level {function}"
+    nxt = re.search(r"^(def |class )", text[m.end():], re.M)
+    body = text[m.start():m.end() + (nxt.start() if nxt else len(text))]
+    assert re.search(rf"\b{_ENTRY[name]}\(", body), \
+        f"{site} does not call {_ENTRY[name]}"

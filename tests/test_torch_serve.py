@@ -173,3 +173,63 @@ def test_unported_knobs_are_refused(knob, value):
 def test_slots_below_max_batch_refused():
     with pytest.raises(ConfigError):
         _engine(max_batch=4, slots=2)
+
+
+def test_engine_serves_lstm_sessions_across_warm_and_cold_batches():
+    """The generic program over the LSTM: each session's ``(h, c)`` lives in
+    its arena slot (a tuple carry), a warm request continues it and a cold
+    one (new, or evicted by the LRU rule) starts from the init carry. The
+    oracle threads each session alone through the JAX LSTM's ``apply``
+    under the same admission rule as :class:`_Oracle`; logits and values
+    within ``ATOL``."""
+    from sharetrade_tpu.models.lstm import lstm_policy as jax_lstm
+    from sharetrade_tpu_torch.models.lstm import lstm_policy as torch_lstm
+
+    jm = jax_lstm(WINDOW + 2, 16, 3)
+    masters = jm.init(jax.random.PRNGKey(5))
+    apply = jax.jit(jm.apply)
+    engine = ServeEngine(
+        torch_lstm(WINDOW + 2, 16, 3, device="cpu"),
+        ServeConfig(max_batch=MAX_BATCH, slots=SLOTS,
+                    batch_timeout_ms=2000.0),
+        convert.params_from_jax(jax.tree.map(np.asarray, masters)))
+    assert isinstance(engine._pool, tuple) and len(engine._pool) == 2
+    rng = np.random.default_rng(3)
+    sessions = {f"s{i}": _Session(rng, ROUNDS + WINDOW + 2)
+                for i in range(SESSIONS)}
+    carries: dict = {}
+    lru: OrderedDict = OrderedDict()
+    evictions = warm = 0
+    try:
+        engine.warmup()
+        for r in range(ROUNDS):
+            sids = [f"s{i}" for i in rng.choice(SESSIONS, MAX_BATCH,
+                                                replace=False)]
+            observations = [sessions[s].observation() for s in sids]
+            handles = [engine.submit(s, o)
+                       for s, o in zip(sids, observations)]
+            results = [h.wait(60.0) for h in handles]
+            for sid, obs, res in zip(sids, observations, results):
+                if sid in lru:
+                    lru.move_to_end(sid)
+                    warm += 1
+                else:
+                    if len(lru) >= SLOTS:
+                        victim = next(s for s in lru if s not in sids)
+                        del lru[victim], carries[victim]
+                        evictions += 1
+                    lru[sid] = None
+                    carries[sid] = jm.init_carry()
+                out, carries[sid] = apply(masters, jnp.asarray(obs),
+                                          carries[sid])
+                assert res is not None, f"round {r}: {sid} failed"
+                np.testing.assert_allclose(res.logits, np.asarray(out.logits),
+                                           atol=ATOL, rtol=0)
+                assert res.value == pytest.approx(float(out.value), abs=ATOL)
+                sessions[sid].advance()
+        counters = dict(engine.counters)
+    finally:
+        assert engine.stop(timeout_s=10.0)
+    assert counters["evictions"] == evictions > 0
+    assert counters["warm_rows"] == warm > 0
+    assert counters["generic_batches"] == ROUNDS and counters["failed"] == 0

@@ -148,7 +148,7 @@ def test_preempt_mid_episode_and_trained_only_not_computed(tmp_path):
                                   "obs.enabled=true",
                                   "learner.remat=true",
                                   "model.remat_blocks=true",
-                                  "model.seq_mode=window"])
+                                  "model.moe_experts=4"])
 def test_unported_knobs_are_refused(knob, tmp_path):
     with pytest.raises(ConfigError, match="not yet ported"):
         orch = _orchestrator(tmp_path, knob)
