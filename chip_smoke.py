@@ -20,7 +20,8 @@ Phases, in order (any failure exits non-zero before the final line):
                CUDA events (median device time, L2 flushed before every
                launch, the host one call ahead of the device); then, untimed,
                the bf16 edge cases (T < 64 and ragged T, window 1, D = 64,
-               non-causal tq != tk, B*H > 64); print one JSON line per case
+               D = 32 padded to 64, non-causal tq != tk, B*H > 64); print
+               one JSON line per case
                (``flash_bwd_dq``'s with the cluster size it launched and
                whether a second call gave the same bits).
 4. train     — the training main path: PPO on the flagship episode
@@ -39,6 +40,38 @@ Phases, in order (any failure exits non-zero before the final line):
                warm phase and an eviction phase. Counts reset just before
                and read just after; the first cold batch's logits are held
                against the same batch through the plain attention.
+5b. serve_tiers — the rest of the serving engine on the same flagship
+               config, counts reset once just before and read just after:
+               (a) 192 sessions in closed loop for 3 s while ``tag_best`` is
+               saved at steps 1 and 2 and the swap watcher (polling every
+               0.2 s) swaps them in: every tick names one step, no
+               session's step goes back, and a first batch after the
+               swaps agrees with the plain attention under the new
+               weights; then, polled by hand, a candidate with one byte
+               flipped is refused (quarantined, serving on) and
+               ``swap_breaker_failures`` more open the breaker once;
+               (b) 320 sessions over the 256 slots with a warm store of
+               ~160 carries, fed batch by batch the exact sequence an
+               engine with a slot for every session answered: every
+               answer bit-equal, parks and warm hits, ``flash_fwd``
+               launches = layers x cold ticks (none for a re-install), the
+               page-out and install device ms per tick, one carry's
+               bytes; then 3 s of closed loop at 320 sessions with the
+               tier and without it (qps, p99, cold share); (c) the same
+               with ~8 carries in RAM and the rest spilled to disk: every
+               answer bit-equal, a corrupted record lands cold (bit-equal
+               to a fresh session), and after ``stop`` and
+               ``page_out_all`` a second engine adopts every session warm
+               through its session clock, bit-equal to the never-evicted
+               engine continuing; (d) open loop at twice (b)'s closed-loop
+               qps with ``max_queue=64``, ``shed_policy=oldest`` and 50 ms
+               deadlines: completed + failed = offered - dropped and
+               failed = shed + expired; (e) ``max_restarts=2``: a
+               malformed observation rebuilds the engine (the warm session
+               then answers as a fresh one, bit for bit), and a storm of
+               them ends in ``ServeEngineFailed`` with a clean ``stop``;
+               (f) ``BatchOneServer`` at concurrency 1 for 3 s, and ``cli
+               serve --rate`` with (d)'s knobs.
 6. cli       — ``python -m sharetrade_tpu_torch.cli serve`` for a few seconds.
 7. cli_train — ``python -m sharetrade_tpu_torch.cli train`` on the flagship
                config with a 2,249-price series (one 2-chunk episode); it
@@ -120,7 +153,7 @@ Phases, in order (any failure exits non-zero before the final line):
 12. cli_defaults — ``cli train --eval`` and ``cli serve`` with no ``--set``
                but the checkpoint directory; train must end on
                ``REFERENCE_DIGITS``, serve boots from train's ``tag_best``
-               and warns once that ``serve.swap_poll_s`` is not ported.
+               with the swap watcher running and nothing unported.
 13. families — the other policy families at full width (``FAMILIES``:
                the window transformer L 2, H 4, Dh 64 fp32 and H 2, Dh 128
                bf16, with unroll 32; with an 8-expert MoE FFN, top-2 and
@@ -176,7 +209,8 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "train", "serve", "cli", "cli_train",
+PHASES = ("build", "kernels", "train", "serve", "serve_tiers", "cli",
+          "cli_train",
           "resilience", "reference", "pipeline", "journal", "cli_defaults",
           "families")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
@@ -973,8 +1007,9 @@ def phase_kernels(torch) -> list[dict]:
     bf16 = torch.bfloat16
     # Corners of the bf16 (wgmma + TMA) kernels, held and not timed: shorter
     # than one tile, ragged tiles, each row seeing only itself, D = 64,
-    # non-causal with tq != tk, more than 64 heads in the grid, and a plain
-    # causal band of up to 8 key tiles (flash_bwd_dq over a cluster of 2).
+    # non-causal with tq != tk, more than 64 heads in the grid, a plain
+    # causal band of up to 8 key tiles (flash_bwd_dq over a cluster of 2),
+    # and D = 32 (zero-padded to the kernel's 64).
     edge_cases = [
         dict(name="t37_d64", batch=1, heads=1, seq=37, head_dim=64,
              window=None, dtype=bf16),
@@ -989,6 +1024,9 @@ def phase_kernels(torch) -> list[dict]:
         # Plain causal over 8 query tiles: rank 0 of a pair walks 4 tiles.
         dict(name="t512_causal", batch=1, heads=2, seq=512, head_dim=128,
              window=None, dtype=bf16),
+        # A head narrower than the built widths: padded to 64 and back.
+        dict(name="t130_d32", batch=2, heads=2, seq=130, head_dim=32,
+             window=33, dtype=bf16),
     ]
     rows = [check_flash_fwd(torch, **case) for case in fwd_cases]
     for case in bwd_cases:
@@ -1066,8 +1104,9 @@ def kernels_line(results: dict) -> dict:
         row = next(r for r in results["kernels"]
                    if r["kernel"] == name and r["case"] == KERNEL_CASE[name])
         by_path = {path: results[path]["launches"].get(name, 0)
-                   for path in ("train", "serve", "resilience", "reference",
-                                "pipeline", "journal", "families")
+                   for path in ("train", "serve", "serve_tiers",
+                                "resilience", "reference", "pipeline",
+                                "journal", "families")
                    if path in results}
         # The same kernel at the families' shapes (families (d)).
         family_rows = [
@@ -2770,7 +2809,7 @@ def phase_cli_defaults() -> dict:
                serve_rc=serve.returncode,
                serving_ready=served[0] if served else None,
                serve_summary=served[-1] if served else None,
-               swap_warnings=serve.stderr.count("serve.swap_poll_s"))
+               unported_warnings=serve.stderr.count("not yet ported"))
     ok = (train.returncode == 0 and serve.returncode == 0 and len(served) >= 2
           and set(summary) >= {"avg_portfolio", "std_portfolio", "env_steps",
                                "agent_steps_per_sec", "restarts"}
@@ -2783,7 +2822,8 @@ def phase_cli_defaults() -> dict:
           and served[0].get("model") == "q_mlp"
           and served[-1].get("completed", 0) > 0
           and served[-1].get("failed", 1) == 0
-          and row["swap_warnings"] == 1)
+          and served[0].get("swap_watcher") is True
+          and row["unported_warnings"] == 0)
     row["ok"] = bool(ok)
     if not ok:
         row["stderr_tail"] = train.stderr[-1500:] + serve.stderr[-1500:]
@@ -3219,6 +3259,602 @@ def phase_families(torch) -> dict:
     return row
 
 
+#: The serving tiers phase (``serve_tiers``): the flagship served as in
+#: ``serve``, with the swap watcher, the warm and spill tiers, overload
+#: shedding, deadlines, supervised restarts and the batch-1 baseline.
+TIERS_SESSIONS = 320            # 320 sessions over the 256-slot arena
+TIERS_CYCLES = 3                # passes over them, 64-session batches
+TIERS_WARM_CARRIES = 160        # (b): the warm store holds ~160 carries
+TIERS_SPILL_WARM_CARRIES = 8    # (c): ~8 in RAM, the rest on disk
+TIERS_LOOP_S = 3.0              # each closed / open loop
+
+
+class _Recorder:
+    """The engine's ``submit`` with each result's session, step and tick
+    recorded (the swap check's evidence)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.seen: list[tuple] = []
+
+    def submit(self, sid, obs, callback=None, **kw):
+        def cb(result):
+            if result is not None:
+                self.seen.append((sid, result.params_step, result.batch))
+            if callback is not None:
+                callback(result)
+        return self.engine.submit(sid, obs, cb, **kw)
+
+
+def _params_state(torch, params, updates: int):
+    """A ``TrainState`` holding only ``params`` (the rest empty scalars),
+    enough for ``save_tagged`` and a params-only restore."""
+    from types import SimpleNamespace
+
+    from sharetrade_tpu_torch.agents.base import TrainState
+    zero = torch.zeros(())
+    return TrainState(
+        params=params, opt_state=({},), carry={},
+        env_state=SimpleNamespace(t=zero, budget=zero, shares=zero,
+                                  share_value=zero),
+        rng=torch.Generator(), env_steps=torch.zeros((), dtype=torch.int32),
+        updates=torch.tensor(updates, dtype=torch.int32))
+
+
+def _flip_byte(path: str) -> None:
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def _wait_until(predicate, timeout_s: float = 10.0) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(0.01)
+    return predicate()
+
+
+def _serve_round(engine, sids, obs, **kw) -> list:
+    """One batch of requests submitted together and waited for."""
+    handles = [engine.submit(s, o, **kw) for s, o in zip(sids, obs)]
+    return [h.wait(120.0) for h in handles]
+
+
+def _same(a, b) -> bool:
+    """Two answers bit for bit (logits and value)."""
+    return (a is not None and b is not None
+            and np.array_equal(a.logits, b.logits) and a.value == b.value)
+
+
+def _tiers_swaps(torch, ctx) -> tuple[dict, list]:
+    """(a) Hot swaps under closed-loop load (the watcher's thread polling
+    every 0.2 s), then a corrupt candidate and the breaker."""
+    import threading
+
+    from sharetrade_tpu_torch.checkpoint import CheckpointManager
+    from sharetrade_tpu_torch.serve import ServeEngine, WeightSwapWatcher
+    from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+    cfg, model, params, policy, prices = (ctx[k] for k in (
+        "cfg", "model", "params", "policy", "prices"))
+    window = cfg.env.window
+    registry = MetricsRegistry()
+    engine = ServeEngine(model, cfg.serve, params, precision=policy,
+                         registry=registry)
+    engine.warmup()
+    ckpt = _fresh_dir("swap-ckpt-")
+    manager = CheckpointManager(ckpt, fsync=False,
+                                precision_mode=cfg.precision.mode)
+    versions = {k: model.init(torch.Generator().manual_seed(cfg.seed + k))
+                for k in (1, 2, 3)}
+    failures = cfg.serve.swap_breaker_failures
+    watcher = WeightSwapWatcher(
+        engine, manager, params, tag="best", poll_s=0.2,
+        breaker_failures=failures, breaker_cooldown_s=60.0).start()
+    recorder = _Recorder(engine)
+    load: dict = {}
+    thread = threading.Thread(target=lambda: load.update(run_closed_loop(
+        recorder, make_sessions(ctx["prices"], window, 192, seed=cfg.seed + 5,
+                                prefix="sw"), concurrency=192,
+        duration_s=TIERS_LOOP_S)))
+    thread.start()
+    for k in (1, 2):
+        time.sleep(0.8)
+        manager.save_tagged("best", _params_state(torch, versions[k], k),
+                            metadata={"updates": k})
+        _wait_until(lambda: engine.params_step == k, 5.0)
+    thread.join(60.0)
+    steps_seen = sorted({step for _sid, step, _b in recorder.seen})
+    by_batch: dict = {}
+    by_session: dict = {}
+    backwards = 0
+    for sid, step, batch in recorder.seen:
+        by_batch.setdefault(batch, set()).add(step)
+        if step < by_session.get(sid, -1):
+            backwards += 1
+        by_session[sid] = step
+    mixed = sum(1 for s in by_batch.values() if len(s) > 1)
+    # The first batch after the swaps: fresh sessions through the plain
+    # attention under the new weights.
+    fresh = make_sessions(prices, window, cfg.serve.max_batch,
+                          seed=cfg.seed + 6, prefix="post")
+    obs = np.stack([s.observation() for s in fresh])
+    post = _serve_round(engine, [s.sid for s in fresh], obs)
+    with torch.inference_mode():
+        ref, _ = ctx["plain_model"].apply_prefill(
+            policy.cast_compute(versions[2]), torch.from_numpy(obs).cuda())
+    post_ok = all(r is not None and r.params_step == 2 for r in post)
+    logit_err = value_err = float("inf")
+    if post_ok:
+        logit_err = float(np.abs(np.stack([r.logits for r in post])
+                                 - ref.logits.cpu().numpy()).max())
+        value_err = float(np.abs(np.array([r.value for r in post])
+                                 - ref.value.cpu().numpy()).max())
+    # The rest polls by hand (the thread stopped), so no poll can fall
+    # between a save and the flipped byte. A corrupt third candidate:
+    # refused, serving continues on step 2.
+    watcher.stop()
+    state = os.path.join(ckpt, "tag_best", "state.npz")
+    manager.save_tagged("best", _params_state(torch, versions[3], 3),
+                        metadata={"updates": 3})
+    _flip_byte(state)
+    refused = watcher.poll_once() is False and watcher.rejected == 1
+    still = _serve_round(engine, ["still-up"], obs[:1])[0]
+    rejected_once = registry.counters().get("serve_swap_rejected_total") == 1
+    # swap_breaker_failures bad candidates: the breaker opens once.
+    for k in range(failures):
+        manager.save_tagged("best", _params_state(torch, versions[3], 4 + k),
+                            metadata={"updates": 4 + k})
+        _flip_byte(state)
+        watcher.poll_once()
+    stopped = engine.stop(timeout_s=30.0)
+    counters = registry.counters()
+    row = {"load": load, "steps_seen": steps_seen,
+           "batches": len(by_batch), "mixed_batches": mixed,
+           "steps_going_back": backwards, "swaps": counters.get(
+               "serve_swaps_total", 0),
+           "post_swap_logit_max_abs_err": logit_err,
+           "post_swap_value_max_abs_err": value_err,
+           "corrupt_refused": refused, "swap_rejected": counters.get(
+               "serve_swap_rejected_total", 0),
+           "breaker_opens": watcher.breaker_opens,
+           "breaker_open_gauge": registry.latest("serve_swap_breaker_open"),
+           "quarantined": sorted(n for n in os.listdir(ckpt)
+                                 if n.startswith("corrupt_"))}
+    problems = []
+    if steps_seen != [0, 1, 2] or mixed or backwards:
+        problems.append(f"(a) swaps under load: steps {steps_seen}, "
+                        f"{mixed} mixed batches, {backwards} going back")
+    if not post_ok or logit_err > LOGIT_ATOL or value_err > VALUE_ATOL:
+        problems.append("(a) the post-swap batch disagrees with the plain "
+                        "attention under the new weights")
+    if not (refused and rejected_once and still is not None
+            and still.params_step == 2):
+        problems.append("(a) the corrupt candidate was not refused while "
+                        "serving went on")
+    if watcher.breaker_opens != 1 or not (load.get("completed", 0) > 0
+                                          and stopped):
+        problems.append(f"(a) breaker opened {watcher.breaker_opens} times, "
+                        "or the load failed")
+    return row, problems
+
+
+def _tiers_reference_run(engine, sessions, rounds_rng, cycles):
+    """Drive ``engine`` (slots for every session: never evicted) through
+    ``cycles`` passes over ``sessions`` in 64-session batches; returns
+    the batches asked (sids, observations) and the answers."""
+    asked, answers = [], []
+    batch = engine.cfg.max_batch
+    for _ in range(cycles):
+        order = rounds_rng.permutation(len(sessions))
+        for lo in range(0, len(order), batch):
+            group = [sessions[i] for i in order[lo:lo + batch]]
+            sids = [s.sid for s in group]
+            obs = np.stack([s.observation() for s in group])
+            results = _serve_round(engine, sids, obs)
+            if any(r is None for r in results):
+                raise RuntimeError("chip_smoke: a reference request failed")
+            for sess, r in zip(group, results):
+                sess.advance(r.action)
+            asked.append((sids, obs))
+            answers.append(results)
+    return asked, answers
+
+
+def _replay(engine, asked, answers) -> tuple[int, int]:
+    """The same batches through ``engine``: (answers bit-equal, asked)."""
+    equal = total = 0
+    for (sids, obs), want in zip(asked, answers):
+        got = _serve_round(engine, sids, obs)
+        equal += sum(_same(g, w) for g, w in zip(got, want))
+        total += len(sids)
+    return equal, total
+
+
+def _tiers_warm(torch, ctx) -> tuple[dict, list]:
+    """(b) The warm tier, bit-equal to an engine that never evicts, then
+    closed loop with and without it."""
+    import dataclasses
+
+    from sharetrade_tpu_torch.serve import ServeEngine
+    from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+    cfg, model, params, policy, prices = (ctx[k] for k in (
+        "cfg", "model", "params", "policy", "prices"))
+    window = cfg.env.window
+    carry_bytes = ctx["carry_bytes"]
+    never = ServeEngine(model, dataclasses.replace(
+        cfg.serve, slots=TIERS_SESSIONS), params, precision=policy)
+    never.warmup()
+    asked, answers = _tiers_reference_run(
+        never, make_sessions(prices, window, TIERS_SESSIONS,
+                             seed=cfg.seed + 7, prefix="t"),
+        np.random.default_rng(cfg.seed), TIERS_CYCLES)
+    never.stop(timeout_s=30.0)
+    registry = MetricsRegistry()
+    tiered = ServeEngine(model, dataclasses.replace(
+        cfg.serve, warm_bytes=TIERS_WARM_CARRIES * carry_bytes), params,
+        precision=policy, registry=registry)
+    tiered.warmup()
+    torch.cuda.synchronize()
+    start = _all_launch_counts()["flash_fwd"]
+    before = dict(tiered.counters)
+    equal, total = _replay(tiered, asked, answers)
+    torch.cuda.synchronize()
+    launches = _all_launch_counts()["flash_fwd"] - start
+    cold_ticks = tiered.counters["cold_batches"] - before["cold_batches"]
+    counters = registry.counters()
+    paging = tiered.paging_ms()
+    # Closed loop at 320 sessions, with the tier and without it.
+    loops = {}
+    for name, engine in (("warm_tier", tiered), ("no_tier", None)):
+        if engine is None:
+            engine = ServeEngine(model, cfg.serve, params, precision=policy)
+            engine.warmup()
+        start = dict(engine.counters)
+        loop = run_closed_loop(
+            engine, make_sessions(prices, window, TIERS_SESSIONS,
+                                  seed=cfg.seed + 8, prefix=f"l{name}"),
+            concurrency=TIERS_SESSIONS, duration_s=TIERS_LOOP_S)
+        engine.drain(60.0)
+        cold = engine.counters["cold_rows"] - start["cold_rows"]
+        warm = engine.counters["warm_rows"] - start["warm_rows"]
+        loops[name] = {"qps": loop["qps"], "p50_ms": loop["p50_ms"],
+                       "p99_ms": loop["p99_ms"], "failed": loop["failed"],
+                       "cold_share": cold / max(cold + warm, 1)}
+        engine.stop(timeout_s=30.0)
+    row = {"carry_bytes": carry_bytes,
+           "warm_bytes": TIERS_WARM_CARRIES * carry_bytes,
+           "bit_equal": equal, "answers": total,
+           "parks": counters.get("serve_warm_parks_total", 0),
+           "warm_hits": counters.get("serve_warm_hits_total", 0),
+           "demotions": counters.get("serve_warm_demotions_total", 0),
+           "cold_ticks": cold_ticks, "flash_fwd_launches": launches,
+           "pageout_ms_per_tick": paging["pageout"],
+           "install_ms_per_tick": paging["install"], "loops": loops}
+    problems = []
+    if equal != total:
+        problems.append(f"(b) warm tier: {total - equal} of {total} answers "
+                        "differ from the never-evicted engine")
+    if not (row["parks"] > 0 and row["warm_hits"] > 0):
+        problems.append("(b) the warm tier never parked or hit")
+    if launches != cfg.model.num_layers * cold_ticks:
+        problems.append(f"(b) flash_fwd launches {launches} != layers x "
+                        f"cold ticks {cold_ticks}")
+    if any(loop["failed"] for loop in loops.values()):
+        problems.append("(b) a closed-loop request failed")
+    ctx["closed_loop_qps"] = loops["warm_tier"]["qps"]
+    return row, problems
+
+
+def _tiers_spill(torch, ctx) -> tuple[dict, list]:
+    """(c) The spill tier: adoptions bit-equal, a corrupt record cold, and
+    a drained engine's sessions adopted by a second engine."""
+    import dataclasses
+
+    from sharetrade_tpu_torch.serve import ServeEngine
+    from sharetrade_tpu_torch.serve.driver import make_sessions
+    from sharetrade_tpu_torch.serve.spill import record_name
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+    cfg, model, params, policy, prices = (ctx[k] for k in (
+        "cfg", "model", "params", "policy", "prices"))
+    window = cfg.env.window
+    spill_dir = _fresh_dir("spill-")
+    tier_cfg = dataclasses.replace(
+        cfg.serve, warm_bytes=TIERS_SPILL_WARM_CARRIES * ctx["carry_bytes"],
+        spill_dir=spill_dir, spill_bytes=256 * 2 ** 20)
+    # The reference never evicts, with room for one fresh session more.
+    never = ServeEngine(model, dataclasses.replace(
+        cfg.serve, slots=TIERS_SESSIONS + cfg.serve.max_batch), params,
+        precision=policy)
+    never.warmup()
+    sessions = make_sessions(prices, window, TIERS_SESSIONS,
+                             seed=cfg.seed + 9, prefix="c")
+    asked, answers = _tiers_reference_run(
+        never, sessions, np.random.default_rng(cfg.seed + 1), TIERS_CYCLES)
+    registry = MetricsRegistry()
+    spill = ServeEngine(model, tier_cfg, params, precision=policy,
+                        registry=registry)
+    spill.warmup()
+    t0 = time.perf_counter()
+    equal, total = _replay(spill, asked, answers)
+    replay_s = time.perf_counter() - t0
+    spill.drain(60.0)
+    clock = {}
+    for sids, _obs in asked:
+        for sid in sids:
+            clock[sid] = clock.get(sid, 0) + 1
+    # A corrupted record: its session restarts cold, a fresh session's
+    # answer bit for bit.
+    on_disk = [s for s in sessions
+               if os.path.exists(os.path.join(spill_dir,
+                                              record_name(s.sid)))]
+    corrupt_ok = False
+    if on_disk:
+        victim = on_disk[0]
+        _flip_byte(os.path.join(spill_dir, record_name(victim.sid)))
+        obs = victim.observation()
+        got = _serve_round(spill, [victim.sid], [obs])[0]
+        fresh = _serve_round(never, ["fresh-corrupt"], [obs])[0]
+        corrupt_ok = _same(got, fresh)
+        sessions = [s for s in sessions if s is not victim]
+    counters = registry.counters()
+    # Drain, stop, page out; a second engine adopts every session warm.
+    stopped = spill.stop(timeout_s=30.0)
+    pageout = spill.page_out_all()
+    reg2 = MetricsRegistry()
+    adopter = ServeEngine(model, tier_cfg, params, precision=policy,
+                          registry=reg2)
+    adopter.warmup()
+    adopt_equal = 0
+    batch = cfg.serve.max_batch
+    for lo in range(0, len(sessions), batch):
+        group = sessions[lo:lo + batch]
+        sids = [s.sid for s in group]
+        obs = np.stack([s.observation() for s in group])
+        handles = [adopter.submit(s, o, session_clock=clock[s])
+                   for s, o in zip(sids, obs)]
+        got = [h.wait(120.0) for h in handles]
+        want = _serve_round(never, sids, obs)
+        adopt_equal += sum(_same(g, w) for g, w in zip(got, want))
+    adopted = reg2.counters()
+    adopter.stop(timeout_s=30.0)
+    never.stop(timeout_s=30.0)
+    row = {"bit_equal": equal, "answers": total, "replay_s": replay_s,
+           "spill_puts": counters.get("serve_spill_puts_total", 0),
+           "spill_hits": counters.get("serve_spill_hits_total", 0),
+           "spill_corrupt": counters.get("serve_spill_corrupt_total", 0),
+           "corrupt_cold_bit_equal_fresh": corrupt_ok,
+           "page_out_all": pageout, "stopped_clean": stopped,
+           "adopted_bit_equal": adopt_equal, "adopted_sessions":
+           len(sessions), "adopt_warm": adopted.get(
+               "serve_adopt_warm_total", 0),
+           "adopt_cold": adopted.get("serve_adopt_cold_total", 0)}
+    problems = []
+    if equal != total or row["spill_hits"] <= 0:
+        problems.append(f"(c) spill tier: {total - equal} of {total} answers "
+                        f"differ, {row['spill_hits']} spill hits")
+    if not corrupt_ok or row["spill_corrupt"] != 1:
+        problems.append("(c) the corrupted record did not land cold, bit "
+                        "for bit a fresh session")
+    if not stopped or pageout["refused"] or \
+            adopt_equal != len(sessions) or \
+            row["adopt_warm"] != len(sessions) or row["adopt_cold"]:
+        problems.append(f"(c) adoption after page_out_all: {adopt_equal} of "
+                        f"{len(sessions)} bit-equal, {row['adopt_warm']} "
+                        "warm")
+    return row, problems
+
+
+def _tiers_overload(torch, ctx) -> tuple[dict, list]:
+    """(d) Open loop at twice (b)'s closed-loop rate, shedding the oldest,
+    with 50 ms deadlines: the counts reconcile."""
+    import dataclasses
+
+    from sharetrade_tpu_torch.serve import ServeEngine
+    from sharetrade_tpu_torch.serve.driver import make_sessions, run_open_loop
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+    cfg, model, params, policy, prices = (ctx[k] for k in (
+        "cfg", "model", "params", "policy", "prices"))
+    registry = MetricsRegistry()
+    engine = ServeEngine(model, dataclasses.replace(
+        cfg.serve, **OVERLOAD_KNOBS), params, precision=policy,
+        registry=registry)
+    engine.warmup()
+    rate = 2.0 * ctx["closed_loop_qps"]
+    stats = run_open_loop(
+        engine, make_sessions(prices, cfg.env.window, 512, seed=cfg.seed + 10,
+                              prefix="o"), rate_qps=rate,
+        duration_s=TIERS_LOOP_S)
+    engine.drain(60.0)
+    stopped = engine.stop(timeout_s=30.0)
+    counters = registry.counters()
+    shed = int(counters.get("serve_shed_total", 0))
+    expired = int(counters.get("serve_deadline_expired_total", 0))
+    row = {**stats, "shed": shed, "deadline_expired": expired,
+           "stopped_clean": stopped}
+    problems = []
+    if (stats["completed"] + stats["failed"]
+            != stats["offered"] - stats["dropped"]
+            or stats["failed"] != shed + expired or not stopped):
+        problems.append(f"(d) overload counts do not reconcile: {row}")
+    return row, problems
+
+
+def _tiers_restarts(torch, ctx) -> tuple[dict, list]:
+    """(e) A malformed observation rebuilds the engine once, then a storm
+    of them ends in the terminal failed state."""
+    import dataclasses
+
+    from sharetrade_tpu_torch.serve import ServeEngine, ServeEngineFailed
+    from sharetrade_tpu_torch.serve.driver import make_sessions
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+    cfg, model, params, policy, prices = (ctx[k] for k in (
+        "cfg", "model", "params", "policy", "prices"))
+    registry = MetricsRegistry()
+    engine = ServeEngine(model, dataclasses.replace(
+        cfg.serve, max_restarts=2, restart_backoff_s=0.01,
+        restart_backoff_max_s=0.05), params, precision=policy,
+        registry=registry, restart_seed=0)
+    engine.warmup()
+    sess = make_sessions(prices, cfg.env.window, 1, seed=cfg.seed + 11,
+                         prefix="r")[0]
+    for _ in range(2):
+        result = _serve_round(engine, [sess.sid], [sess.observation()])[0]
+        sess.advance(result.action)
+    bad = _serve_round(engine, ["bad"], [np.ones(3, np.float32)])[0]
+    obs = sess.observation()
+    healed = _serve_round(engine, [sess.sid], [obs])[0]
+    fresh = _serve_round(engine, ["fresh-restart"], [obs])[0]
+    heal_ok = bad is None and _same(healed, fresh)
+    restarts_after_heal = registry.counters().get("serve_restarts_total", 0)
+    for i in range(3):
+        if engine.failed is not None:
+            break
+        _serve_round(engine, [f"storm{i}"], [np.ones(3, np.float32)])
+    terminal = _wait_until(lambda: engine.failed is not None, 10.0)
+    try:
+        engine.submit("late", obs)
+        refused = False
+    except ServeEngineFailed:
+        refused = True
+    stopped = engine.stop(drain=False, timeout_s=30.0)
+    row = {"healed_bit_equal_fresh": heal_ok,
+           "restarts_after_heal": restarts_after_heal,
+           "restarts": registry.counters().get("serve_restarts_total", 0),
+           "terminal": terminal, "submit_refused": refused,
+           "serve_failed_gauge": registry.latest("serve_failed"),
+           "stopped_clean": stopped}
+    problems = []
+    if not (heal_ok and restarts_after_heal == 1):
+        problems.append("(e) the engine did not heal once, bit for bit a "
+                        "fresh session")
+    if not (terminal and refused and stopped):
+        problems.append("(e) the fault storm did not end in a clean "
+                        "terminal failure")
+    return row, problems
+
+
+#: (d)'s and (f)'s overload knobs.
+OVERLOAD_KNOBS = {"max_queue": 64, "shed_policy": "oldest",
+                  "default_deadline_ms": 50.0}
+
+
+def _tiers_baseline_and_cli(torch, ctx) -> tuple[dict, list]:
+    """(f) The batch-1 baseline at concurrency 1, and ``cli serve --rate``
+    with (d)'s knobs."""
+    import tempfile
+
+    from sharetrade_tpu_torch.serve.driver import (BatchOneServer,
+                                                   make_sessions,
+                                                   run_closed_loop)
+
+    cfg, model, params, policy, prices = (ctx[k] for k in (
+        "cfg", "model", "params", "policy", "prices"))
+    server = BatchOneServer(model, params, precision=policy)
+    server.warmup()
+    base = run_closed_loop(
+        server, make_sessions(prices, cfg.env.window, 64, seed=cfg.seed + 12,
+                              prefix="b"), concurrency=1,
+        duration_s=TIERS_LOOP_S)
+    server.stop()
+    rate = 2.0 * ctx["closed_loop_qps"]
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "serve",
+           "--duration", str(TIERS_LOOP_S), "--sessions", "512", "--rate",
+           str(round(rate))]
+    with tempfile.TemporaryDirectory(prefix="cli-rate-") as ckpts:
+        for item in FLAGSHIP + [f"serve.{k}={v}"
+                                for k, v in OVERLOAD_KNOBS.items()] + [
+                f"runtime.checkpoint_dir={ckpts}"]:
+            cmd += ["--set", item]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300, cwd=_fresh_dir("cli-"),
+                              env=_cli_env())
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    summary = json.loads(lines[-1]) if lines else {}
+    cli_ok = (proc.returncode == 0 and summary.get("mode") == "open_loop"
+              and summary.get("completed", 0) > 0
+              and summary["completed"] + summary["failed"]
+              == summary["offered"] - summary["dropped"]
+              and summary["failed"] == summary["shed"]
+              + summary["deadline_expired"])
+    row = {"batch1": {k: base[k] for k in ("qps", "p50_ms", "p99_ms",
+                                           "completed", "failed")},
+           "cli_rate": {"rc": proc.returncode, "rate_qps": rate,
+                        "seconds": time.perf_counter() - t0,
+                        "summary": summary, "ok": bool(cli_ok)}}
+    problems = []
+    if base["failed"] or base["completed"] <= 0:
+        problems.append("(f) the batch-1 baseline failed requests")
+    if not cli_ok:
+        row["cli_rate"]["stderr_tail"] = proc.stderr[-2000:]
+        problems.append("(f) cli serve --rate failed or did not reconcile")
+    return row, problems
+
+
+def phase_serve_tiers(torch) -> dict:
+    """The rest of the serving engine on the flagship; see the module
+    docstring."""
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.env.trading import obs_dim
+    from sharetrade_tpu_torch.models import build_model
+    from sharetrade_tpu_torch.models.core import tree_leaves
+    from sharetrade_tpu_torch.ops import attention
+    from sharetrade_tpu_torch.precision import policy_from_config
+
+    cfg = FrameworkConfig().apply_overrides(FLAGSHIP)
+    window = cfg.env.window
+    model = build_model(cfg.model, obs_dim(window), device="cuda")
+    policy = policy_from_config(cfg.precision)
+    sm_scale = cfg.model.head_dim ** -0.5
+    ctx = {
+        "cfg": cfg, "model": model, "policy": policy,
+        "prices": _prices(cfg.data),
+        "params": model.init(torch.Generator().manual_seed(cfg.seed)),
+        "carry_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(
+            policy.cast_carry(model.init_carry(), model))),
+        "plain_model": build_model(
+            cfg.model, obs_dim(window), device="cuda",
+            attention_fn=lambda q, k, v, w: attention.reference_attention(
+                q, k, v, causal=True, sm_scale=sm_scale, local_window=w)),
+    }
+    row: dict = {"phase": "serve_tiers", "config": FLAGSHIP}
+    problems: list[str] = []
+    t_phase = time.perf_counter()
+    # The counted window: counts reset just before, read just after.
+    _reset_launch_counts()
+    for name, part in (("swaps", _tiers_swaps), ("warm", _tiers_warm),
+                       ("spill", _tiers_spill),
+                       ("overload", _tiers_overload),
+                       ("restarts", _tiers_restarts),
+                       ("baseline_cli", _tiers_baseline_and_cli)):
+        t0 = time.perf_counter()
+        try:
+            row[name], found = part(torch, ctx)
+        except Exception as exc:   # noqa: BLE001 — reported as a problem
+            row[name], found = {"error": repr(exc)}, [f"({name}) raised "
+                                                      f"{exc!r}"]
+        row[name]["seconds"] = time.perf_counter() - t0
+        problems += found
+    torch.cuda.synchronize()
+    row["launches"] = _all_launch_counts()
+    row["seconds"] = time.perf_counter() - t_phase
+    if row["launches"]["flash_fwd"] <= 0:
+        problems.append("flash_fwd never launched in serve_tiers")
+    row["problems"] = problems
+    return row
+
+
 def phase_profile(torch, *, ticks: int = 20) -> dict:
     """Where a serving tick's device time goes, at the flagship width: the
     cold program (prefill of a full 64-row batch) and the warm program
@@ -3341,6 +3977,13 @@ def _run_phases(torch, phases: list[str]) -> int:
             print(f"chip_smoke: serving path failed: "
                   f"{results['serve']['problems']}", file=sys.stderr)
             return 1
+    if "serve_tiers" in phases:
+        results["serve_tiers"] = phase_serve_tiers(torch)
+        _print(results["serve_tiers"])
+        if results["serve_tiers"]["problems"]:
+            print(f"chip_smoke: the serving tiers failed: "
+                  f"{results['serve_tiers']['problems']}", file=sys.stderr)
+            return 1
     if "cli" in phases:
         row = phase_cli()
         _print(row)
@@ -3397,9 +4040,9 @@ def _run_phases(torch, phases: list[str]) -> int:
             return 1
     if "profile" in phases:
         _print(phase_profile(torch))
-    if "kernels" in phases and {"serve", "train", "resilience",
-                                "reference", "pipeline", "journal",
-                                "families"} & set(phases):
+    if "kernels" in phases and {"serve", "serve_tiers", "train",
+                                "resilience", "reference", "pipeline",
+                                "journal", "families"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@
         [--eval-best]
     python -m sharetrade_tpu_torch.cli serve [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
-        [--duration S] [--sessions N] [--device cuda|cpu] [--params p.npz]
+        [--duration S] [--sessions N] [--rate QPS] [--device cuda|cpu]
+        [--params p.npz]
     python -m sharetrade_tpu_torch.cli query [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
 
@@ -44,27 +45,33 @@ next chunk boundary, writes ``tag_preempt`` and exits 75.
 ``serve`` runs the continuous-batching engine (serve/engine.py) on the
 model the configured learner trains (``learner.algo`` picks the Q-head or
 the actor-critic heads, as in the JAX package; over the first symbol of
-``--symbol``, as there) under synthetic closed-loop
-session load
-(serve/driver.py), as the JAX package's ``cli serve`` does: a
+``--symbol``, as there) under synthetic session load (serve/driver.py):
+closed loop (``serve.max_batch`` sessions in flight), or open loop at
+``--rate`` arrivals per second, as the JAX package's ``cli serve`` does: a
 ``serving_ready`` JSON line once the engine is warm, then one summary JSON
 line. Weights come from ``--params``, an ``.npz`` of a params tree
 (``convert.save_npz``, from either package), else from the training run's
 checkpoints in ``runtime.checkpoint_dir``: ``tag_<serve.swap_tag>``
 (``tag_best``), then the newest intact step, then (loudly) a seeded fresh
-init. ``params_step`` in both lines is the checkpoint's update count (0
-for ``--params`` and a fresh init). A checkpoint directory of the JAX
-package is passed over and left untouched (the two packages want separate
-``runtime.checkpoint_dir`` values). SIGTERM/SIGINT drains in-flight
-requests and exits 75. ``serve.swap_poll_s`` (on by default) is not
-ported: the boot weights serve for the whole run, and the command says so
-once.
+init. ``params_step`` in the ready line is the checkpoint's update count (0
+for ``--params`` and a fresh init); in the summary, that of the weights
+serving at the end. A checkpoint directory of the JAX package is passed
+over and left untouched (the two packages want separate
+``runtime.checkpoint_dir`` values). With ``serve.swap_poll_s`` > 0 (the
+default, 5 s) the weight-swap watcher (serve/swap.py) polls the tag and
+swaps newer weights in between ticks; with ``--params`` only a save newer
+than the tag at start replaces them. After a clean stop, a configured spill
+tier (``serve.spill_dir``) receives every surviving session carry.
+SIGTERM/SIGINT drains in-flight requests and exits 75. ``obs.enabled``,
+``tuning.profile`` and ``tuning.serve_controller`` are refused.
+
+A ``ConfigError`` (a refused knob, an impossible value) exits 2 with its
+message.
 
 The device is ``cuda`` unless ``--device`` says otherwise; without a GPU
 and without ``--device cpu`` the command fails with a message saying so.
 Not yet ported: ``actor``, ``learner``, ``fleet``, ``obs``, ``--mesh``,
-the tuned-profile resolution, the weight-swap watcher, ``--rate`` and
-``--listen``.
+the tuned-profile resolution and ``--listen``.
 """
 
 from __future__ import annotations
@@ -221,38 +228,102 @@ def cmd_train(args) -> int:
             service.close()
 
 
-def _serve_boot_params(cfg, template):
+def _checkpoints(cfg):
+    """The run's checkpoint manager, or None while ``runtime.checkpoint_dir``
+    does not exist (serving creates no directory of its own)."""
+    from sharetrade_tpu_torch.checkpoint import CheckpointManager
+
+    directory = cfg.runtime.checkpoint_dir
+    if not os.path.isdir(directory):
+        return None
+    return CheckpointManager(
+        directory, keep=cfg.runtime.keep_checkpoints,
+        fsync=cfg.checkpoint.fsync, precision_mode=cfg.precision.mode)
+
+
+def _serve_boot_params(cfg, template, manager):
     """Initial serving weights: the training run's tagged policy
     (``serve.swap_tag``, ``tag_best``) when there is one, else its newest
     intact step checkpoint, else ``template`` (a fresh init, loudly: an
     untrained policy serves finite garbage). A tag the JAX package wrote is
     passed over and left as it is (the step walk-back skips such dirs too).
-    Returns ``(params, step)``, ``step`` the checkpoint's update count."""
-    from sharetrade_tpu_torch.checkpoint import (
-        CheckpointManager, ForeignCheckpointError)
+    Returns ``(params, step, meta)``: ``step`` the checkpoint's update count,
+    ``meta`` the tag's metadata when the tag served (the swap watcher's
+    first seen stamp), else None."""
+    from sharetrade_tpu_torch.checkpoint import ForeignCheckpointError
     from sharetrade_tpu_torch.utils.logging import get_logger
 
     log = get_logger("cli")
-    directory = cfg.runtime.checkpoint_dir
-    if os.path.isdir(directory):
-        manager = CheckpointManager(
-            directory, keep=cfg.runtime.keep_checkpoints,
-            fsync=cfg.checkpoint.fsync, precision_mode=cfg.precision.mode)
+    if manager is not None:
         try:
             params, meta = manager.restore_tagged(template, cfg.serve.swap_tag)
-            return params, int(meta.get("updates", meta.get("step", 0)) or 0)
+            return (params, int(meta.get("updates", meta.get("step", 0)) or 0),
+                    meta)
         except FileNotFoundError:
             pass
         except ForeignCheckpointError as exc:
             log.warning("passing over tag_%s: %s", cfg.serve.swap_tag, exc)
         try:
             params, step = manager.restore(template)
-            return params, int(step)
+            return params, int(step), None
         except FileNotFoundError:
             pass
     log.warning("no checkpoint of this package under %s; serving a seeded "
-                "fresh-initialised (UNTRAINED) policy", directory)
-    return template, 0
+                "fresh-initialised (UNTRAINED) policy",
+                cfg.runtime.checkpoint_dir)
+    return template, 0, None
+
+
+def _serve_summary(engine, registry, stats, *, device, drained: bool,
+                   stopped_clean: bool, spill_pageout) -> dict:
+    """``cli serve``'s summary line: the load's numbers, the engine's
+    counters, and the JAX summary's keys (the session tiers' keys only when
+    their tier ran)."""
+    from sharetrade_tpu_torch.ops.attention import launch_counts
+
+    counters = dict(engine.counters)
+    reg = registry.counters()
+
+    def total(name: str) -> int:
+        return int(reg.get(name, 0))
+
+    summary = {
+        **stats,
+        "params_step": engine.params_step,
+        "device": str(device),
+        "requests": counters["requests"],
+        "prefills": counters["cold_rows"],
+        "warm_rows": counters["warm_rows"],
+        "cold_batches": counters["cold_batches"],
+        "warm_batches": counters["warm_batches"],
+        "generic_batches": counters["generic_batches"],
+        "evictions": counters["evictions"],
+        "queue_rejected": total("serve_queue_rejected_total"),
+        "swaps": total("serve_swaps_total"),
+        "swap_rejected": total("serve_swap_rejected_total"),
+        "swap_breaker_opens": total("serve_swap_breaker_opens_total"),
+        "shed": total("serve_shed_total"),
+        "deadline_expired": total("serve_deadline_expired_total"),
+        "restarts": total("serve_restarts_total"),
+        "flash_fwd_launches": launch_counts["flash_fwd"],
+        "drained": drained,
+        "stopped_clean": stopped_clean,
+        "engine_failed": engine.failed is not None,
+    }
+    warm = {k: total(f"serve_warm_{k}_total")
+            for k in ("parks", "hits", "misses", "demotions")}
+    if warm["parks"] or warm["hits"] or warm["misses"]:
+        summary.update({f"warm_{k}": v for k, v in warm.items()})
+    if spill_pageout is not None and any(spill_pageout.values()):
+        summary["spill_pageout"] = spill_pageout
+    if total("serve_spill_puts_total") or total("serve_spill_hits_total"):
+        summary.update(
+            spill_puts=total("serve_spill_puts_total"),
+            spill_hits=total("serve_spill_hits_total"),
+            adopt_warm=total("serve_adopt_warm_total"),
+            adopt_cold=total("serve_adopt_cold_total"),
+            spill_corrupt=total("serve_spill_corrupt_total"))
+    return summary
 
 
 def cmd_serve(args) -> int:
@@ -263,12 +334,14 @@ def cmd_serve(args) -> int:
     from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.device import resolve_device
     from sharetrade_tpu_torch.env.trading import make_trading_env
-    from sharetrade_tpu_torch.ops.attention import launch_counts
     from sharetrade_tpu_torch.precision import policy_from_config
-    from sharetrade_tpu_torch.serve import ServeEngine
-    from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
-    from sharetrade_tpu_torch.serve.engine import unported_defaults
+    from sharetrade_tpu_torch.runtime.orchestrator import (
+        SERVE_REFUSED, check_ported)
+    from sharetrade_tpu_torch.serve import ServeEngine, WeightSwapWatcher
+    from sharetrade_tpu_torch.serve.driver import (
+        make_sessions, run_closed_loop, run_open_loop)
     from sharetrade_tpu_torch.utils.logging import get_logger
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
 
     log = get_logger("cli")
     try:
@@ -277,6 +350,7 @@ def cmd_serve(args) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     cfg = _load_config(args)
+    check_ported(cfg, SERVE_REFUSED, mesh=False)
 
     stop_evt = threading.Event()
     preempted: list[float] = []
@@ -294,15 +368,11 @@ def cmd_serve(args) -> int:
 
     prev_handlers = {s: signal.signal(s, _on_signal)
                      for s in (signal.SIGTERM, signal.SIGINT)}
-    engine = service = None
+    engine = service = watcher = None
     try:
         service = PriceDataService(config=cfg.data)
         prices = service.request(args.symbol.split(",")[0].strip(),
                                  args.start, args.end).series.prices
-        unported = unported_defaults(cfg.serve)
-        if unported:
-            log.warning("not yet ported, serving without: %s",
-                        "; ".join(unported))
         # The model the configured learner trains (its Q-head or its
         # actor-critic heads), as the JAX package's cli serve builds it.
         model = build_agent(cfg, make_trading_env(
@@ -310,46 +380,66 @@ def cmd_serve(args) -> int:
             initial_budget=cfg.env.initial_budget,
             initial_shares=cfg.env.initial_shares, device=device),
             device=device).model
+        template = model.init(torch.Generator().manual_seed(cfg.seed))
+        manager = _checkpoints(cfg)
         if args.params:
             params, step = load_npz(args.params, device=device), 0
+            # Only a save newer than the tag as it stands now replaces the
+            # weights passed in.
+            boot_meta = (manager.tagged_metadata(cfg.serve.swap_tag)
+                         if manager is not None else None)
         else:
-            params, step = _serve_boot_params(
-                cfg, model.init(torch.Generator().manual_seed(cfg.seed)))
+            params, step, boot_meta = _serve_boot_params(cfg, template,
+                                                         manager)
+        registry = MetricsRegistry()
         engine = ServeEngine(model, cfg.serve, params, params_step=step,
-                             precision=policy_from_config(cfg.precision))
+                             precision=policy_from_config(cfg.precision),
+                             registry=registry)
         engine.warmup()
+        if cfg.serve.swap_poll_s > 0:
+            watcher = WeightSwapWatcher(
+                engine, manager or (lambda: _checkpoints(cfg)), template,
+                tag=cfg.serve.swap_tag, poll_s=cfg.serve.swap_poll_s,
+                seen_meta=boot_meta,
+                breaker_failures=cfg.serve.swap_breaker_failures,
+                breaker_cooldown_s=cfg.serve.swap_breaker_cooldown_s,
+            ).start()
         print(json.dumps({"event": "serving_ready",
                           "params_step": step,
                           "model": model.name, "device": str(device),
                           "max_batch": cfg.serve.max_batch,
-                          "slots": cfg.serve.slots}), flush=True)
+                          "slots": cfg.serve.slots,
+                          "swap_watcher": watcher is not None}), flush=True)
 
         sessions = make_sessions(prices, cfg.env.window, args.sessions,
                                  seed=cfg.seed)
-        stats = run_closed_loop(engine, sessions,
-                                concurrency=cfg.serve.max_batch,
-                                duration_s=args.duration, stop=stop_evt)
+        if args.rate > 0:
+            stats = run_open_loop(engine, sessions, rate_qps=args.rate,
+                                  duration_s=args.duration, stop=stop_evt)
+        else:
+            stats = run_closed_loop(engine, sessions,
+                                    concurrency=cfg.serve.max_batch,
+                                    duration_s=args.duration, stop=stop_evt)
         grace = cfg.runtime.preempt_grace_s
         drained = engine.drain(timeout_s=grace * 0.5)
-        stopped_clean = engine.stop(drain=False,
-                                    timeout_s=max(grace / 8.0, 1.0))
-        counters = dict(engine.counters)
-        summary = {
-            **stats,
-            "params_step": step,
-            "device": str(device),
-            "requests": counters["requests"],
-            "prefills": counters["cold_rows"],
-            "warm_rows": counters["warm_rows"],
-            "cold_batches": counters["cold_batches"],
-            "warm_batches": counters["warm_batches"],
-            "generic_batches": counters["generic_batches"],
-            "evictions": counters["evictions"],
-            "queue_rejected": counters["rejected"],
-            "flash_fwd_launches": launch_counts["flash_fwd"],
-            "drained": drained,
-            "stopped_clean": stopped_clean,
-        }
+        if watcher is not None:
+            watcher.stop()
+        stopped_clean = engine.stop(
+            drain=False, timeout_s=min(max(grace / 8.0, 1.0), grace / 6.0))
+        # With the threads stopped, seal every surviving carry into the
+        # spill arena (no-op without one); a failed page-out only costs
+        # adoptions, never the clean shutdown.
+        spill_pageout = None
+        if stopped_clean:
+            try:
+                spill_pageout = engine.page_out_all()
+            except Exception:   # noqa: BLE001
+                log.exception("drain page-out failed; this engine's "
+                              "sessions will restart cold elsewhere")
+        summary = _serve_summary(engine, registry, stats, device=device,
+                                 drained=drained,
+                                 stopped_clean=stopped_clean,
+                                 spill_pageout=spill_pageout)
         if preempted:
             summary["preempted"] = True
         print(json.dumps(summary), flush=True)
@@ -359,6 +449,8 @@ def cmd_serve(args) -> int:
     finally:
         for s, h in prev_handlers.items():
             signal.signal(s, h)
+        if watcher is not None:
+            watcher.stop()
         if engine is not None:
             engine.stop(drain=False, timeout_s=5.0)
         if service is not None:
@@ -416,13 +508,16 @@ def main(argv=None) -> int:
                    help="greedy evaluation of the retained tag_best policy")
     p.set_defaults(fn=cmd_train)
     p = sub.add_parser("serve", help="continuous-batching inference under "
-                                     "synthetic closed-loop load")
+                                     "synthetic closed- or open-loop load")
     _common(p)
     p.add_argument("--duration", type=float, default=10.0,
                    help="seconds to serve the synthetic load (SIGTERM "
                         "drains and exits 75 earlier)")
     p.add_argument("--sessions", type=int, default=512,
                    help="synthetic user sessions to replay")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="open-loop arrivals per second (default 0: closed "
+                        "loop, serve.max_batch sessions in flight)")
     p.add_argument("--params", default=None,
                    help=".npz of a params tree (convert.save_npz); default "
                         "the run's checkpoints (tag_best, then the newest "
@@ -438,9 +533,14 @@ def main(argv=None) -> int:
     p.add_argument("--end", default=None)
     p.set_defaults(fn=cmd_query)
     args = parser.parse_args(argv)
+    from sharetrade_tpu_torch.config import ConfigError
     from sharetrade_tpu_torch.utils.logging import configure
     configure()
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except ConfigError as exc:
+        print(f"error: ConfigError: {exc}", file=sys.stderr)
+        return 2
 
 
 if __name__ == "__main__":

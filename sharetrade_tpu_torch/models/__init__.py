@@ -96,6 +96,15 @@ def build_model(cfg: ModelConfig, obs_dim: int, *, head: str = "ac",
             "layouts are not yet ported to sharetrade_tpu_torch")
     if cfg.attention != "flash":
         raise ConfigError(f"unknown model.attention {cfg.attention!r}")
+    if device.type == "cuda" and attention_fn is None:
+        from sharetrade_tpu_torch.ops.attention import MAX_HEAD_DIM
+        if cfg.head_dim > MAX_HEAD_DIM:
+            # The JAX kernels pad any width; the CUDA kernels are built
+            # up to 128 (narrower heads are padded up to 64 or 128).
+            raise ConfigError(
+                f"model.head_dim={cfg.head_dim} is wider than the CUDA "
+                f"attention kernels' {MAX_HEAD_DIM}; not yet ported to "
+                "sharetrade_tpu_torch")
     _validate_moe_dispatch(cfg)
     if cfg.seq_mode == "episode":
         if num_assets > 1:

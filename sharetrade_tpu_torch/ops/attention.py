@@ -31,6 +31,13 @@ heads, seq, head_dim)`` throughout, as there.
 
 ``δ = rowsum(dO ∘ O)`` is computed in float32 outside the kernels, as the
 JAX package's ``_flash_backward`` does.
+
+The kernels are built for head_dim 64 and 128. A narrower head (any width
+up to 128) is zero-padded to the next built width before a launch and the
+padding sliced off O, dQ, dK and dV after it, as the JAX wrappers pad to a
+lane multiple: zero lanes leave QKᵀ, the log-sum-exp and δ unchanged, and
+``sm_scale`` stays that of the unpadded width. A head wider than 128 is
+refused on the card (``models/__init__.py`` at ``build_model``).
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ launch_counts: dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0}
 
 _HEAD_DIMS = (64, 128)
+#: The widest head the kernels take (narrower ones are padded up).
+MAX_HEAD_DIM = _HEAD_DIMS[-1]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -211,6 +220,42 @@ def _check_rows(name: str, q, **rows) -> None:
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _built_width(head_dim: int) -> int:
+    """The narrowest built kernel width that holds ``head_dim``."""
+    for width in _HEAD_DIMS:
+        if head_dim <= width:
+            return width
+    raise ValueError(f"head_dim {head_dim} unsupported: the kernels are "
+                     f"built for {_HEAD_DIMS} and pad narrower heads up")
+
+
+def _pad_lanes(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to ``width``, contiguous."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
+def _padded(wrapper, q, k, v, *rest, **kw):
+    """``wrapper`` (a kernel wrapper) on q, k, v (and dO, first of
+    ``rest``, for the backward) zero-padded from head_dim to the next built
+    width, with the padding sliced off its (B, H, T, D) outputs; lse and δ
+    (the rest) pass as they are."""
+    head_dim = q.shape[-1]
+    width = _built_width(head_dim)
+    padded = [_pad_lanes(t, width) for t in (q, k, v)]
+    if rest:
+        rest = (_pad_lanes(rest[0], width),) + tuple(rest[1:])
+    out = wrapper(*padded, *rest, **kw)
+
+    def unpad(t):
+        return t[..., :head_dim].contiguous()
+
+    if wrapper is flash_fwd:
+        return unpad(out[0]), out[1]
+    if isinstance(out, tuple):
+        return tuple(unpad(t) for t in out)
+    return unpad(out)
+
+
 def _launch(name: str, fn, *args) -> None:
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -235,6 +280,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "to differentiate through the kernels")
     if q.device.type == "cpu":
         return _plain_forward(q, k, v, causal, sm_scale, window)
+    if q.shape[-1] not in _HEAD_DIMS:
+        return _padded(flash_fwd, q, k, v, causal=causal, sm_scale=sm_scale,
+                       window=window)
     _check_kernel_inputs("flash_fwd", q, k, v)
     band = _check_args("flash_fwd", q, k, causal, window)
     batch, heads, t_q, head_dim = q.shape
@@ -254,6 +302,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
     ``flash_bwd_dq``; CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return _plain_dq(q, k, v, dout, lse, delta, causal, sm_scale, window)
+    if q.shape[-1] not in _HEAD_DIMS:
+        return _padded(flash_bwd_dq, q, k, v, dout, lse, delta, causal=causal,
+                       sm_scale=sm_scale, window=window)
     _check_kernel_inputs("flash_bwd_dq", q, k, v, ("dout", dout))
     _check_rows("flash_bwd_dq", q, lse=lse, delta=delta)
     band = _check_args("flash_bwd_dq", q, k, causal, window)
@@ -273,6 +324,9 @@ def flash_bwd_dq_cluster(q, k, *, causal: bool = True,
     """Blocks of the thread-block cluster over which :func:`flash_bwd_dq`
     splits each query tile's key loop for these CUDA inputs (1 or 2; 1 for
     float32). Launches nothing."""
+    if q.shape[-1] not in _HEAD_DIMS:
+        width = _built_width(q.shape[-1])
+        q, k = _pad_lanes(q, width), _pad_lanes(k, width)
     _check_kernel_inputs("flash_bwd_dq", q, k, k)
     band = _check_args("flash_bwd_dq", q, k, causal, window)
     batch, heads, t_q, head_dim = q.shape
@@ -293,6 +347,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
     launch ``flash_bwd_dkv``; CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return _plain_dkv(q, k, v, dout, lse, delta, causal, sm_scale, window)
+    if q.shape[-1] not in _HEAD_DIMS:
+        return _padded(flash_bwd_dkv, q, k, v, dout, lse, delta,
+                       causal=causal, sm_scale=sm_scale, window=window)
     _check_kernel_inputs("flash_bwd_dkv", q, k, v, ("dout", dout))
     _check_rows("flash_bwd_dkv", q, lse=lse, delta=delta)
     band = _check_args("flash_bwd_dkv", q, k, causal, window)

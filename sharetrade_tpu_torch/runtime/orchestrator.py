@@ -147,7 +147,14 @@ _REFUSED = {
     "obs.enabled": False,
     "distrib.num_actors": 0,
     "tuning.profile": None,
+    "tuning.serve_controller": False,
 }
+#: The knobs of ``_REFUSED`` each command refuses. ``cli serve`` lets
+#: ``runtime.profile_dir`` and ``distrib.num_actors`` through, as the JAX
+#: package's ``cli serve`` ignores them; training ignores the controller.
+TRAIN_REFUSED = ("runtime.profile_dir", "obs.enabled", "distrib.num_actors",
+                 "tuning.profile")
+SERVE_REFUSED = ("obs.enabled", "tuning.profile", "tuning.serve_controller")
 
 
 def _knob(cfg: FrameworkConfig, path: str) -> Any:
@@ -155,14 +162,17 @@ def _knob(cfg: FrameworkConfig, path: str) -> Any:
     return getattr(getattr(cfg, section), key)
 
 
-def check_ported(cfg: FrameworkConfig) -> None:
-    """Raise ``ConfigError`` for a non-default value of an unported knob."""
-    for path, default in _REFUSED.items():
+def check_ported(cfg: FrameworkConfig,
+                 knobs: tuple[str, ...] = TRAIN_REFUSED, *,
+                 mesh: bool = True) -> None:
+    """Raise ``ConfigError`` for a non-default value of an unported knob
+    among ``knobs`` (and, with ``mesh``, for a multi-device mesh)."""
+    for path in knobs:
         value = _knob(cfg, path)
-        if value != default:
+        if value != _REFUSED[path]:
             raise ConfigError(f"{path}={value!r} is not yet ported to "
                               "sharetrade_tpu_torch")
-    if cfg.parallel.mesh_shape:
+    if mesh and cfg.parallel.mesh_shape:
         raise ConfigError("parallel.mesh_shape: multi-device layouts are not "
                           "yet ported to sharetrade_tpu_torch")
 

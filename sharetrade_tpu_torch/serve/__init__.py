@@ -1,4 +1,7 @@
-"""Serving tier: the continuous-batching engine and its load driver."""
+"""Serving tier: the continuous-batching engine, its weight-swap watcher,
+its disk spill tier and its load drivers."""
 
 from sharetrade_tpu_torch.serve.engine import (  # noqa: F401
-    ServeEngine, ServeRejected, ServeResult, SlotPool, latency_percentiles)
+    ServeDeadlineExceeded, ServeEngine, ServeEngineFailed, ServeRejected,
+    ServeResult, SlotPool, WarmStore, latency_percentiles)
+from sharetrade_tpu_torch.serve.swap import WeightSwapWatcher  # noqa: F401

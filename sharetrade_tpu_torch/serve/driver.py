@@ -1,29 +1,39 @@
 """Synthetic portfolio-session load for the serving engine.
 
-Counterpart of the JAX package's ``serve/driver.py`` (closed loop only). One
+Counterpart of the JAX package's ``serve/driver.py``. One
 :class:`SessionSim` is one "user": a cursor into a price series plus a
 host-side portfolio that follows the served actions, with the trade rules of
 the trading environment (over an (A, T) matrix, those of the portfolio
 environment, ``env/portfolio.py``). Sessions start at staggered offsets, so
 a batch mixes episode clocks and portfolios.
 
-:func:`run_closed_loop` keeps ``concurrency`` sessions with exactly one
-request in flight each (submit on completion) for ``duration_s`` and
-reports achieved QPS and latency percentiles. It drives anything with the
-``submit(session_id, obs, callback=) -> handle`` surface. The open-loop
-harness and the batch-1 baseline server are not yet ported.
+Two harnesses, for anything with the ``submit(session_id, obs, callback=)
+-> handle`` surface:
+
+- :func:`run_closed_loop` keeps ``concurrency`` sessions with exactly one
+  request in flight each (submit on completion) for ``duration_s``;
+  ``concurrency=1`` against :class:`BatchOneServer` is the batch-1
+  baseline: one model call and one blocking readback per request.
+- :func:`run_open_loop` offers arrivals at a fixed rate whatever the
+  completions; an arrival that finds every session busy counts as
+  ``dropped``.
+
+Both report achieved QPS and latency percentiles.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from collections import deque
-from typing import Any
+from collections import OrderedDict, deque
+from typing import Any, Callable
 
 import numpy as np
+import torch
 
-from sharetrade_tpu_torch.serve.engine import latency_percentiles
+from sharetrade_tpu_torch.models.core import tree_map
+from sharetrade_tpu_torch.precision import FP32
+from sharetrade_tpu_torch.serve.engine import ServeResult, latency_percentiles
 
 
 class SessionSim:
@@ -97,6 +107,120 @@ def make_sessions(prices: Any, window: int, n: int, *,
     starts = rng.integers(0, max(horizon - 1, 1), size=n)
     return [SessionSim(f"{prefix}{i}", prices, window, starts[i])
             for i in range(n)]
+
+
+class BatchOneServer:
+    """The per-request baseline: the engine's ``submit`` surface, but every
+    request is one B = 1 model call with a blocking readback, on one
+    worker thread, with each session's carry threaded on the device (a
+    fresh session through ``apply_prefill``, a returning one through
+    ``apply_serve_batch``; a model without that pair through
+    ``apply_batch`` from the init carry) — the JAX package's ``model.apply``
+    per request."""
+
+    #: Bound on retained per-session carries (wrapped sessions mint new
+    #: ids); the least recently used is dropped first.
+    MAX_CARRIES = 4096
+
+    def __init__(self, model: Any, params: Any, *, precision=None):
+        precision = precision or FP32
+        self.model = model
+        self.device = model.device
+        with torch.inference_mode():
+            self._params = precision.cast_compute(params)
+            self._carry0 = tree_map(
+                lambda x: x.to(self.device)[None],
+                precision.cast_carry(model.init_carry(), model))
+        self._pair = (model.apply_prefill is not None
+                      and model.apply_serve_batch is not None)
+        self._carries: OrderedDict[Any, Any] = OrderedDict()
+        self._q: deque[tuple] = deque()
+        self._cv = threading.Condition()
+        self._stopped = False
+        self._thread = threading.Thread(target=self._loop,
+                                        name="b1-server", daemon=True)
+        self._thread.start()
+
+    def _apply(self, obs: np.ndarray, carry: Any):
+        x = torch.from_numpy(obs[None]).to(self.device)
+        if not self._pair:
+            return self.model.apply_batch(
+                self._params, x, self._carry0 if carry is None else carry)
+        if carry is None:
+            return self.model.apply_prefill(self._params, x)
+        return self.model.apply_serve_batch(self._params, x, carry)
+
+    def warmup(self) -> None:
+        obs = np.full((self.model.obs_dim,), 10.0, np.float32)
+        with torch.inference_mode():
+            out, carry = self._apply(obs, None)
+            out, _ = self._apply(obs, carry)
+            out.logits.cpu()
+
+    def submit(self, session_id: Any, obs: Any,
+               callback: Callable | None = None):
+        event = threading.Event()
+        slot: list = [None]
+        with self._cv:
+            self._q.append((session_id, np.asarray(obs, np.float32),
+                            callback, event, slot, time.perf_counter()))
+            self._cv.notify()
+
+        class _Handle:              # the engine handle's wait()
+            def wait(_self, timeout=None):
+                event.wait(timeout)
+                return slot[0]
+        return _Handle()
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._cv:
+                if not self._q:
+                    return True
+            time.sleep(0.002)
+        return False
+
+    def stop(self, **_kw) -> bool:
+        with self._cv:
+            self._stopped = True
+            self._cv.notify()
+        self._thread.join(10.0)
+        return not self._thread.is_alive()
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._q and not self._stopped:
+                    self._cv.wait(0.05)
+                if self._stopped and not self._q:
+                    return
+                sid, obs, callback, event, slot, t_enq = self._q.popleft()
+            carry = self._carries.get(sid)
+            if carry is not None:
+                self._carries.move_to_end(sid)
+            try:
+                with torch.inference_mode():
+                    out, carry = self._apply(obs, carry)
+                    logits = out.logits[0].cpu().numpy()  # the per-request sync
+                    value = float(out.value[0])
+            except Exception:   # noqa: BLE001 — fail the request, keep going
+                self._carries.pop(sid, None)
+                event.set()
+                if callback is not None:
+                    callback(None)
+                continue
+            self._carries[sid] = carry
+            if len(self._carries) > self.MAX_CARRIES:
+                self._carries.popitem(last=False)
+            result = ServeResult(
+                session_id=sid, action=int(np.argmax(logits)),
+                logits=logits, value=value, params_step=0,
+                latency_ms=(time.perf_counter() - t_enq) * 1e3)
+            slot[0] = result
+            event.set()
+            if callback is not None:
+                callback(result)
 
 
 _percentiles = latency_percentiles   # one quantile convention, serve-wide
@@ -190,4 +314,87 @@ def run_closed_loop(server: Any, sessions: list[SessionSim], *,
         failed = state["failed"]
     return {"mode": "closed_loop", "concurrency": concurrency,
             "completed": n, "failed": failed, "elapsed_s": elapsed,
+            "qps": n / max(elapsed, 1e-9), **_percentiles(lat)}
+
+
+def run_open_loop(server: Any, sessions: list[SessionSim], *,
+                  rate_qps: float, duration_s: float,
+                  stop: threading.Event | None = None) -> dict:
+    """Arrivals at ``rate_qps`` for ``duration_s``: each takes the next
+    session with no request in flight (round-robin); an arrival that finds
+    every session busy counts as ``dropped``. Returns offered, dropped,
+    completed and failed counts, achieved QPS and latency percentiles."""
+    lock = threading.Lock()
+    lat: list[float] = []
+    ready: deque[SessionSim] = deque(sessions)
+    offered = dropped = 0
+    inflight = {"n": 0, "failed": 0, "last_done": time.perf_counter()}
+    idle_evt = threading.Event()
+
+    def cb_for(sess: SessionSim):
+        def cb(result, _sess=sess):
+            with lock:
+                if result is not None:
+                    lat.append(result.latency_ms)
+                    inflight["last_done"] = time.perf_counter()
+                else:
+                    inflight["failed"] += 1
+                inflight["n"] -= 1
+                if inflight["n"] == 0:
+                    idle_evt.set()
+            if result is not None:
+                _sess.advance(result.action)
+            with lock:
+                ready.append(_sess)      # failed or not, back in rotation
+        return cb
+
+    spacing = 1.0 / max(rate_qps, 1e-9)
+    t0 = time.perf_counter()
+    t_end = gen_end = t0 + duration_s
+    issued = 0
+    while True:
+        now = time.perf_counter()
+        if now >= t_end or (stop is not None and stop.is_set()):
+            gen_end = now
+            break
+        # Issue every arrival due by the wall clock at once, so sleep
+        # jitter shifts arrivals but never lowers the offered rate.
+        due = int((now - t0) / spacing) + 1 - issued
+        if due <= 0:
+            time.sleep(min(t0 + issued * spacing - now, 0.001))
+            continue
+        for _ in range(min(due, 512)):
+            issued += 1
+            offered += 1
+            with lock:
+                sess = ready.popleft() if ready else None
+            if sess is None:
+                dropped += 1
+                continue
+            with lock:
+                inflight["n"] += 1
+                idle_evt.clear()
+            try:
+                server.submit(sess.sid, sess.observation(), cb_for(sess))
+            except Exception:   # noqa: BLE001 — engine stopped or failed
+                with lock:
+                    inflight["failed"] += 1
+                    inflight["n"] -= 1
+                    if inflight["n"] == 0:
+                        idle_evt.set()
+                    ready.append(sess)
+    # The tail of in-flight requests completes before measuring; QPS is over
+    # [start, max(last completion, the generation span)].
+    with lock:
+        if inflight["n"] == 0:
+            idle_evt.set()
+    idle_evt.wait(10.0)
+    with lock:
+        n = len(lat)
+        failed = inflight["failed"]
+        elapsed = max(inflight["last_done"] - t0,
+                      min(duration_s, gen_end - t0))
+    return {"mode": "open_loop", "rate_qps": rate_qps,
+            "offered": offered, "dropped": dropped, "completed": n,
+            "failed": failed, "elapsed_s": elapsed,
             "qps": n / max(elapsed, 1e-9), **_percentiles(lat)}

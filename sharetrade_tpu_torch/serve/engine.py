@@ -11,42 +11,98 @@ batch never touches a live session.
 
 Structure (the JAX engine's dispatcher/consumer split):
 
-- **submit** (any thread): enqueue into a bounded ingress queue; past
-  ``serve.max_queue`` the request is refused at once (``shed_policy=
-  "reject"``) with :class:`ServeRejected`, never blocking the caller.
+- **submit** (any thread): enqueue into the ingress queue, bounded at
+  ``serve.max_queue``. Past the bound the new request is refused
+  (``shed_policy="reject"``) or the oldest queued one is shed
+  (``"oldest"``); the loser completes at once with :class:`ServeRejected`.
+  Never blocks the caller.
 - **dispatcher thread**: coalesce a batch (the first request waits at most
-  ``batch_timeout_ms``; a full batch never waits; a second request of a
-  session already in the batch is deferred to the next tick), admit new
-  sessions into the LRU :class:`SlotPool` (evicted sessions restart cold),
-  and enqueue the tick's device programs: the COLD program (batched
-  prefill) for fresh sessions, the WARM program (per-row-clock incremental
-  step) for sessions with a slot. Each program gathers its rows' carries
-  from the arena, runs the model and scatters them back. A model without a
-  prefill/serve pair (the MLPs, the LSTM, the TCN, the window transformer)
-  runs ONE GENERIC program per tick instead:
-  cold rows take the init carry inside the program, then every row runs
-  ``model.apply_batch``. Nothing here
-  waits for the device: PyTorch enqueues CUDA work asynchronously, and
-  host inputs go up from pinned memory without a synchronising copy.
+  ``batch_timeout_ms``, clamped to the earliest surviving request's
+  deadline; a full batch never waits; a second request of a session already
+  in the batch is deferred to the next tick; an expired request completes
+  with :class:`ServeDeadlineExceeded` before it can take a row), admit new
+  sessions into the LRU :class:`SlotPool`, and enqueue the tick's device
+  programs: the COLD program (batched prefill) for fresh sessions, the WARM
+  program (per-row-clock incremental step) for sessions with a slot. Each
+  program gathers its rows' carries from the arena, runs the model and
+  scatters them back (``index_copy_``). A model without a prefill/serve
+  pair (the MLPs, the LSTM, the TCN, the window transformer) runs ONE
+  GENERIC program per tick instead: cold rows take the init carry inside
+  the program, then every row runs ``model.apply_batch``. The weights are
+  read ONCE per tick (:class:`_Live`: params and their checkpoint step),
+  so a tick never computes under two sets of weights, and every
+  :class:`ServeResult` names the step that computed it. Nothing here waits
+  for the device: PyTorch enqueues CUDA work asynchronously, and host
+  inputs go up from pinned memory without a synchronising copy.
 - **consumer thread**: device readback, request completion (events +
-  callbacks) and latency accounting. The dispatcher->consumer queue is
-  bounded, so in-flight device buffers are bounded.
+  callbacks) and the spill tier's disk I/O. The dispatcher->consumer queue
+  is bounded, so in-flight device buffers are bounded.
 
-Inference runs under ``torch.inference_mode()``.
+Every CUDA operation of both threads goes on the device's current (default)
+stream, so the arena's in-place writes, the page-out gathers, the installs
+and the readbacks are ordered by the stream itself. Only the page-out's
+device-to-host copies run on a stream of their own, after an event that
+follows their gather.
 
-Not yet ported (refused when configured, see :func:`_refuse_unported`):
-per-request deadlines, ``shed_policy="oldest"``, supervised restarts, the
-warm host tier and the spill tier. Also absent: the weight-swap watcher
-(``serve.swap_poll_s``, on by default: the weights are those the engine was
-built with, ``params_step`` names their checkpoint; :func:`unported_defaults`
-names it, and ``cli serve`` says so once), SLO burn gauges, exemplars,
-histograms and live knobs.
+Weight swaps (:meth:`ServeEngine.swap_params`, called by
+``serve/swap.py``'s watcher) replace one ``(params, step)`` reference
+between ticks; the new compute copy is complete on the device before it is
+published, and the old one stays referenced by the ticks that read it until
+the consumer has read them back.
+
+Supervision (``serve.max_restarts > 0``): a dispatch or consumer fault
+fails its batch, then the engine is rebuilt (fresh slot pool, fresh arena,
+warmed up again) under seeded exponential backoff that waits on the stop
+event; sessions re-enter cold through the batched prefill. More than
+``max_restarts`` consecutive faults trip a terminal failed state in which
+queued and later work fails loudly with :class:`ServeEngineFailed`. A
+sticky CUDA error makes every rebuild fail, so such a fault storm ends in
+the terminal state rather than a spin.
+
+Session tiers (``serve.warm_bytes``, ``serve.spill_dir``), for models with
+a carry:
+
+- **hot**: a slot of the arena.
+- **warm**: an evicted session's carry rows are gathered on the dispatcher
+  into one packed byte row per session (``index_select`` and a ``cat``:
+  new tensors, enqueued before the tick's scatters into the same slots,
+  and referenced until copied), copied on the copy stream into the
+  session's own pinned host row (the layout of a spill record's payload),
+  and parked in :class:`WarmStore`, a byte-budgeted host LRU, once the
+  copy's event has passed. A request of a session whose page-out is still
+  in flight waits for it. A returning session's parked row is copied up
+  into a staging row, split into its leaves and scattered back through
+  the same ``index_copy_`` path, so it continues bit for bit as a session
+  that was never evicted, through the warm program (no prefill, no
+  ``flash_fwd``).
+- **spill**: the warm store's overflow, and at ``page_out_all`` every
+  surviving carry, sealed into a crash-consistent on-disk arena
+  (``serve/spill.py``: CRC, step stamp, atomic rename; the JAX package's
+  record format), which another engine of either package can adopt. The
+  disk I/O rides the consumer; the dispatcher only probes with
+  ``os.stat``. A stale, torn or CRC-bad record lands cold.
+- **cold**: everything else: the batched prefill.
+
+Counters (``MetricsRegistry``, the JAX names): ``serve_requests_total``,
+``serve_responses_total``, ``serve_batches_total``,
+``serve_prefills_total``, ``serve_evictions_total``,
+``serve_queue_rejected_total``, ``serve_shed_total``,
+``serve_deadline_expired_total``, ``serve_restarts_total``,
+``serve_swaps_total``, the warm tier's ``serve_warm_*_total`` and the
+spill tier's ``serve_spill_*_total`` / ``serve_adopt_*_total``; gauges
+``serve_overload`` and ``serve_failed``. ``engine.counters`` keeps the
+port's own per-program counts.
+
+Inference runs under ``torch.inference_mode()``. Not yet ported: SLO burn
+gauges, exemplars, histograms (``serve.stats_interval_s``) and live knobs.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import queue
+import random
 import threading
 import time
 from collections import OrderedDict, deque
@@ -56,25 +112,41 @@ import numpy as np
 import torch
 
 from sharetrade_tpu_torch.config import ConfigError, ServeConfig
-from sharetrade_tpu_torch.models.core import tree_map
+from sharetrade_tpu_torch.models.core import tree_leaves, tree_map
 from sharetrade_tpu_torch.precision import FP32, PrecisionPolicy
+from sharetrade_tpu_torch.serve.spill import SpillArena
 from sharetrade_tpu_torch.utils.logging import get_logger
+from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
 
 log = get_logger("serve")
 
 _SHUTDOWN = object()
+#: Done-queue nudge: the dispatcher enqueues spill ops for the consumer and
+#: pokes this (best-effort) so an idle consumer runs them now.
+_SPILL_TICK = object()
 #: Dispatched ticks the consumer may lag behind (bounds in-flight buffers).
 _DONE_DEPTH = 4
 
 
 class ServeRejected(RuntimeError):
-    """The request was refused admission: the ingress queue was at
-    ``serve.max_queue``. Delivered as a completed handle (``wait()``
-    returns None, ``error`` carries this)."""
+    """The request was refused admission (``shed_policy="reject"``) or shed
+    from the queue under overload (``"oldest"``). Delivered as a completed
+    handle (``wait()`` returns None, ``error`` carries this); ``reason`` is
+    ``"queue_full"`` / ``"shed_oldest"`` / ``"deferred_overflow"``."""
 
     def __init__(self, message: str, *, reason: str):
         super().__init__(message)
         self.reason = reason
+
+
+class ServeDeadlineExceeded(RuntimeError):
+    """The request's deadline (``submit(..., deadline_ms=)`` or
+    ``serve.default_deadline_ms``) expired before it reached a batch."""
+
+
+class ServeEngineFailed(RuntimeError):
+    """More than ``serve.max_restarts`` consecutive faults: the engine is
+    terminally failed and every queued and later request fails with this."""
 
 
 def latency_percentiles(values) -> dict[str, float]:
@@ -93,8 +165,10 @@ def latency_percentiles(values) -> dict[str, float]:
 
 
 class ServeResult(NamedTuple):
-    """One completed inference. ``stages`` splits ``latency_ms`` into
-    ``queue_wait_ms`` + ``batch_wait_ms`` + ``device_ms``."""
+    """One completed inference. ``params_step`` names the checkpoint whose
+    weights computed it; ``stages`` splits ``latency_ms`` into
+    ``queue_wait_ms`` + ``batch_wait_ms`` + ``device_ms``; ``batch`` is the
+    serial of the dispatcher tick that served it."""
 
     session_id: Any
     action: int
@@ -103,23 +177,41 @@ class ServeResult(NamedTuple):
     params_step: int
     latency_ms: float
     stages: dict | None = None
+    batch: int | None = None
+
+
+class _Live(NamedTuple):
+    """The serving weights as one reference, swapped whole and read once
+    per tick."""
+
+    params: Any
+    step: int
 
 
 class _Request:
-    __slots__ = ("session_id", "obs", "t_enq", "t_collected",
-                 "t_dispatched", "callback", "_event", "result", "error")
+    __slots__ = ("session_id", "obs", "t_enq", "t_deadline", "t_collected",
+                 "t_dispatched", "callback", "_event", "result", "error",
+                 "clock")
 
     def __init__(self, session_id: Any, obs: np.ndarray,
-                 callback: Callable[[ServeResult | None], None] | None):
+                 callback: Callable[[ServeResult | None], None] | None,
+                 deadline_ms: float = 0.0, clock: int | None = None):
         self.session_id = session_id
         self.obs = obs
         self.t_enq = time.perf_counter()
+        # A negative deadline (a budget already spent) is already expired.
+        self.t_deadline = (self.t_enq + max(deadline_ms, 0.0) / 1e3
+                           if deadline_ms else None)
         self.t_collected: float | None = None
         self.t_dispatched: float | None = None
         self.callback = callback
         self._event = threading.Event()
         self.result: ServeResult | None = None
         self.error: BaseException | None = None
+        #: The session's expected step clock (its completed-response count)
+        #: for adopting a spilled carry; None: local submit, adoption only
+        #: of this engine incarnation's own records.
+        self.clock = clock
 
     def wait(self, timeout: float | None = None) -> ServeResult | None:
         """Block until the response is ready; None on timeout or failure
@@ -128,9 +220,35 @@ class _Request:
         return self.result
 
 
+class _PageOut(NamedTuple):
+    """One tick's page-out in flight: the victims, their stamps, the pinned
+    host carries the copies land in, the packed device rows they are read
+    from (kept alive until the copies end) and the events around it."""
+
+    sids: list
+    steps: list
+    rows: list
+    packed: Any
+    events: tuple         # (gather start, gather end, copy start, copy end)
+
+
 class _DoneBatch(NamedTuple):
+    """One dispatched tick, dispatcher -> consumer."""
+
     groups: list          # [(reqs, actions, logits, values)] on the device
+    live: _Live           # the weights the tick read (kept alive until read)
     n: int
+    serial: int
+    cold: int
+    evicted: int
+    #: Supervision fault epoch at dispatch: only a batch dispatched after
+    #: the latest fault may reset the consecutive-fault streak.
+    epoch: int = 0
+    #: CUDA events around the tick's install (device timing; None on the
+    #: CPU or when the tick installed nothing), and the pinned host carries
+    #: it copied up, held until the tick is read back.
+    install_events: tuple | None = None
+    installed: tuple = ()
 
 
 class SlotPool:
@@ -142,16 +260,21 @@ class SlotPool:
         self.capacity = capacity
         self._lru: OrderedDict[Any, int] = OrderedDict()  # oldest first
         self._free = list(range(capacity))
+        self.evictions = 0
 
     def __len__(self) -> int:
         return len(self._lru)
 
     def lookup(self, session_id: Any) -> int | None:
-        """Slot of a warm session (refreshes its recency), else None."""
+        """Slot of a hot session (refreshes its recency), else None."""
         slot = self._lru.get(session_id)
         if slot is not None:
             self._lru.move_to_end(session_id)
         return slot
+
+    def contains(self, session_id: Any) -> bool:
+        """Membership without a recency refresh."""
+        return session_id in self._lru
 
     def drop(self, session_id: Any) -> None:
         slot = self._lru.pop(session_id, None)
@@ -168,38 +291,70 @@ class SlotPool:
             if victim not in pinned:
                 slot = self._lru.pop(victim)
                 self._lru[session_id] = slot
+                self.evictions += 1
                 return slot, victim
         raise RuntimeError("slot pool exhausted by pinned sessions")
 
 
-def _refuse_unported(cfg: ServeConfig) -> None:
-    checks = {
-        "shed_policy": cfg.shed_policy != "reject",
-        "default_deadline_ms": cfg.default_deadline_ms != 0,
-        "max_restarts": cfg.max_restarts != 0,
-        "warm_bytes": cfg.warm_bytes != 0,
-        "spill_dir": bool(cfg.spill_dir),
-    }
-    for knob, set_ in checks.items():
-        if set_:
-            raise ConfigError(f"serve.{knob}={getattr(cfg, knob)!r} is not "
-                              "yet ported to sharetrade_tpu_torch")
+class WarmStore:
+    """The warm tier: a byte-budgeted LRU of parked carries (host trees of
+    CPU tensors), owned by the dispatcher thread alone. Every ``put``
+    demotes stalest-first until both the byte budget and the session bound
+    hold; a carry larger than the whole budget is refused."""
 
+    def __init__(self, max_bytes: int, max_sessions: int):
+        self.max_bytes = int(max_bytes)
+        self.max_sessions = max(1, int(max_sessions))
+        #: session -> (rows, nbytes, steps): the carry, its footprint and
+        #: the session's dispatched-step stamp at park time.
+        self._lru: OrderedDict[Any, tuple[Any, int, int]] = OrderedDict()
+        self.bytes = 0
+        self.demotions = 0
+        self.refusals = 0
+        self.stale_drops = 0
 
-#: Serving knobs whose DEFAULT turns on a feature that is not ported: the
-#: engine runs without it, and ``cli serve`` says so once (as the
-#: orchestrator's ``_WARNED`` does for training knobs).
-_WARNED = {
-    "swap_poll_s": (lambda v: v > 0,
-                    "the weight-swap watcher (the boot weights serve for the "
-                    "whole run)"),
-}
+    def __len__(self) -> int:
+        return len(self._lru)
 
+    def contains(self, session_id: Any) -> bool:
+        return session_id in self._lru
 
-def unported_defaults(cfg: ServeConfig) -> list[str]:
-    """The unported serving features ``cfg`` turns on, each with its knob."""
-    return [f"{what} [serve.{knob}]" for knob, (on, what) in _WARNED.items()
-            if on(getattr(cfg, knob))]
+    def pop(self, session_id: Any) -> tuple[Any, int] | None:
+        """Remove and return a parked ``(carry, steps)`` (a warm hit), or
+        None on a miss."""
+        entry = self._lru.pop(session_id, None)
+        if entry is None:
+            return None
+        rows, nbytes, steps = entry
+        self.bytes -= nbytes
+        return rows, steps
+
+    def discard(self, session_id: Any) -> None:
+        """Forget a parked carry without returning it."""
+        self.pop(session_id)
+
+    def put(self, session_id: Any, rows: Any, nbytes: int,
+            steps: int = 0) -> list:
+        """Park one carry; returns the entries demoted to make room
+        (stalest first, as ``(session, rows, nbytes, steps)``). A carry
+        that cannot fit the budget at all is refused."""
+        nbytes = int(nbytes)
+        if nbytes <= 0 or nbytes > self.max_bytes:
+            self.refusals += 1
+            return []
+        old = self._lru.pop(session_id, None)
+        if old is not None:
+            self.bytes -= old[1]
+        self._lru[session_id] = (rows, nbytes, int(steps))
+        self.bytes += nbytes
+        demoted = []
+        while (self.bytes > self.max_bytes
+               or len(self._lru) > self.max_sessions):
+            victim, (vrows, vbytes, vsteps) = self._lru.popitem(last=False)
+            self.bytes -= vbytes
+            self.demotions += 1
+            demoted.append((victim, vrows, vbytes, vsteps))
+        return demoted
 
 
 def _fire(callback, result) -> None:
@@ -213,26 +368,58 @@ def _fire(callback, result) -> None:
         log.exception("serve callback failed")
 
 
+def _validate(cfg: ServeConfig) -> None:
+    if cfg.max_batch < 1:
+        raise ConfigError(
+            f"serve.max_batch must be >= 1, got {cfg.max_batch}")
+    if cfg.slots < cfg.max_batch:
+        raise ConfigError(
+            f"serve.slots ({cfg.slots}) must be >= serve.max_batch "
+            f"({cfg.max_batch}): every session of a full batch needs a "
+            "live slot")
+    if cfg.batch_timeout_ms < 0:
+        raise ConfigError(f"serve.batch_timeout_ms must be >= 0, got "
+                          f"{cfg.batch_timeout_ms}")
+    if cfg.max_queue < 1:
+        raise ConfigError(f"serve.max_queue must be >= 1, got "
+                          f"{cfg.max_queue}")
+    if cfg.shed_policy not in ("reject", "oldest"):
+        raise ConfigError(f"serve.shed_policy must be 'reject' or 'oldest', "
+                          f"got {cfg.shed_policy!r}")
+    if cfg.default_deadline_ms < 0:
+        raise ConfigError(f"serve.default_deadline_ms must be >= 0 (0 = "
+                          f"none), got {cfg.default_deadline_ms}")
+    if cfg.max_restarts < 0:
+        raise ConfigError(f"serve.max_restarts must be >= 0, got "
+                          f"{cfg.max_restarts}")
+    if cfg.restart_backoff_s <= 0 or cfg.restart_backoff_max_s <= 0:
+        raise ConfigError(
+            "serve.restart_backoff_s / restart_backoff_max_s must be > 0, "
+            f"got {cfg.restart_backoff_s}/{cfg.restart_backoff_max_s}")
+    if cfg.warm_bytes < 0:
+        raise ConfigError(f"serve.warm_bytes must be >= 0 (0 disables the "
+                          f"warm tier), got {cfg.warm_bytes}")
+    if cfg.warm_max_sessions < 1:
+        raise ConfigError(f"serve.warm_max_sessions must be >= 1, got "
+                          f"{cfg.warm_max_sessions}")
+    if cfg.spill_bytes < 0:
+        raise ConfigError(f"serve.spill_bytes must be >= 0, got "
+                          f"{cfg.spill_bytes}")
+    if cfg.spill_dir and cfg.warm_bytes <= 0:
+        raise ConfigError("serve.spill_dir requires the warm tier "
+                          "(serve.warm_bytes > 0): the spill arena is the "
+                          "warm store's overflow")
+
+
 class ServeEngine:
     """Construct, :meth:`warmup`, submit from any thread, :meth:`stop`."""
 
     def __init__(self, model: Any, cfg: ServeConfig, params: Any, *,
-                 params_step: int = 0, precision: PrecisionPolicy = FP32):
-        if cfg.max_batch < 1:
-            raise ConfigError(
-                f"serve.max_batch must be >= 1, got {cfg.max_batch}")
-        if cfg.slots < cfg.max_batch:
-            raise ConfigError(
-                f"serve.slots ({cfg.slots}) must be >= serve.max_batch "
-                f"({cfg.max_batch}): every session of a full batch needs a "
-                "live slot")
-        if cfg.batch_timeout_ms < 0:
-            raise ConfigError(f"serve.batch_timeout_ms must be >= 0, got "
-                              f"{cfg.batch_timeout_ms}")
-        if cfg.max_queue < 1:
-            raise ConfigError(f"serve.max_queue must be >= 1, got "
-                              f"{cfg.max_queue}")
-        _refuse_unported(cfg)
+                 params_step: int = 0, precision: PrecisionPolicy = FP32,
+                 registry: MetricsRegistry | None = None,
+                 done_depth: int = _DONE_DEPTH,
+                 restart_seed: int | None = None):
+        _validate(cfg)
         self._generic = (model.apply_prefill is None
                          or model.apply_serve_batch is None)
         if self._generic and model.apply_batch is None:
@@ -241,28 +428,31 @@ class ServeEngine:
                               "apply_batch")
         self.model = model
         self.cfg = cfg
-        #: Update count of the checkpoint the weights came from (0: none);
-        #: every response carries it.
-        self.params_step = int(params_step)
+        self._precision = precision
+        self._registry = registry if registry is not None else MetricsRegistry()
         self.device = model.device        # params and arena live with it
-        self._pin = self.device.type == "cuda"
+        self._cuda = self.device.type == "cuda"
+        #: The page-out copies' stream (they overlap the tick's programs).
+        self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
+                             else None)
         with torch.inference_mode():
-            self._params = precision.cast_compute(params)
-            carry0 = precision.cast_carry(model.init_carry(), model)
-            n_arena = cfg.slots + cfg.max_batch
-            # The arena: one carry row per slot + max_batch scratch rows.
-            self._pool = tree_map(
-                lambda x: x.to(self.device)[None].repeat(
-                    (n_arena,) + (1,) * x.ndim).contiguous(), carry0)
-            # Per-row init carries for the generic program's cold reset.
-            self._carry0_rows = tree_map(
-                lambda x: x.to(self.device)[None].repeat(
-                    (cfg.max_batch,) + (1,) * x.ndim).contiguous(), carry0)
-        self._slots = SlotPool(cfg.slots)
+            self._live = _Live(precision.cast_compute(params),
+                               int(params_step))
+            self._carry0 = precision.cast_carry(model.init_carry(), model)
+        #: One session's carry in bytes: the warm tier's accounting unit and
+        #: the spill record's payload length.
+        self._carry_nbytes = sum(leaf.numel() * leaf.element_size()
+                                 for leaf in tree_leaves(self._carry0))
+        self._warm_enabled = cfg.warm_bytes > 0 and self._carry_nbytes > 0
+        self._spill_enabled = bool(cfg.spill_dir) and self._warm_enabled
+        self._build_arena()
 
         self._q: queue.Queue = queue.Queue(maxsize=cfg.max_queue)
         self._deferred: deque[_Request] = deque()
-        self._done_q: queue.Queue = queue.Queue(maxsize=_DONE_DEPTH)
+        self._done_q: queue.Queue = queue.Queue(maxsize=done_depth)
+        #: Sessions whose carries a consumer fault left suspect, dropped by
+        #: the dispatcher (which owns the slot pool).
+        self._poisoned: deque = deque()
         self._stop_event = threading.Event()
         self._pending = 0
         self._lock = threading.Lock()
@@ -273,6 +463,23 @@ class ServeEngine:
             ("requests", "completed", "failed", "rejected", "batches",
              "cold_batches", "warm_batches", "generic_batches", "cold_rows",
              "warm_rows", "evictions"), 0)
+        #: Device milliseconds of the paging path (CUDA events): the park
+        #: gather + its copy, and the install upload + scatter, summed,
+        #: with the ticks they ran in.
+        self._paging_ms = {"pageout": [0.0, 0], "install": [0.0, 0]}
+
+        # Supervision: the consecutive-fault streak (the dispatcher counts,
+        # the consumer resets), the fault epoch that gates those resets, a
+        # consumer-side restart request and the terminal fault.
+        self._restart_streak = 0
+        self._sup_lock = threading.Lock()
+        self._fault_epoch = 0
+        self._restart_rng = random.Random(restart_seed)
+        self._restart_requested = threading.Event()
+        self._consumer_fault: BaseException | None = None
+        self._consumer_fault_epoch = 0
+        self._failed: BaseException | None = None
+        self._batch_serial = 0
 
         self._dispatcher = threading.Thread(
             target=self._serve_loop, name="serve-dispatcher", daemon=True)
@@ -281,87 +488,285 @@ class ServeEngine:
         self._dispatcher.start()
         self._consumer.start()
 
+    def _build_arena(self) -> None:
+        """Fresh slot pool, warm store and device arena: construction and
+        the supervised rebuild (every session then re-enters cold)."""
+        cfg = self.cfg
+        self._slots = SlotPool(cfg.slots)
+        self._warm = WarmStore(cfg.warm_bytes, cfg.warm_max_sessions)
+        #: Page-outs in flight (:class:`_PageOut`, in stream order), and the
+        #: sessions they carry (dispatcher-owned): a request of such a
+        #: session defers until its page-out is committed to the warm
+        #: store, so a returning session always finds its parked carry.
+        self._pageouts: deque = deque()
+        self._parking: set = set()
+        self._tick_victims: list = []
+        #: Dispatched-step counts of hot sessions (the adoption clock that
+        #: parks and spill records carry). Dispatcher-owned.
+        self._steps: dict[Any, int] = {}
+        #: Disk ops dispatcher -> consumer: ("put", sid, rows, steps),
+        #: ("del", sid), ("take", sid, clock).
+        self._spill_ops: deque = deque()
+        #: Completed takes consumer -> dispatcher: (sid, rows|None, steps,
+        #: reason).
+        self._spill_inbox: deque = deque()
+        #: Sessions with a take in flight: their requests defer.
+        self._spill_inflight: set = set()
+        #: Sessions with a put queued or running (dispatcher-owned counts),
+        #: and the puts the consumer finished (consumer -> dispatcher): a
+        #: request of a session whose carry is on its way to disk defers
+        #: until the record is sealed, then adopts it.
+        self._spill_putting: dict[Any, int] = {}
+        self._spill_put_done: deque = deque()
+        if self._spill_enabled:
+            # A fresh incarnation per (re)build: without a session clock a
+            # rebuilt engine adopts none of its predecessor's records.
+            self._arena: SpillArena | None = SpillArena(
+                cfg.spill_dir, max_bytes=cfg.spill_bytes,
+                record_nbytes=self._carry_nbytes,
+                incarnation=os.urandom(8).hex())
+        else:
+            self._arena = None
+        n_arena = cfg.slots + cfg.max_batch
+        with torch.inference_mode():
+            self._pool = tree_map(
+                lambda x: x.to(self.device)[None].repeat(
+                    (n_arena,) + (1,) * x.ndim).contiguous(), self._carry0)
+            # Per-row init carries for the generic program's cold reset.
+            self._carry0_rows = tree_map(
+                lambda x: x.to(self.device)[None].repeat(
+                    (cfg.max_batch,) + (1,) * x.ndim).contiguous(),
+                self._carry0)
+
     # -- device programs --------------------------------------------------
 
-    def _warm_program(self, obs, idx):
+    def _warm_program(self, params, obs, idx):
         """One incremental step for a warm batch: gather, step, scatter."""
         rows = tree_map(lambda p: p.index_select(0, idx), self._pool)
-        out, new_rows = self.model.apply_serve_batch(self._params, obs, rows)
+        out, new_rows = self.model.apply_serve_batch(params, obs, rows)
         tree_map(lambda p, r: p.index_copy_(0, idx, r), self._pool,
                   new_rows)
         return out.logits.argmax(dim=-1), out.logits, out.value
 
-    def _cold_program(self, obs, idx):
+    def _cold_program(self, params, obs, idx):
         """Batched prefill for fresh (or evicted) sessions; their carries
         land in their slots."""
-        out, new_rows = self.model.apply_prefill(self._params, obs)
+        out, new_rows = self.model.apply_prefill(params, obs)
         tree_map(lambda p, r: p.index_copy_(0, idx, r.to(p.dtype)),
                   self._pool, new_rows)
         return out.logits.argmax(dim=-1), out.logits, out.value
 
-    def _generic_program(self, obs, idx, cold):
+    def _generic_program(self, params, obs, idx, cold):
         """One program for models without a prefill/serve pair: cold rows
         take the init carry, then every row runs ``model.apply_batch``."""
         rows = tree_map(
             lambda p, c: torch.where(
                 cold.reshape((-1,) + (1,) * (c.ndim - 1)), c,
                 p.index_select(0, idx)), self._pool, self._carry0_rows)
-        out, new_rows = self.model.apply_batch(self._params, obs, rows)
+        out, new_rows = self.model.apply_batch(params, obs, rows)
         tree_map(lambda p, r: p.index_copy_(0, idx, r.to(p.dtype)),
                   self._pool, new_rows)
         return out.logits.argmax(dim=-1), out.logits, out.value
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(array)
-        if not self._pin:
+    def _park_gather(self, slots: list[int]) -> torch.Tensor:
+        """The carries of ``slots`` as one new (n, carry bytes) uint8 device
+        tensor: each row a session's leaves' raw bytes in tree-leaf order
+        (the spill record's payload layout), enqueued before anything
+        writes those slots."""
+        idx = self._upload(np.asarray(slots, np.int64))
+        return torch.cat([p.index_select(0, idx).reshape(len(slots), -1)
+                          .view(torch.uint8)
+                          for p in tree_leaves(self._pool)], dim=1)
+
+    def _install(self, rows: list, slots: list[int]) -> None:
+        """Unpark: each parked host carry (a flat byte row, pinned on the
+        card) copied up into a staging row, asynchronously, then split
+        into its leaves and scattered into the (re-)admitted slots through
+        ``index_copy_``."""
+        idx = self._upload(np.asarray(slots, np.int64))
+        staging = torch.empty((len(rows), self._carry_nbytes),
+                              dtype=torch.uint8, device=self.device)
+        for i, row in enumerate(rows):
+            staging[i].copy_(row, non_blocking=True)
+        off = 0
+        for p in tree_leaves(self._pool):
+            nbytes = p[0].numel() * p.element_size()
+            part = staging[:, off:off + nbytes].contiguous()
+            p.index_copy_(0, idx, part.view(p.dtype).reshape(
+                (len(rows),) + tuple(p.shape[1:])))
+            off += nbytes
+
+    def _start_page_out(self, sids: list, steps: list, slots: list[int]
+                        ) -> None:
+        """Page-out: gather the victims' rows on the main stream, then copy
+        each into its own pinned host carry on the copy stream, which waits
+        for the gather (an event) and so overlaps the tick's programs; the
+        dispatcher commits the carries once the copy's event has passed."""
+        start = self._event()
+        packed = self._park_gather(slots)
+        gathered = self._event()
+        rows = [torch.empty(self._carry_nbytes, dtype=torch.uint8,
+                            pin_memory=self._cuda) for _ in sids]
+        if self._cuda:
+            self._copy_stream.wait_event(gathered)
+            with torch.cuda.stream(self._copy_stream):
+                copy_start = self._event()
+                for i, row in enumerate(rows):
+                    row.copy_(packed[i], non_blocking=True)
+                events = (start, gathered, copy_start, self._event())
+        else:
+            for i, row in enumerate(rows):
+                row.copy_(packed[i])
+            events = ()
+        self._pageouts.append(_PageOut(list(sids), list(steps), rows, packed,
+                                       events))
+
+    def _upload_tensor(self, host: torch.Tensor) -> torch.Tensor:
+        if not self._cuda:
             return host
         return host.pin_memory().to(self.device, non_blocking=True)
 
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        return self._upload_tensor(torch.from_numpy(array))
+
+    def _event(self):
+        """A recorded CUDA timing event on the current stream (None on the
+        CPU)."""
+        if not self._cuda:
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
     # -- public surface ---------------------------------------------------
 
+    @property
+    def params_step(self) -> int:
+        """Checkpoint step of the current serving weights."""
+        return self._live.step
+
+    @property
+    def registry(self) -> MetricsRegistry:
+        return self._registry
+
+    @property
+    def failed(self) -> BaseException | None:
+        """The terminal fault, once the engine tripped its failed state."""
+        return self._failed
+
+    def queue_depth(self) -> int:
+        return self._q.qsize()
+
+    def paging_ms(self) -> dict[str, float | None]:
+        """Mean device ms per tick that paged: ``pageout`` (the park gather
+        and its copy to the host) and ``install`` (upload and scatter); None
+        where no tick paged or off the card."""
+        return {k: (total / ticks if ticks else None)
+                for k, (total, ticks) in self._paging_ms.items()}
+
     def submit(self, session_id: Any, obs: Any,
-               callback: Callable[[ServeResult | None], None] | None = None
-               ) -> _Request:
+               callback: Callable[[ServeResult | None], None] | None = None,
+               *, deadline_ms: float | None = None,
+               session_clock: int | None = None) -> _Request:
         """Enqueue one query; thread-safe and never blocking. Returns a
         handle whose ``wait()`` blocks for the response; ``callback(result)``
-        also fires on the consumer thread (with None on failure)."""
+        also fires (with None on failure). ``deadline_ms`` (None:
+        ``serve.default_deadline_ms``; 0: none) bounds the wait before a
+        batch. ``session_clock`` is the session's completed-response count,
+        the stamp a spilled carry must carry to be adopted (None: only this
+        engine incarnation's own records)."""
         if self._stop_event.is_set():
             raise RuntimeError("serve engine is stopped")
-        req = _Request(session_id, np.asarray(obs, np.float32), callback)
+        if self._failed is not None:
+            raise ServeEngineFailed(
+                "serve engine is in the terminal failed state (last fault: "
+                f"{self._failed!r}); rebuild it") from self._failed
+        if deadline_ms is None:
+            deadline_ms = self.cfg.default_deadline_ms
+        req = _Request(session_id, np.asarray(obs, np.float32), callback,
+                       deadline_ms=deadline_ms,
+                       clock=(int(session_clock)
+                              if session_clock is not None else None))
         with self._lock:
             self._pending += 1
             self.counters["requests"] += 1
-        try:
-            self._q.put_nowait(req)
-        except queue.Full:
-            with self._lock:
-                self.counters["rejected"] += 1
-            self._finish_failed(req, ServeRejected(
-                f"ingress queue full ({self.cfg.max_queue}); request "
-                "rejected under shed_policy='reject'", reason="queue_full"))
-        return req
+        self._registry.inc("serve_requests_total")
+        while True:
+            try:
+                self._q.put_nowait(req)
+                if (self._stop_event.is_set()
+                        and not self._dispatcher.is_alive()):
+                    # stop() finished between the gate above and the put:
+                    # nobody reads the queue again.
+                    self._fail_leftovers()
+                return req
+            except queue.Full:
+                pass
+            self._registry.record("serve_overload", 1.0)
+            if self.cfg.shed_policy == "reject":
+                self._registry.inc("serve_queue_rejected_total")
+                with self._lock:
+                    self.counters["rejected"] += 1
+                self._finish_failed(req, ServeRejected(
+                    f"ingress queue full ({self.cfg.max_queue}); request "
+                    "rejected under shed_policy='reject'",
+                    reason="queue_full"))
+                return req
+            # "oldest": shed the oldest queued request and retry the put
+            # (the dispatcher may race us for it: then just retry).
+            try:
+                victim = self._q.get_nowait()
+            except queue.Empty:
+                continue
+            self._registry.inc("serve_shed_total")
+            self._finish_failed(victim, ServeRejected(
+                "shed from the ingress queue under overload (shed_policy="
+                f"'oldest', max_queue={self.cfg.max_queue})",
+                reason="shed_oldest"))
+
+    def swap_params(self, master_params: Any, step: int) -> None:
+        """Install new serving weights between ticks. The compute copy is
+        made and complete on the device before it is published, so the
+        first tick that reads it reads finished weights; ticks in flight
+        keep the old weights referenced until they are read back."""
+        with torch.no_grad():
+            params = self._precision.cast_compute(tree_map(
+                lambda x: x.to(self.device), master_params))
+        ready = self._event()
+        if ready is not None:
+            ready.synchronize()
+        self._live = _Live(params, int(step))
+        self._registry.inc("serve_swaps_total")
+        log.info("serving params swapped to step %d", int(step))
 
     def warmup(self) -> None:
-        """Run both programs once on scratch rows (live slots untouched),
-        so the first real request pays no kernel build or first launch.
-        Must run before concurrent submits."""
+        """Run every program once on scratch rows (live slots untouched), so
+        the first real request pays no kernel build or first launch. Must
+        run before concurrent submits."""
         cfg = self.cfg
         obs = self._upload(np.full((cfg.max_batch, self.model.obs_dim), 10.0,
                                    np.float32))
         idx = self._upload(np.arange(cfg.slots, cfg.slots + cfg.max_batch,
                                      dtype=np.int64))
+        params = self._live.params
         with torch.inference_mode():
             if self._generic:
-                self._generic_program(obs, idx, self._upload(
+                self._generic_program(params, obs, idx, self._upload(
                     np.ones((cfg.max_batch,), np.bool_)))
             else:
-                self._cold_program(obs, idx)
-                self._warm_program(obs, idx)
-        if self.device.type == "cuda":
+                self._cold_program(params, obs, idx)
+                self._warm_program(params, obs, idx)
+            if self._warm_enabled:
+                self._start_page_out(["warmup"], [0], [cfg.slots])
+                self._install([self._park_gather([cfg.slots])[0].cpu()],
+                              [cfg.slots])
+        if self._cuda:
             torch.cuda.synchronize(self.device)
+        self._pageouts.clear()
 
     def drain(self, timeout_s: float = 30.0) -> bool:
-        """Block until every submitted request has been answered."""
+        """Block until every submitted request has been answered; False on
+        timeout."""
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
             with self._lock:
@@ -372,8 +777,8 @@ class ServeEngine:
             return self._pending == 0
 
     def stop(self, *, drain: bool = True, timeout_s: float = 30.0) -> bool:
-        """Drain (optionally) and stop both threads; False when a thread is
-        still alive after its join timeout."""
+        """Drain (optionally) and stop both threads; False, and logged, when
+        a thread is still alive after its join timeout."""
         if drain:
             self.drain(timeout_s)
         self._stop_event.set()
@@ -385,140 +790,94 @@ class ServeEngine:
         except queue.Full:
             pass
         self._consumer.join(timeout_s)
-        return not (self._dispatcher.is_alive() or self._consumer.is_alive())
+        ok = True
+        for thread in (self._dispatcher, self._consumer):
+            if thread.is_alive():
+                log.error("serve %s thread still alive %.1fs after stop(): "
+                          "shutdown is NOT clean", thread.name, timeout_s)
+                ok = False
+        return ok
+
+    def page_out_all(self) -> dict[str, int]:
+        """Seal every surviving carry (parked, hot, and in the inboxes) into
+        the spill arena, so another engine adopts the sessions warm. Only
+        after :meth:`stop`: the order is drain, stop, page_out_all, exit.
+        Returns ``{"written", "refused", "skipped_takes"}``; all zero
+        without a spill arena."""
+        if self._dispatcher.is_alive() or self._consumer.is_alive():
+            raise RuntimeError(
+                "page_out_all() before stop(): the dispatcher/consumer "
+                "threads still own the session stores — the drain ordering "
+                "is drain -> stop() -> page_out_all() -> exit")
+        counts = {"written": 0, "refused": 0, "skipped_takes": 0}
+        arena = self._arena
+        if arena is None:
+            return counts
+        # Page-outs first: their warm commits may demote into puts.
+        self._commit_page_outs(wait=True)
+        counts["skipped_takes"] = sum(
+            1 for op in self._spill_ops if op[0] == "take")
+        self._drain_spill_ops()
+
+        def seal(sid: Any, row: torch.Tensor, steps: int) -> None:
+            if arena.put(sid, [row.numpy()], steps):
+                counts["written"] += 1
+                self._registry.inc("serve_spill_puts_total")
+            else:
+                counts["refused"] += 1
+                self._registry.inc("serve_spill_put_refusals_total")
+
+        while self._spill_inbox:
+            sid, rows, steps, _reason = self._spill_inbox.popleft()
+            if rows is not None and not self._slots.contains(sid):
+                seal(sid, rows, steps)
+        for sid, (rows, _nbytes, steps) in list(self._warm._lru.items()):
+            seal(sid, rows, steps)
+        if len(self._slots):
+            hot = list(self._slots._lru.items())
+            packed = self._park_gather([slot for _, slot in hot]).cpu()
+            for i, (sid, _slot) in enumerate(hot):
+                seal(sid, packed[i], self._steps.get(sid, 0))
+        log.info("drain page-out sealed %d carr%s to the spill arena (%d "
+                 "refused, %d takes left for adopters)", counts["written"],
+                 "y" if counts["written"] == 1 else "ies", counts["refused"],
+                 counts["skipped_takes"])
+        return counts
 
     # -- dispatcher thread ------------------------------------------------
 
     def _serve_loop(self) -> None:
         with torch.inference_mode():
             while not self._stop_event.is_set():
+                if self._failed is not None:
+                    self._drain_failed()
+                    continue
+                while self._poisoned:
+                    sid = self._poisoned.popleft()
+                    self._slots.drop(sid)
+                    self._steps.pop(sid, None)
+                if self._restart_requested.is_set():
+                    self._restart_requested.clear()
+                    if self._consumer_fault_epoch >= self._fault_epoch:
+                        self._supervise(self._consumer_fault
+                                        or RuntimeError("serve consumer "
+                                                        "fault"))
+                    continue
                 batch = self._collect_batch()
                 if not batch:
                     continue
+                live = self._live       # ONE read per tick
                 try:
-                    done = self._dispatch_batch(batch)
+                    done = self._dispatch_batch(batch, live)
                 except Exception as exc:   # noqa: BLE001 — fail the batch,
                     # keep serving the sessions of later batches.
-                    log.exception("serve dispatch failed for a %d-request "
-                                  "batch", len(batch))
-                    for req in batch:
-                        self._slots.drop(req.session_id)
-                        self._finish_failed(req, exc)
+                    # Victims whose page-out never started restart cold.
+                    self._parking.difference_update(self._tick_victims)
+                    self._fail_batch(batch, exc)
+                    self._supervise(exc)
                     continue
                 self._done_q.put(done)
         self._fail_leftovers()
-
-    def _collect_batch(self) -> list[_Request]:
-        """Deferred same-session requests first, then the queue until
-        ``max_batch`` or the coalescing deadline anchored at the first
-        request."""
-        cfg = self.cfg
-        batch: list[_Request] = []
-        seen: set = set()
-        kept: deque[_Request] = deque()
-        now = time.perf_counter()
-        while self._deferred:
-            req = self._deferred.popleft()
-            if req.session_id in seen or len(batch) >= cfg.max_batch:
-                kept.append(req)
-            else:
-                req.t_collected = now
-                batch.append(req)
-                seen.add(req.session_id)
-        self._deferred = kept
-        if not batch:
-            try:
-                req = self._q.get(timeout=0.05)
-            except queue.Empty:
-                return []
-            req.t_collected = time.perf_counter()
-            batch.append(req)
-            seen.add(req.session_id)
-        deadline = time.perf_counter() + cfg.batch_timeout_ms / 1e3
-        while len(batch) < cfg.max_batch:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                req = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if req.session_id in seen:
-                self._deferred.append(req)
-                continue
-            req.t_collected = time.perf_counter()
-            batch.append(req)
-            seen.add(req.session_id)
-        return batch
-
-    def _dispatch_batch(self, batch: list[_Request]) -> _DoneBatch:
-        """Admit, split cold/warm, enqueue the tick's program(s)."""
-        pinned = {r.session_id for r in batch}
-        cold_reqs, cold_idx, warm_reqs, warm_idx = [], [], [], []
-        evicted = 0
-        for req in batch:
-            slot = self._slots.lookup(req.session_id)
-            if slot is not None:
-                warm_reqs.append(req)
-                warm_idx.append(slot)
-                continue
-            slot, victim = self._slots.admit(req.session_id, pinned)
-            evicted += victim is not None
-            cold_reqs.append(req)
-            cold_idx.append(slot)
-        groups = []
-        if self._generic:
-            reqs = cold_reqs + warm_reqs
-            obs, pidx = self._pad(reqs, cold_idx + warm_idx)
-            cold = np.zeros((self.cfg.max_batch,), np.bool_)
-            cold[:len(cold_reqs)] = True
-            t = time.perf_counter()
-            for req in reqs:
-                req.t_dispatched = t
-            act, logits, values = self._generic_program(
-                self._upload(obs), self._upload(pidx), self._upload(cold))
-            groups.append((reqs, act, logits, values))
-            with self._lock:
-                self.counters["batches"] += 1
-                self.counters["generic_batches"] += 1
-                self.counters["cold_rows"] += len(cold_reqs)
-                self.counters["warm_rows"] += len(warm_reqs)
-                self.counters["evictions"] += evicted
-            return _DoneBatch(groups=groups, n=len(batch))
-        for reqs, idx, program, key in (
-                (cold_reqs, cold_idx, self._cold_program, "cold"),
-                (warm_reqs, warm_idx, self._warm_program, "warm")):
-            if not reqs:
-                continue
-            obs, pidx = self._pad(reqs, idx)
-            t = time.perf_counter()
-            for req in reqs:
-                req.t_dispatched = t
-            act, logits, values = program(self._upload(obs),
-                                          self._upload(pidx))
-            groups.append((reqs, act, logits, values))
-            with self._lock:
-                self.counters[f"{key}_batches"] += 1
-                self.counters[f"{key}_rows"] += len(reqs)
-        with self._lock:
-            self.counters["batches"] += 1
-            self.counters["evictions"] += evicted
-        return _DoneBatch(groups=groups, n=len(batch))
-
-    def _pad(self, reqs: list[_Request],
-             idx: list[int]) -> tuple[np.ndarray, np.ndarray]:
-        """Pad a group to the static ``max_batch`` shape: padding rows
-        repeat the first observation and index SCRATCH arena rows."""
-        cfg = self.cfg
-        obs = np.empty((cfg.max_batch, reqs[0].obs.shape[-1]), np.float32)
-        out_idx = np.empty((cfg.max_batch,), np.int64)
-        for i, req in enumerate(reqs):
-            obs[i] = req.obs
-            out_idx[i] = idx[i]
-        obs[len(reqs):] = reqs[0].obs
-        out_idx[len(reqs):] = np.arange(cfg.slots + len(reqs),
-                                        cfg.slots + cfg.max_batch)
-        return obs, out_idx
 
     def _fail_leftovers(self) -> None:
         leftover = RuntimeError(
@@ -536,6 +895,15 @@ class ServeEngine:
                 break
             self._finish_failed(req, leftover)
 
+    def _fail_batch(self, batch: list[_Request], exc: Exception) -> None:
+        log.exception("serve dispatch failed for a %d-request batch: %s",
+                      len(batch), exc)
+        for req in batch:
+            # The admitted slot may never have received its carry.
+            self._slots.drop(req.session_id)
+            self._steps.pop(req.session_id, None)
+            self._finish_failed(req, exc)
+
     def _finish_failed(self, req: _Request, exc: BaseException) -> None:
         with self._lock:
             self._pending -= 1
@@ -543,6 +911,427 @@ class ServeEngine:
         req.error = exc
         req._event.set()
         _fire(req.callback, None)
+
+    # -- supervision (serve.max_restarts > 0) ------------------------------
+
+    def _supervise(self, exc: BaseException) -> None:
+        """Rebuild the engine after a fault under seeded exponential
+        backoff; more than ``max_restarts`` consecutive faults (reset by a
+        completed batch dispatched after the latest fault) trip the terminal
+        failed state. A failed rebuild is the next fault of the streak."""
+        if self.cfg.max_restarts <= 0:
+            return
+        with self._sup_lock:
+            self._fault_epoch += 1
+        while not self._stop_event.is_set():
+            with self._sup_lock:
+                self._restart_streak += 1
+                streak = self._restart_streak
+            if streak > self.cfg.max_restarts:
+                self._enter_failed(exc)
+                return
+            self._registry.inc("serve_restarts_total")
+            self._backoff_sleep(streak)
+            try:
+                self._build_arena()
+                self.warmup()
+                log.warning("serve engine rebuilt after fault (restart "
+                            "%d/%d): fresh slot arena, all sessions cold",
+                            streak, self.cfg.max_restarts)
+                return
+            except Exception as rebuild_exc:    # noqa: BLE001
+                log.exception("serve engine rebuild failed")
+                exc = rebuild_exc
+
+    def _backoff_sleep(self, attempt: int) -> None:
+        """initial * 2^(attempt-1), capped, times seeded jitter in [0.5,
+        1.5); waits on the stop event, so a stop never waits out a
+        backoff."""
+        cfg = self.cfg
+        delay = min(cfg.restart_backoff_s * (2.0 ** (attempt - 1)),
+                    cfg.restart_backoff_max_s)
+        delay *= 0.5 + self._restart_rng.random()
+        self._stop_event.wait(delay)
+
+    def _enter_failed(self, exc: BaseException) -> None:
+        self._failed = exc
+        self._registry.record("serve_failed", 1.0)
+        log.error("serve engine TERMINALLY FAILED: %d consecutive faults "
+                  "exceeded serve.max_restarts=%d (last: %r); failing all "
+                  "queued work", self._restart_streak, self.cfg.max_restarts,
+                  exc)
+        self._drain_failed()
+
+    def _drain_failed(self) -> None:
+        """Fail everything queued or deferred with ServeEngineFailed (a
+        bounded wait on the empty queue keeps the loop responsive to
+        stop)."""
+        failure = ServeEngineFailed(
+            f"serve engine is terminally failed (last fault: "
+            f"{self._failed!r})")
+        failure.__cause__ = self._failed
+        while self._deferred:
+            self._finish_failed(self._deferred.popleft(), failure)
+        try:
+            while True:
+                self._finish_failed(self._q.get(timeout=0.05), failure)
+        except queue.Empty:
+            pass
+
+    # -- batch collection -------------------------------------------------
+
+    def _expire_if_dead(self, req: _Request, now: float) -> bool:
+        """Complete an expired request with ServeDeadlineExceeded before it
+        takes a row; True when it was expired."""
+        if req.t_deadline is None or now < req.t_deadline:
+            return False
+        self._registry.inc("serve_deadline_expired_total")
+        self._finish_failed(req, ServeDeadlineExceeded(
+            f"deadline expired {1e3 * (now - req.t_deadline):.1f} ms ago "
+            "before the request reached a batch"))
+        return True
+
+    def _collect_batch(self) -> list[_Request]:
+        """Deferred same-session requests first, then the queue until
+        ``max_batch`` or the coalescing deadline: anchored at the first
+        request and clamped to the earliest surviving request's deadline.
+        Expired requests complete with a deadline error and never join."""
+        cfg = self.cfg
+        # Parked rows first, then adopted disk takes (which must land in
+        # the warm store freshest, so a park commit cannot demote them).
+        self._commit_page_outs()
+        self._drain_spill_inbox()
+        batch: list[_Request] = []
+        seen: set = set()
+        kept: deque[_Request] = deque()
+        now = time.perf_counter()
+        while self._deferred:
+            req = self._deferred.popleft()
+            if self._expire_if_dead(req, now):
+                continue
+            if (req.session_id in seen or len(batch) >= cfg.max_batch
+                    or self._in_transit(req)):
+                kept.append(req)
+            else:
+                req.t_collected = now
+                batch.append(req)
+                seen.add(req.session_id)
+        self._deferred = kept
+        if not batch:
+            # Poll briefly while a disk take is in flight: the consumer
+            # resolves it in microseconds.
+            timeout = (0.001 if self._parking or self._spill_inflight
+                       or self._spill_putting else 0.05)
+            try:
+                req = self._q.get(timeout=timeout)
+            except queue.Empty:
+                return []
+            if self._expire_if_dead(req, time.perf_counter()):
+                return []
+            if self._in_transit(req):
+                self._deferred.append(req)
+                return []
+            req.t_collected = time.perf_counter()
+            batch.append(req)
+            seen.add(req.session_id)
+        deadline = time.perf_counter() + cfg.batch_timeout_ms / 1e3
+        for req in batch:           # anchor to the earliest survivor
+            if req.t_deadline is not None:
+                deadline = min(deadline, req.t_deadline)
+        while len(batch) < cfg.max_batch:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                break
+            try:
+                req = self._q.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if self._expire_if_dead(req, time.perf_counter()):
+                continue
+            if req.session_id in seen:
+                if len(self._deferred) >= cfg.max_queue:
+                    # The same-session backlog is bounded too.
+                    self._registry.record("serve_overload", 1.0)
+                    if cfg.shed_policy == "oldest":
+                        self._registry.inc("serve_shed_total")
+                        self._finish_failed(
+                            self._deferred.popleft(), ServeRejected(
+                                "shed from the same-session backlog under "
+                                "overload (shed_policy='oldest')",
+                                reason="shed_oldest"))
+                        self._deferred.append(req)
+                    else:
+                        self._registry.inc("serve_queue_rejected_total")
+                        with self._lock:
+                            self.counters["rejected"] += 1
+                        self._finish_failed(req, ServeRejected(
+                            "same-session backlog exceeded serve.max_queue",
+                            reason="deferred_overflow"))
+                    continue
+                self._deferred.append(req)
+                continue
+            if self._in_transit(req):
+                self._deferred.append(req)
+                continue
+            req.t_collected = time.perf_counter()
+            batch.append(req)
+            seen.add(req.session_id)
+            if req.t_deadline is not None and req.t_deadline < deadline:
+                deadline = req.t_deadline
+        return batch
+
+    def _dispatch_batch(self, batch: list[_Request], live: _Live
+                        ) -> _DoneBatch:
+        """Admit (hot, warm or cold), page out the tick's eviction victims,
+        install the warm hits' carries, and enqueue the tick's program(s),
+        all under the weights ``live`` read once for the tick."""
+        pinned = {r.session_id for r in batch}
+        # Readbacks that completed during the collection wait: a session
+        # evicted last tick must find its parked carry at admission.
+        rescued = self._commit_page_outs(pinned=pinned)
+        cold_reqs, cold_idx, warm_reqs, warm_idx = [], [], [], []
+        evicted = 0
+        # The tick's eviction victims, kept where a failed dispatch can
+        # release their deferred requests (no page-out will come).
+        park_sids = self._tick_victims = []
+        park_slots, park_steps = [], []
+        unpark_slots, unpark_rows = [], []
+        warm_on = self._warm_enabled
+        reg = self._registry
+        for req in batch:
+            sid = req.session_id
+            slot = self._slots.lookup(sid)
+            if slot is not None:
+                if warm_on:
+                    self._steps[sid] = self._steps.get(sid, 0) + 1
+                warm_reqs.append(req)
+                warm_idx.append(slot)
+                continue
+            parked = rescued.pop(sid, None) if warm_on else None
+            if parked is None and warm_on:
+                parked = self._warm.pop(sid)
+            if (parked is not None and req.clock is not None
+                    and parked[1] != req.clock):
+                # A parked carry from an earlier stint the session's clock
+                # has outrun: serving it would change the answer.
+                self._warm.stale_drops += 1
+                reg.inc("serve_warm_stale_drops_total")
+                parked = None
+            slot, victim = self._slots.admit(sid, pinned)
+            if victim is not None:
+                evicted += 1
+                if warm_on:
+                    park_sids.append(victim)
+                    park_slots.append(slot)
+                    park_steps.append(self._steps.pop(victim, 0))
+                    self._parking.add(victim)
+            if parked is not None:
+                rows, psteps = parked
+                reg.inc("serve_warm_hits_total")
+                self._steps[sid] = psteps + 1
+                unpark_slots.append(slot)
+                unpark_rows.append(rows)
+                warm_reqs.append(req)
+                warm_idx.append(slot)
+            else:
+                if warm_on:
+                    reg.inc("serve_warm_misses_total")
+                    self._steps[sid] = (req.clock + 1
+                                        if req.clock is not None else 1)
+                    if req.clock:
+                        reg.inc("serve_adopt_cold_total")
+                    if self._spill_enabled:
+                        # A cold (re)start invalidates any record the arena
+                        # still holds for this session.
+                        self._spill_ops.append(("del", sid))
+                        self._kick_consumer()
+                cold_reqs.append(req)
+                cold_idx.append(slot)
+        for sid, (rows, psteps) in rescued.items():
+            self._commit_warm(sid, rows, psteps)
+        # The victims' rows are gathered before the install and the
+        # programs write their slots (one stream orders them).
+        install_events = None
+        if park_sids:
+            self._start_page_out(park_sids, park_steps, park_slots)
+        self._tick_victims = []
+        if unpark_rows:
+            start = self._event()
+            self._install(unpark_rows, unpark_slots)
+            if start is not None:
+                install_events = (start, self._event())
+        self._batch_serial += 1
+        params = live.params
+        groups = []
+        if self._generic:
+            reqs = cold_reqs + warm_reqs
+            obs, pidx = self._pad(reqs, cold_idx + warm_idx)
+            cold = np.zeros((self.cfg.max_batch,), np.bool_)
+            cold[:len(cold_reqs)] = True
+            self._stamp(reqs)
+            act, logits, values = self._generic_program(
+                params, self._upload(obs), self._upload(pidx),
+                self._upload(cold))
+            groups.append((reqs, act, logits, values))
+            with self._lock:
+                self.counters["generic_batches"] += 1
+        else:
+            for reqs, idx, program, key in (
+                    (cold_reqs, cold_idx, self._cold_program, "cold"),
+                    (warm_reqs, warm_idx, self._warm_program, "warm")):
+                if not reqs:
+                    continue
+                obs, pidx = self._pad(reqs, idx)
+                self._stamp(reqs)
+                act, logits, values = program(params, self._upload(obs),
+                                              self._upload(pidx))
+                groups.append((reqs, act, logits, values))
+                with self._lock:
+                    self.counters[f"{key}_batches"] += 1
+        with self._lock:
+            self.counters["batches"] += 1
+            self.counters["cold_rows"] += len(cold_reqs)
+            self.counters["warm_rows"] += len(warm_reqs)
+            self.counters["evictions"] += evicted
+        return _DoneBatch(groups=groups, live=live, n=len(batch),
+                          serial=self._batch_serial, cold=len(cold_reqs),
+                          evicted=evicted, epoch=self._fault_epoch,
+                          install_events=install_events,
+                          installed=tuple(unpark_rows))
+
+    @staticmethod
+    def _stamp(reqs: list[_Request]) -> None:
+        t = time.perf_counter()
+        for req in reqs:
+            req.t_dispatched = t
+
+    def _pad(self, reqs: list[_Request],
+             idx: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """Pad a group to the static ``max_batch`` shape: padding rows
+        repeat the first observation and index SCRATCH arena rows."""
+        cfg = self.cfg
+        obs = np.empty((cfg.max_batch, reqs[0].obs.shape[-1]), np.float32)
+        out_idx = np.empty((cfg.max_batch,), np.int64)
+        for i, req in enumerate(reqs):
+            obs[i] = req.obs
+            out_idx[i] = idx[i]
+        obs[len(reqs):] = reqs[0].obs
+        out_idx[len(reqs):] = np.arange(cfg.slots + len(reqs),
+                                        cfg.slots + cfg.max_batch)
+        return obs, out_idx
+
+    # -- session paging (dispatch side) -----------------------------------
+
+    def _commit_page_outs(self, pinned: set | None = None, *,
+                          wait: bool = False) -> dict[Any, tuple[Any, int]]:
+        """Commit the page-outs whose copies have ended (all of them, waited
+        for, with ``wait``) into the warm store, in stream order. A commit
+        that would demote a carry whose session is in this tick's batch
+        (``pinned``) hands it back in the returned dict instead, for
+        admission to consume. A failed copy releases its sessions cold."""
+        rescued: dict[Any, tuple[Any, int]] = {}
+        while self._pageouts:
+            out = self._pageouts[0]
+            try:
+                if out.events and not (wait or out.events[3].query()):
+                    break
+                if out.events:
+                    out.events[3].synchronize()
+                    self._paging_ms["pageout"][0] += (
+                        out.events[0].elapsed_time(out.events[1])
+                        + out.events[2].elapsed_time(out.events[3]))
+                    self._paging_ms["pageout"][1] += 1
+            except Exception:   # noqa: BLE001 — the device failed under
+                # the copy: the sessions restart cold; the next dispatch
+                # meets the fault.
+                log.exception("serve page-out failed")
+                self._pageouts.popleft()
+                self._parking.difference_update(out.sids)
+                continue
+            self._pageouts.popleft()
+            self._registry.inc("serve_warm_parks_total", len(out.sids))
+            for sid, row, steps in zip(out.sids, out.rows, out.steps):
+                self._parking.discard(sid)
+                if self._slots.contains(sid):
+                    self._warm.stale_drops += 1
+                    self._registry.inc("serve_warm_stale_drops_total")
+                    continue
+                self._commit_warm(sid, row, steps, pinned=pinned,
+                                  rescued=rescued)
+        return rescued
+
+    def _commit_warm(self, sid: Any, rows: Any, steps: int, *,
+                     pinned: set | None = None,
+                     rescued: dict | None = None) -> None:
+        """Park one host carry; the overflow goes to the spill arena (tier
+        on) or cold, but for this tick's pinned sessions."""
+        demoted = self._warm.put(sid, rows, self._carry_nbytes, steps)
+        if demoted and pinned and rescued is not None:
+            kept = []
+            for victim, vrows, vnbytes, vsteps in demoted:
+                if victim in pinned:
+                    rescued[victim] = (vrows, vsteps)
+                    self._warm.demotions -= 1
+                else:
+                    kept.append((victim, vrows, vnbytes, vsteps))
+            demoted = kept
+        if demoted:
+            self._registry.inc("serve_warm_demotions_total", len(demoted))
+            if self._spill_enabled:
+                for victim, vrows, _vnbytes, vsteps in demoted:
+                    self._spill_ops.append(("put", victim, vrows, vsteps))
+                    self._spill_putting[victim] = (
+                        self._spill_putting.get(victim, 0) + 1)
+                self._kick_consumer()
+
+    def _kick_consumer(self) -> None:
+        try:
+            self._done_q.put_nowait(_SPILL_TICK)
+        except queue.Full:
+            pass                # the consumer is awake and drains the ops
+
+    def _drain_spill_inbox(self) -> None:
+        """Commit completed disk takes into the warm store and release
+        their sessions' deferred requests."""
+        while self._spill_put_done:
+            sid = self._spill_put_done.popleft()
+            left = self._spill_putting.pop(sid, 1) - 1
+            if left > 0:
+                self._spill_putting[sid] = left
+        while self._spill_inbox:
+            sid, rows, steps, _reason = self._spill_inbox.popleft()
+            self._spill_inflight.discard(sid)
+            if rows is None:
+                continue        # miss, stale or corrupt: the session is cold
+            if self._slots.contains(sid):
+                self._warm.stale_drops += 1
+                self._registry.inc("serve_warm_stale_drops_total")
+                continue
+            self._commit_warm(sid, rows, steps)
+
+    def _in_transit(self, req: _Request) -> bool:
+        """True when the request must defer because its session's carry is
+        in transit: a page-out not yet committed, a put to disk not yet
+        sealed, or a disk take (one in flight, or the one begun here when
+        the arena holds a record). Only an ``os.stat`` runs on this
+        thread."""
+        if req.session_id in self._parking:
+            return True
+        if not self._spill_enabled:
+            return False
+        sid = req.session_id
+        if sid in self._spill_inflight:
+            return True
+        if self._slots.contains(sid) or self._warm.contains(sid):
+            return False
+        if sid in self._spill_putting:
+            return True         # its carry is on its way to disk
+        if not self._arena.probe(sid):
+            return False
+        self._spill_ops.append(("take", sid, req.clock))
+        self._spill_inflight.add(sid)
+        self._kick_consumer()
+        return True
 
     # -- consumer thread --------------------------------------------------
 
@@ -552,13 +1341,103 @@ class ServeEngine:
                 item = self._done_q.get(timeout=0.2)
             except queue.Empty:
                 if (self._stop_event.is_set()
-                        and not self._dispatcher.is_alive()
-                        and self._done_q.empty()):
-                    return
+                        and not self._dispatcher.is_alive()):
+                    while True:
+                        try:
+                            item = self._done_q.get_nowait()
+                        except queue.Empty:
+                            self._drain_spill_ops()
+                            return
+                        if item is not _SHUTDOWN and item is not _SPILL_TICK:
+                            self._consume_done(item)
                 continue
             if item is _SHUTDOWN:
+                self._drain_spill_ops()
                 return
-            self._complete_batch(item)
+            if item is not _SPILL_TICK:
+                self._consume_done(item)
+            self._drain_spill_ops()
+
+    def _consume_done(self, done: _DoneBatch) -> None:
+        try:
+            self._complete_batch(done)
+        except Exception as exc:  # noqa: BLE001 — a readback fault fails
+            # the batch's remaining requests instead of stranding them.
+            log.exception("serve consumer failed completing a batch")
+            for reqs, *_ in done.groups:
+                for req in reqs:
+                    # The program advanced these sessions' carries; the
+                    # dispatcher drops them so a retry does not step twice.
+                    self._poisoned.append(req.session_id)
+                    if not req._event.is_set():
+                        req.error = exc
+                        req._event.set()
+                        _fire(req.callback, None)
+            self._consumer_fault = exc
+            self._consumer_fault_epoch = done.epoch
+            self._restart_requested.set()
+
+    _SPILL_REASON_COUNTERS = {
+        "hit": "serve_spill_hits_total",
+        "miss": "serve_spill_misses_total",
+        "stale": "serve_spill_stale_total",
+        "corrupt": "serve_spill_corrupt_total",
+    }
+
+    def _drain_spill_ops(self) -> None:
+        """Run the queued arena ops: the only spill disk I/O while the
+        engine runs. After stop, takes are skipped (the records stay for
+        whichever engine adopts the sessions next)."""
+        arena = self._arena
+        if arena is None:
+            return
+        skip_takes = self._stop_event.is_set()
+        while self._spill_ops:
+            op = self._spill_ops.popleft()
+            try:
+                self._run_spill_op(arena, op, skip_takes)
+            except Exception:   # noqa: BLE001 — an op that fails costs its
+                # session a cold restart, never the consumer thread.
+                log.exception("spill %s failed for session %r", op[0],
+                              op[1])
+                if op[0] == "take":
+                    self._spill_inbox.append((op[1], None, 0, "error"))
+            if op[0] == "put":
+                self._spill_put_done.append(op[1])
+
+    def _run_spill_op(self, arena: SpillArena, op: tuple,
+                      skip_takes: bool) -> None:
+        reg = self._registry
+        kind = op[0]
+        if kind == "put":
+            _, sid, rows, steps = op
+            ok = arena.put(sid, [rows.numpy()], steps)
+            reg.inc("serve_spill_puts_total" if ok
+                    else "serve_spill_put_refusals_total")
+        elif kind == "del":
+            arena.delete(op[1])
+        elif skip_takes:
+            self._spill_inbox.append((op[1], None, 0, "skipped"))
+        else:
+            _, sid, clock = op
+            payload, steps, reason, foreign = arena.take(sid, clock)
+            reg.inc(self._SPILL_REASON_COUNTERS[reason])
+            if reason == "hit" and clock is not None and foreign:
+                # A clocked hit on another incarnation's record: a warm
+                # adoption across engines.
+                reg.inc("serve_adopt_warm_total")
+            rows = (self._rows_from_payload(payload)
+                    if payload is not None else None)
+            self._spill_inbox.append((sid, rows, steps, reason))
+
+    def _rows_from_payload(self, payload: bytes) -> torch.Tensor:
+        """A record's payload as a parked carry: a flat host byte row
+        (pinned on the card), the layout ``_park_gather`` packs (the arena
+        already checked its length)."""
+        row = torch.empty(len(payload), dtype=torch.uint8,
+                          pin_memory=self._cuda)
+        row.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+        return row
 
     def _complete_batch(self, done: _DoneBatch) -> None:
         """Readback + completion; blocking host work belongs here."""
@@ -578,23 +1457,32 @@ class ServeEngine:
                     result = ServeResult(
                         session_id=req.session_id, action=int(actions[i]),
                         logits=logits[i], value=float(values[i]),
-                        params_step=self.params_step,
-                        latency_ms=(now - req.t_enq) * 1e3, stages=stages)
+                        params_step=done.live.step,
+                        latency_ms=(now - req.t_enq) * 1e3, stages=stages,
+                        batch=done.serial)
                     req.result = result
                     req._event.set()
                     n_done += 1
                     _fire(req.callback, result)
-        except Exception as exc:   # noqa: BLE001 — a readback fault fails
-            # the batch's remaining requests instead of stranding them.
-            log.exception("serve consumer failed completing a batch")
-            for reqs, *_ in done.groups:
-                for req in reqs:
-                    if not req._event.is_set():
-                        req.error = exc
-                        req._event.set()
-                        _fire(req.callback, None)
+            if done.install_events is not None:
+                start, end = done.install_events
+                end.synchronize()
+                self._paging_ms["install"][0] += start.elapsed_time(end)
+                self._paging_ms["install"][1] += 1
         finally:
             with self._lock:
                 self._pending -= done.n
                 self.counters["completed"] += n_done
                 self.counters["failed"] += done.n - n_done
+        # A completed batch dispatched after the latest fault heals the
+        # consecutive-fault streak.
+        with self._sup_lock:
+            if done.epoch == self._fault_epoch:
+                self._restart_streak = 0
+        reg = self._registry
+        reg.inc("serve_responses_total", done.n)
+        reg.inc("serve_batches_total")
+        if done.cold:
+            reg.inc("serve_prefills_total", done.cold)
+        if done.evicted:
+            reg.inc("serve_evictions_total", done.evicted)

@@ -164,3 +164,58 @@ def test_cpu_tensors_never_count_a_launch():
     x = torch.zeros((1, 1, 8, 64))
     tattn.flash_attention(x, x, x, local_window=4)
     assert tattn.launch_counts["flash_fwd"] == 0
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 96])
+def test_narrow_heads_pad_to_the_built_width(head_dim):
+    """A head narrower than the built widths goes to the kernel wrappers
+    zero-padded to 64 or 128, the padding sliced off O, dQ, dK and dV. The
+    same padding helper the CUDA path takes, driven here over the CPU
+    wrappers (the plain versions), against the JAX flash kernel (interpret
+    mode) and the unpadded plain versions; f32, ``F32_ATOL``."""
+    seq, window = 80, 33
+    scale = head_dim ** -0.5
+    q, k, v = map(torch.from_numpy, _qkv(head_dim, (2, 2, seq, head_dim)))
+    dout = torch.from_numpy(_qkv(head_dim + 1, (2, 2, seq, head_dim))[0])
+    kw = dict(causal=True, sm_scale=scale, window=window)
+    out, lse = tattn._padded(tattn.flash_fwd, q, k, v, **kw)
+    want, want_lse = tattn.flash_fwd(q, k, v, **kw)
+    assert out.shape == q.shape and out.is_contiguous()
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=F32_ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=F32_ATOL,
+                               rtol=0)
+    jkern = np.asarray(jattn.flash_attention(
+        *map(jnp.asarray, (q.numpy(), k.numpy(), v.numpy())), causal=True,
+        local_window=window, use_pallas=True))
+    np.testing.assert_allclose(out.numpy(), jkern, atol=F32_ATOL, rtol=0)
+    delta = (dout * out).sum(dim=-1)
+    dq = tattn._padded(tattn.flash_bwd_dq, q, k, v, dout, lse, delta, **kw)
+    dk, dv = tattn._padded(tattn.flash_bwd_dkv, q, k, v, dout, lse, delta,
+                           **kw)
+    want_dq = tattn.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    want_dk, want_dv = tattn.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    for got, ref in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.shape == q.shape
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=F32_ATOL,
+                                   rtol=0)
+    assert tattn._built_width(head_dim) == (64 if head_dim <= 64 else 128)
+
+
+def test_heads_wider_than_the_kernels_are_refused_on_cuda(monkeypatch):
+    """head_dim > 128: the kernels cannot take it, so ``build_model``
+    refuses it for the card before building anything (the device is only
+    named here, no GPU is touched); the CPU path runs any width."""
+    from sharetrade_tpu_torch import models
+    from sharetrade_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(kind="transformer", seq_mode="episode", num_layers=1,
+                      num_heads=1, head_dim=160)
+    with pytest.raises(ValueError, match="unsupported"):
+        tattn._built_width(160)
+    monkeypatch.setattr(models, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    with pytest.raises(ConfigError, match="head_dim=160"):
+        models.build_model(cfg, 10)
+    monkeypatch.undo()
+    assert models.build_model(cfg, 10, device="cpu").name

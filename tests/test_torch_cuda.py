@@ -106,11 +106,11 @@ def test_fully_masked_rows_give_zero(cuda):
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv((1, 1, 16, 64), torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
-        x = torch.zeros((1, 1, 16, 32), device="cuda")
+        x = torch.zeros((1, 1, 16, 160), device="cuda")
         attention.flash_fwd(x, x, x, sm_scale=1.0)
     with pytest.raises(ValueError, match="contiguous"):
-        attention.flash_fwd(q.transpose(2, 3), k.transpose(2, 3),
-                            v.transpose(2, 3), sm_scale=1.0)
+        x = torch.zeros((1, 1, 64, 64), device="cuda").transpose(2, 3)
+        attention.flash_fwd(x, x, x, sm_scale=1.0)
     with pytest.raises(ValueError, match="dtype"):
         attention.flash_fwd(q.half(), k.half(), v.half(), sm_scale=1.0)
     # An input that requires grad: the forward wrapper alone would drop the
@@ -208,6 +208,19 @@ def _check_backward(q, k, v, dout, *, causal, window):
 def test_backward_kernels_match_plain(cuda, dtype, shape, window):
     q, k, v, dout = _bwd_inputs(shape, dtype, shape[2])
     _check_backward(q, k, v, dout, causal=True, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [32, 96])
+def test_narrow_heads_pad_to_the_built_width(cuda, dtype, head_dim):
+    """head_dim 32 and 96 run through the kernels built for 64 and 128,
+    zero-padded and sliced back: forward, dq and dkv against the plain
+    versions at the unpadded width, one launch each."""
+    shape = (2, 2, 130, head_dim)
+    q, k, v = _qkv(shape, dtype, seed=head_dim)
+    _check(q, k, v, causal=True, window=33)
+    q, k, v, dout = _bwd_inputs(shape, dtype, head_dim)
+    _check_backward(q, k, v, dout, causal=True, window=33)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -6,7 +6,9 @@ hidden 16, 50-step chunks); the learner, the model and everything else are
 the defaults. ``train`` prints the JAX ``cli train`` line's keys for each
 learner (``qlearn``, ``dqn`` uniform and PER, ``pg``, ``a2c``) and, with
 ``--eval``, the greedy eval; ``serve`` then boots the Q-network from that
-run's ``tag_best`` and says once that ``serve.swap_poll_s`` is not ported.
+run's ``tag_best`` with the weight-swap watcher running
+(``serve.swap_poll_s`` defaults to 5 s). ``serve`` refuses, with a
+``ConfigError`` and exit code 2, the knobs it cannot honour yet.
 """
 
 import json
@@ -69,8 +71,12 @@ def test_cli_train_eval_then_serve_from_tag_best(tmp_path):
     assert lines[0]["params_step"] == best["updates"] == summary["updates"]
     assert lines[-1]["completed"] > 0 and lines[-1]["failed"] == 0
     assert lines[-1]["generic_batches"] > 0
-    # The weight-swap watcher is not ported: said once, not per batch.
-    assert serve.stderr.count("serve.swap_poll_s") == 1
+    # The weight-swap watcher runs at the default poll, and nothing is
+    # served without a word.
+    assert lines[0]["swap_watcher"] is True
+    assert lines[-1]["swap_rejected"] == 0
+    assert lines[-1]["params_step"] == best["updates"]
+    assert "not yet ported" not in serve.stderr
 
 
 def test_cli_serve_builds_the_head_the_learner_trains(tmp_path):
@@ -82,3 +88,14 @@ def test_cli_serve_builds_the_head_the_learner_trains(tmp_path):
     off = _run("serve", tmp_path, "serve.swap_poll_s=0", "serve.max_batch=4",
                "serve.slots=8", args=["--duration", "0.5", "--sessions", "8"])
     assert off.returncode == 0 and "swap_poll_s" not in off.stderr
+    assert json.loads(off.stdout.splitlines()[0])["swap_watcher"] is False
+
+
+@pytest.mark.parametrize("knob", [
+    "obs.enabled=true", "tuning.serve_controller=true",
+    "tuning.profile=/nonexistent/tuned_profile.json"])
+def test_cli_serve_refuses_what_it_cannot_honour(knob, tmp_path):
+    serve = _run("serve", tmp_path, knob, args=["--duration", "0.5"])
+    assert serve.returncode == 2
+    assert "ConfigError" in serve.stderr and "not yet ported" in serve.stderr
+    assert not serve.stdout.strip()

@@ -162,14 +162,6 @@ def test_full_queue_rejects_without_blocking():
         engine.stop(timeout_s=10.0)
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("shed_policy", "oldest"), ("default_deadline_ms", 5.0),
-    ("max_restarts", 2), ("warm_bytes", 1 << 20)])
-def test_unported_knobs_are_refused(knob, value):
-    with pytest.raises(ConfigError, match="not yet ported"):
-        _engine(max_batch=2, slots=2, **{knob: value})
-
-
 def test_slots_below_max_batch_refused():
     with pytest.raises(ConfigError):
         _engine(max_batch=4, slots=2)
