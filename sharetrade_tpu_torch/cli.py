@@ -62,16 +62,28 @@ default, 5 s) the weight-swap watcher (serve/swap.py) polls the tag and
 swaps newer weights in between ticks; with ``--params`` only a save newer
 than the tag at start replaces them. After a clean stop, a configured spill
 tier (``serve.spill_dir``) receives every surviving session carry.
-SIGTERM/SIGINT drains in-flight requests and exits 75. ``obs.enabled``,
-``tuning.profile`` and ``tuning.serve_controller`` are refused.
+SIGTERM/SIGINT drains in-flight requests and exits 75. With
+``tuning.serve_controller`` the online controller (serve/controller.py)
+holds ``tuning.target_p99_ms`` by moving ``serve.batch_timeout_ms`` and
+``serve.max_queue`` below their configured values, every
+``tuning.controller_interval_s``; it stops after the drain. The summary
+carries the JAX summary's telemetry keys: ``controller_adjustments``, the
+per-stage p99s of the engine's histograms (``stage_p99_ms``), the three
+slowest requests with their stage split (``slowest``) and, with
+``obs.slo_*`` set, the last burn rates (``slo_availability_burn``,
+``slo_latency_burn``). ``obs.enabled`` is refused.
 
-A ``ConfigError`` (a refused knob, an impossible value) exits 2 with its
-message.
+``train`` and ``serve`` resolve ``tuning.profile`` (a tuned profile from
+``tools/torch_autotune.py``) as the JAX package does: registered knobs
+still at their defaults take the profile's values, explicit ones win.
+
+A ``ConfigError`` (a refused knob, an impossible value; a missing, torn or
+foreign profile is a ``ProfileError``) exits 2 with its message.
 
 The device is ``cuda`` unless ``--device`` says otherwise; without a GPU
 and without ``--device cpu`` the command fails with a message saying so.
-Not yet ported: ``actor``, ``learner``, ``fleet``, ``obs``, ``--mesh``,
-the tuned-profile resolution and ``--listen``.
+Not yet ported: ``actor``, ``learner``, ``fleet``, ``obs``, ``--mesh``
+and ``--listen``.
 """
 
 from __future__ import annotations
@@ -91,11 +103,14 @@ EXIT_PREEMPTED = 75
 
 def _load_config(args):
     from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.tuning import apply_profile
     cfg = (FrameworkConfig.from_file(args.config) if args.config
            else FrameworkConfig())
     if args.set:
         cfg = cfg.apply_overrides(args.set)
-    return cfg
+    # File and --set values are the explicit tier and win; registered knobs
+    # still at their defaults take the tuned profile's values.
+    return apply_profile(cfg)
 
 
 def cmd_train(args) -> int:
@@ -278,7 +293,8 @@ def _serve_summary(engine, registry, stats, *, device, drained: bool,
                    stopped_clean: bool, spill_pageout) -> dict:
     """``cli serve``'s summary line: the load's numbers, the engine's
     counters, and the JAX summary's keys (the session tiers' keys only when
-    their tier ran)."""
+    their tier ran, the telemetry keys only when they have a value)."""
+    from sharetrade_tpu_torch.obs import serve_stage_p99s
     from sharetrade_tpu_torch.ops.attention import launch_counts
 
     counters = dict(engine.counters)
@@ -305,6 +321,8 @@ def _serve_summary(engine, registry, stats, *, device, drained: bool,
         "shed": total("serve_shed_total"),
         "deadline_expired": total("serve_deadline_expired_total"),
         "restarts": total("serve_restarts_total"),
+        "controller_adjustments": total(
+            "serve_controller_adjustments_total"),
         "flash_fwd_launches": launch_counts["flash_fwd"],
         "drained": drained,
         "stopped_clean": stopped_clean,
@@ -323,6 +341,19 @@ def _serve_summary(engine, registry, stats, *, device, drained: bool,
             adopt_warm=total("serve_adopt_warm_total"),
             adopt_cold=total("serve_adopt_cold_total"),
             spill_corrupt=total("serve_spill_corrupt_total"))
+    # Which stage owns the tail, and the slowest requests themselves.
+    stage_p99 = serve_stage_p99s(registry)
+    if stage_p99:
+        summary["stage_p99_ms"] = stage_p99
+    slowest = engine.exemplars()[:3]
+    if slowest:
+        summary["slowest"] = slowest
+    for key, gauge in (("slo_availability_burn",
+                        "serve_slo_availability_burn"),
+                       ("slo_latency_burn", "serve_slo_latency_burn")):
+        value = registry.latest(gauge)
+        if value is not None:
+            summary[key] = round(value, 4)
     return summary
 
 
@@ -337,7 +368,8 @@ def cmd_serve(args) -> int:
     from sharetrade_tpu_torch.precision import policy_from_config
     from sharetrade_tpu_torch.runtime.orchestrator import (
         SERVE_REFUSED, check_ported)
-    from sharetrade_tpu_torch.serve import ServeEngine, WeightSwapWatcher
+    from sharetrade_tpu_torch.serve import (
+        ServeController, ServeEngine, WeightSwapWatcher)
     from sharetrade_tpu_torch.serve.driver import (
         make_sessions, run_closed_loop, run_open_loop)
     from sharetrade_tpu_torch.utils.logging import get_logger
@@ -368,7 +400,7 @@ def cmd_serve(args) -> int:
 
     prev_handlers = {s: signal.signal(s, _on_signal)
                      for s in (signal.SIGTERM, signal.SIGINT)}
-    engine = service = watcher = None
+    engine = service = watcher = controller = None
     try:
         service = PriceDataService(config=cfg.data)
         prices = service.request(args.symbol.split(",")[0].strip(),
@@ -394,8 +426,14 @@ def cmd_serve(args) -> int:
         registry = MetricsRegistry()
         engine = ServeEngine(model, cfg.serve, params, params_step=step,
                              precision=policy_from_config(cfg.precision),
-                             registry=registry)
+                             registry=registry, obs_cfg=cfg.obs)
         engine.warmup()
+        if cfg.tuning.serve_controller:
+            # Hold tuning.target_p99_ms by moving batch_timeout_ms and
+            # max_queue below their configured values.
+            controller = ServeController(
+                engine, target_p99_ms=cfg.tuning.target_p99_ms,
+                interval_s=cfg.tuning.controller_interval_s).start()
         if cfg.serve.swap_poll_s > 0:
             watcher = WeightSwapWatcher(
                 engine, manager or (lambda: _checkpoints(cfg)), template,
@@ -422,6 +460,8 @@ def cmd_serve(args) -> int:
                                     duration_s=args.duration, stop=stop_evt)
         grace = cfg.runtime.preempt_grace_s
         drained = engine.drain(timeout_s=grace * 0.5)
+        if controller is not None:
+            controller.stop()
         if watcher is not None:
             watcher.stop()
         stopped_clean = engine.stop(
@@ -449,6 +489,8 @@ def cmd_serve(args) -> int:
     finally:
         for s, h in prev_handlers.items():
             signal.signal(s, h)
+        if controller is not None:
+            controller.stop()
         if watcher is not None:
             watcher.stop()
         if engine is not None:
@@ -539,7 +581,7 @@ def main(argv=None) -> int:
     try:
         return args.fn(args)
     except ConfigError as exc:
-        print(f"error: ConfigError: {exc}", file=sys.stderr)
+        print(f"error: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 2
 
 

@@ -80,9 +80,15 @@ Test seams as in the JAX package: ``step_override`` replaces the agent's
 step (K = 1 and the pipeline off), ``fault_hook(chunk_idx, row)`` runs on
 every chunk's metrics row.
 
-Not yet ported: roofline/obs, the tracer (``runtime.profile_dir``), actor
-feeds and tuned profiles; a non-default value of such a knob raises
-``ConfigError`` (:func:`check_ported`).
+A tuned profile (``tuning.profile``, ``tuning.py``) is applied at
+construction: registered knobs still at their defaults take its values,
+explicit ones win (idempotent, so a config ``cli train`` resolved already
+passes through unchanged); a missing, torn or foreign profile raises
+``ProfileError``, a ``ConfigError``.
+
+Not yet ported: roofline/obs, the tracer (``runtime.profile_dir``) and
+actor feeds; a non-default value of such a knob raises ``ConfigError``
+(:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -121,6 +127,7 @@ from sharetrade_tpu_torch.precision import policy_from_config
 from sharetrade_tpu_torch.runtime.lifecycle import (
     Lifecycle, Phase, QueryReply, ReplyState)
 from sharetrade_tpu_torch.runtime.pipeline import AsyncPipeline, Boundary
+from sharetrade_tpu_torch.tuning import apply_profile
 from sharetrade_tpu_torch.utils.logging import EventLog, get_logger
 from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
 from sharetrade_tpu_torch.utils.profiling import StepTimer
@@ -146,15 +153,12 @@ _REFUSED = {
     "runtime.profile_dir": None,
     "obs.enabled": False,
     "distrib.num_actors": 0,
-    "tuning.profile": None,
-    "tuning.serve_controller": False,
 }
 #: The knobs of ``_REFUSED`` each command refuses. ``cli serve`` lets
 #: ``runtime.profile_dir`` and ``distrib.num_actors`` through, as the JAX
-#: package's ``cli serve`` ignores them; training ignores the controller.
-TRAIN_REFUSED = ("runtime.profile_dir", "obs.enabled", "distrib.num_actors",
-                 "tuning.profile")
-SERVE_REFUSED = ("obs.enabled", "tuning.profile", "tuning.serve_controller")
+#: package's ``cli serve`` ignores them.
+TRAIN_REFUSED = ("runtime.profile_dir", "obs.enabled", "distrib.num_actors")
+SERVE_REFUSED = ("obs.enabled",)
 
 
 def _knob(cfg: FrameworkConfig, path: str) -> Any:
@@ -205,6 +209,9 @@ class Orchestrator:
                                                               dict]] | None = None,
                  fault_hook: Callable[[int, dict], None] | None = None,
                  error_policy: dict[type, str] | None = None):
+        # The tuned profile (idempotent; explicit config wins; a foreign
+        # profile is a ProfileError, which supervision maps to STOP).
+        cfg = apply_profile(cfg)
         check_ported(cfg)
         rt = cfg.runtime
         # Impossible compositions never heal by restarting: refused at

@@ -18,7 +18,9 @@ Structure (the JAX engine's dispatcher/consumer split):
   Never blocks the caller.
 - **dispatcher thread**: coalesce a batch (the first request waits at most
   ``batch_timeout_ms``, clamped to the earliest surviving request's
-  deadline; a full batch never waits; a second request of a session already
+  deadline; a full batch never waits; requests already queued join past
+  that deadline, so a zero timeout still batches a backlog, where the JAX
+  engine takes one request a tick; a second request of a session already
   in the batch is deferred to the next tick; an expired request completes
   with :class:`ServeDeadlineExceeded` before it can take a row), admit new
   sessions into the LRU :class:`SlotPool`, and enqueue the tick's device
@@ -93,8 +95,39 @@ spill tier's ``serve_spill_*_total`` / ``serve_adopt_*_total``; gauges
 ``serve_overload`` and ``serve_failed``. ``engine.counters`` keeps the
 port's own per-program counts.
 
-Inference runs under ``torch.inference_mode()``. Not yet ported: SLO burn
-gauges, exemplars, histograms (``serve.stats_interval_s``) and live knobs.
+Telemetry (the JAX engine's SLO side). Every request carries its lifecycle
+stamps (enqueued, collected, dispatched, device, done; deferrals, the cold
+flag, the tick serial, the outcome), and they telescope: ``queue_wait +
+batch_wait + device == latency_ms`` for every completed request, checked
+per request (``serve_trace_decomposition_error_total`` stays 0). Five
+histograms (``obs/hist.py``, the JAX bucket layout) are attached to the
+registry: ``serve_request_ms`` and ``serve_{queue_wait,batch_wait,device,
+readback}_ms``. Every ``serve.stats_interval_s`` the consumer publishes
+``serve_qps``, ``serve_queue_depth``, ``serve_overload``, the windowed
+``serve_p50_ms`` / ``serve_p99_ms`` (quantiles of the end-to-end
+histogram's bucket delta over the window), ``serve_batch_occupancy``,
+``serve_sessions_hot``, the warm tier's gauges (``serve_warm_econ_ms_per_mb``
+prices its hits at an EWMA of the cold re-entry's device ms) and the spill
+tier's, and, with ``obs.slo_availability`` / ``obs.slo_target_p99_ms`` set,
+the burn rates ``serve_slo_availability_burn`` / ``serve_slo_latency_burn``
+over ``obs.slo_window_s`` (``serve_slo_burn_alerts_total`` counts crossings
+of ``obs.slo_burn_threshold``, re-armed below half of it). Failure paths
+(shed, reject, expiry, a failed engine) publish from their own threads
+without blocking, so the availability burn climbs during an outage in
+which nothing completes. The ``obs.exemplar_k`` slowest requests of each
+window, with their stage split, fold into a bounded ring
+(:meth:`ServeEngine.exemplars`).
+
+Live knobs: :meth:`ServeEngine.set_knobs` (the online controller's
+actuator, ``serve/controller.py``) swaps ``batch_timeout_ms`` and
+``max_queue`` as one reference, clamped to the configured values, and
+retargets the ingress bound; batch collection reads the live vector once a
+tick. The JAX engine's ``obs`` facade (span trace, flight recorder,
+``serve_exemplars.json``) is not ported: the port runs as the JAX engine
+does with ``obs=None``, with no exemplar file, no flight event and no
+per-request span.
+
+Inference runs under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -113,6 +146,8 @@ import torch
 
 from sharetrade_tpu_torch.config import ConfigError, ServeConfig
 from sharetrade_tpu_torch.models.core import tree_leaves, tree_map
+from sharetrade_tpu_torch.obs import SERVE_STAGES
+from sharetrade_tpu_torch.obs.hist import Histogram
 from sharetrade_tpu_torch.precision import FP32, PrecisionPolicy
 from sharetrade_tpu_torch.serve.spill import SpillArena
 from sharetrade_tpu_torch.utils.logging import get_logger
@@ -188,9 +223,26 @@ class _Live(NamedTuple):
     step: int
 
 
+class _LiveKnobs(NamedTuple):
+    """The engine's runtime-tunable knobs as one reference, swapped whole
+    by :meth:`ServeEngine.set_knobs` and read once per decision site. The
+    configured values are the ceilings."""
+
+    batch_timeout_ms: float
+    max_queue: int
+
+
 class _Request:
+    """A submitted query and its lifecycle stamps (``perf_counter``): they
+    telescope, so ``queue_wait`` (t_enq -> t_collected) + ``batch_wait``
+    (t_collected -> t_dispatched) + ``device`` (t_dispatched -> t_device,
+    the device work and its readback) is the latency; ``readback``
+    (t_device -> t_done) is the completion on top. An edge never reached
+    stays None (a shed request is never collected)."""
+
     __slots__ = ("session_id", "obs", "t_enq", "t_deadline", "t_collected",
-                 "t_dispatched", "callback", "_event", "result", "error",
+                 "t_dispatched", "t_device", "t_done", "deferrals", "cold",
+                 "batch", "outcome", "callback", "_event", "result", "error",
                  "clock")
 
     def __init__(self, session_id: Any, obs: np.ndarray,
@@ -204,6 +256,12 @@ class _Request:
                            if deadline_ms else None)
         self.t_collected: float | None = None
         self.t_dispatched: float | None = None
+        self.t_device: float | None = None
+        self.t_done: float | None = None
+        self.deferrals = 0          # ticks waited out in the deferred queue
+        self.cold = False           # served from the init carry / prefill
+        self.batch: int | None = None   # serial of the tick that served it
+        self.outcome: str | None = None
         self.callback = callback
         self._event = threading.Event()
         self.result: ServeResult | None = None
@@ -357,6 +415,18 @@ class WarmStore:
         return demoted
 
 
+def _outcome(exc: BaseException) -> str:
+    """A failed request's outcome name, as the JAX engine's traces name
+    it."""
+    if isinstance(exc, ServeRejected):
+        return exc.reason
+    if isinstance(exc, ServeDeadlineExceeded):
+        return "expired"
+    if isinstance(exc, ServeEngineFailed):
+        return "engine_failed"
+    return "failed"
+
+
 def _fire(callback, result) -> None:
     """Run a request's completion callback; a failing callback is logged
     and never takes down the thread that completes requests."""
@@ -411,15 +481,35 @@ def _validate(cfg: ServeConfig) -> None:
                           "warm store's overflow")
 
 
+def _slo_settings(obs_cfg: Any) -> tuple[float, float, float, float]:
+    """``(availability, target_p99_ms, window_s, burn_threshold)`` of an
+    ``ObsConfig`` (None: the SLO off), refused as the JAX engine refuses
+    them."""
+    avail = float(getattr(obs_cfg, "slo_availability", 0.0) or 0.0)
+    p99 = float(getattr(obs_cfg, "slo_target_p99_ms", 0.0) or 0.0)
+    window = float(getattr(obs_cfg, "slo_window_s", 60.0))
+    threshold = float(getattr(obs_cfg, "slo_burn_threshold", 2.0))
+    if not 0.0 <= avail < 1.0:
+        raise ConfigError(f"obs.slo_availability must be in [0, 1) (0 "
+                          f"disables), got {avail}")
+    if p99 < 0 or window <= 0 or threshold <= 0:
+        raise ConfigError(
+            "obs.slo_target_p99_ms must be >= 0 and slo_window_s / "
+            f"slo_burn_threshold > 0, got {p99}/{window}/{threshold}")
+    return avail, p99, window, threshold
+
+
 class ServeEngine:
     """Construct, :meth:`warmup`, submit from any thread, :meth:`stop`."""
 
     def __init__(self, model: Any, cfg: ServeConfig, params: Any, *,
                  params_step: int = 0, precision: PrecisionPolicy = FP32,
                  registry: MetricsRegistry | None = None,
+                 obs_cfg: Any = None,
                  done_depth: int = _DONE_DEPTH,
                  restart_seed: int | None = None):
         _validate(cfg)
+        slo = _slo_settings(obs_cfg)
         self._generic = (model.apply_prefill is None
                          or model.apply_serve_batch is None)
         if self._generic and model.apply_batch is None:
@@ -447,6 +537,13 @@ class ServeEngine:
         self._spill_enabled = bool(cfg.spill_dir) and self._warm_enabled
         self._build_arena()
 
+        # The live knobs, seeded from config (their ceiling) and moved by
+        # set_knobs; the ingress bound follows max_queue.
+        self._knobs = _LiveKnobs(batch_timeout_ms=float(cfg.batch_timeout_ms),
+                                 max_queue=int(cfg.max_queue))
+        self._registry.record_many({
+            "serve_knob_batch_timeout_ms": self._knobs.batch_timeout_ms,
+            "serve_knob_max_queue": float(self._knobs.max_queue)})
         self._q: queue.Queue = queue.Queue(maxsize=cfg.max_queue)
         self._deferred: deque[_Request] = deque()
         self._done_q: queue.Queue = queue.Queue(maxsize=done_depth)
@@ -480,6 +577,49 @@ class ServeEngine:
         self._consumer_fault_epoch = 0
         self._failed: BaseException | None = None
         self._batch_serial = 0
+
+        # Stats windows (guarded by _lock): overload events, completions
+        # and the sum and count of tick occupancies since the last
+        # publish; the terminal-outcome totals the SLO burn windows diff.
+        self._overload_events = 0
+        self._stats_t = time.perf_counter()
+        self._stats_completed = 0
+        self._stats_occupancy = 0.0
+        self._stats_ticks = 0
+        self._term_total = self._term_bad = 0
+        self._term_completed = self._term_slow = 0
+        #: EWMA of a cold re-entry's device ms and the warm-hit count at the
+        #: last publish: the warm tier's economics gauge.
+        self._ewma_prefill_ms = 0.0
+        self._prev_warm_hits = 0.0
+        #: Serialises publishes: the consumer publishes after every batch,
+        #: failure paths from their own threads (they skip when it is
+        #: taken), stop() with force.
+        self._stats_lock = threading.Lock()
+        self._slo = slo
+        self._slo_on = slo[0] > 0 or slo[1] > 0
+        #: (t, total, bad, completed, slow) at each publish, seeded with
+        #: zeros so an incident inside the first interval still burns.
+        self._slo_win: deque[tuple] = deque(maxlen=4096)
+        self._slo_win.append((self._stats_t, 0, 0, 0, 0))
+        self._burn_alarm = False
+        self._hists = {
+            name: self._registry.attach_histogram(name, Histogram())
+            for name in ("serve_request_ms",
+                         *(f"serve_{s}_ms" for s in SERVE_STAGES))}
+        self._h_e2e = self._hists["serve_request_ms"]
+        #: End-to-end bucket counts at the last publish: the window delta
+        #: the p50/p99 gauges are quantiles of.
+        self._p50_prev_counts = self._h_e2e.snapshot()["counts"]
+        #: The window's slowest requests (at most exemplar_k) and the ring
+        #: of the last four windows' (guarded by _ex_lock; _stats_lock may
+        #: take it, never the reverse).
+        self._exemplar_k = max(0, int(getattr(obs_cfg, "exemplar_k", 8)
+                                      if obs_cfg is not None else 8))
+        self._window_slowest: list[dict] = []
+        self._exemplars: deque[dict] = deque(
+            maxlen=max(1, 4 * self._exemplar_k))
+        self._ex_lock = threading.Lock()
 
         self._dispatcher = threading.Thread(
             target=self._serve_loop, name="serve-dispatcher", daemon=True)
@@ -657,6 +797,57 @@ class ServeEngine:
     def queue_depth(self) -> int:
         return self._q.qsize()
 
+    @property
+    def knobs(self) -> _LiveKnobs:
+        """The live knob vector (the controller's read side)."""
+        return self._knobs
+
+    @property
+    def latency_histogram(self) -> Histogram:
+        """The end-to-end request-latency histogram, whose window deltas
+        give ``serve_p99_ms`` and the controller's objective."""
+        return self._h_e2e
+
+    def set_knobs(self, *, batch_timeout_ms: float | None = None,
+                  max_queue: int | None = None) -> _LiveKnobs:
+        """Install new live knobs (the controller's actuator; also by hand),
+        each clamped to its configured value as the ceiling; negative
+        timeouts and queues under 1 are refused. The ingress bound follows
+        ``max_queue`` at once (under the queue's mutex); the new vector is
+        returned and published as the ``serve_knob_*`` gauges."""
+        cur = self._knobs
+        batch_timeout_ms = float(cur.batch_timeout_ms
+                                 if batch_timeout_ms is None
+                                 else batch_timeout_ms)
+        max_queue = int(cur.max_queue if max_queue is None else max_queue)
+        if batch_timeout_ms < 0:
+            raise ConfigError(
+                f"batch_timeout_ms must be >= 0, got {batch_timeout_ms}")
+        if max_queue < 1:
+            raise ConfigError(f"max_queue must be >= 1, got {max_queue}")
+        new = _LiveKnobs(
+            batch_timeout_ms=min(batch_timeout_ms, self.cfg.batch_timeout_ms),
+            max_queue=min(max_queue, self.cfg.max_queue))
+        self._knobs = new
+        if new.max_queue != cur.max_queue:
+            # put_nowait reads maxsize under this mutex: the next admission
+            # sees the new bound. A shrink below the depth sheds or rejects
+            # until the dispatcher drains under it.
+            with self._q.mutex:
+                self._q.maxsize = new.max_queue
+                self._q.not_full.notify_all()
+        self._registry.record_many({
+            "serve_knob_batch_timeout_ms": new.batch_timeout_ms,
+            "serve_knob_max_queue": float(new.max_queue)})
+        return new
+
+    def exemplars(self) -> list[dict]:
+        """The slowest-request ring (the last windows' top-K and the window
+        in progress), slowest first; safe from any thread."""
+        with self._ex_lock:
+            merged = list(self._exemplars) + list(self._window_slowest)
+        return sorted(merged, key=lambda e: -e["latency_ms"])
+
     def paging_ms(self) -> dict[str, float | None]:
         """Mean device ms per tick that paged: ``pageout`` (the park gather
         and its copy to the host) and ``install`` (upload and scatter); None
@@ -702,13 +893,15 @@ class ServeEngine:
                 return req
             except queue.Full:
                 pass
+            with self._lock:
+                self._overload_events += 1
             self._registry.record("serve_overload", 1.0)
             if self.cfg.shed_policy == "reject":
                 self._registry.inc("serve_queue_rejected_total")
                 with self._lock:
                     self.counters["rejected"] += 1
                 self._finish_failed(req, ServeRejected(
-                    f"ingress queue full ({self.cfg.max_queue}); request "
+                    f"ingress queue full ({self._knobs.max_queue}); request "
                     "rejected under shed_policy='reject'",
                     reason="queue_full"))
                 return req
@@ -721,7 +914,7 @@ class ServeEngine:
             self._registry.inc("serve_shed_total")
             self._finish_failed(victim, ServeRejected(
                 "shed from the ingress queue under overload (shed_policy="
-                f"'oldest', max_queue={self.cfg.max_queue})",
+                f"'oldest', max_queue={self._knobs.max_queue})",
                 reason="shed_oldest"))
 
     def swap_params(self, master_params: Any, step: int) -> None:
@@ -796,6 +989,7 @@ class ServeEngine:
                 log.error("serve %s thread still alive %.1fs after stop(): "
                           "shutdown is NOT clean", thread.name, timeout_s)
                 ok = False
+        self._publish_stats(force=True)
         return ok
 
     def page_out_all(self) -> dict[str, int]:
@@ -842,6 +1036,7 @@ class ServeEngine:
                  "refused, %d takes left for adopters)", counts["written"],
                  "y" if counts["written"] == 1 else "ies", counts["refused"],
                  counts["skipped_takes"])
+        self._publish_stats(force=True)
         return counts
 
     # -- dispatcher thread ------------------------------------------------
@@ -905,12 +1100,21 @@ class ServeEngine:
             self._finish_failed(req, exc)
 
     def _finish_failed(self, req: _Request, exc: BaseException) -> None:
+        """Complete a request with a terminal error (rejection, shed,
+        expiry, a failed batch or engine), then publish: under an outage
+        nothing completes, and the availability burn must climb during it.
+        The publish skips when another thread holds it and does no disk
+        I/O (this runs on submitters' threads and the dispatcher)."""
         with self._lock:
             self._pending -= 1
             self.counters["failed"] += 1
+            self._term_total += 1
+            self._term_bad += 1
         req.error = exc
+        req.outcome = _outcome(exc)
         req._event.set()
         _fire(req.callback, None)
+        self._publish_stats(io_ok=False)
 
     # -- supervision (serve.max_restarts > 0) ------------------------------
 
@@ -993,10 +1197,13 @@ class ServeEngine:
 
     def _collect_batch(self) -> list[_Request]:
         """Deferred same-session requests first, then the queue until
-        ``max_batch`` or the coalescing deadline: anchored at the first
-        request and clamped to the earliest surviving request's deadline.
-        Expired requests complete with a deadline error and never join."""
+        ``max_batch`` or the coalescing deadline (anchored at the first
+        request and clamped to the earliest surviving request's deadline),
+        then whatever is already queued, without waiting.
+        Expired requests complete with a deadline error and never join.
+        The live knobs are read once for the tick."""
         cfg = self.cfg
+        knobs = self._knobs
         # Parked rows first, then adopted disk takes (which must land in
         # the warm store freshest, so a park commit cannot demote them).
         self._commit_page_outs()
@@ -1011,6 +1218,7 @@ class ServeEngine:
                 continue
             if (req.session_id in seen or len(batch) >= cfg.max_batch
                     or self._in_transit(req)):
+                req.deferrals += 1
                 kept.append(req)
             else:
                 req.t_collected = now
@@ -1029,28 +1237,34 @@ class ServeEngine:
             if self._expire_if_dead(req, time.perf_counter()):
                 return []
             if self._in_transit(req):
+                req.deferrals += 1
                 self._deferred.append(req)
                 return []
             req.t_collected = time.perf_counter()
             batch.append(req)
             seen.add(req.session_id)
-        deadline = time.perf_counter() + cfg.batch_timeout_ms / 1e3
+        deadline = time.perf_counter() + knobs.batch_timeout_ms / 1e3
         for req in batch:           # anchor to the earliest survivor
             if req.t_deadline is not None:
                 deadline = min(deadline, req.t_deadline)
         while len(batch) < cfg.max_batch:
             remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
             try:
-                req = self._q.get(timeout=remaining)
+                # Past the coalescing deadline, requests already queued
+                # still join without waiting: at batch_timeout_ms=0 (the
+                # controller's floor) a backlog is served in full batches,
+                # not one request a tick as the JAX engine does.
+                req = (self._q.get(timeout=remaining) if remaining > 0
+                       else self._q.get_nowait())
             except queue.Empty:
                 break
             if self._expire_if_dead(req, time.perf_counter()):
                 continue
             if req.session_id in seen:
-                if len(self._deferred) >= cfg.max_queue:
+                if len(self._deferred) >= knobs.max_queue:
                     # The same-session backlog is bounded too.
+                    with self._lock:
+                        self._overload_events += 1
                     self._registry.record("serve_overload", 1.0)
                     if cfg.shed_policy == "oldest":
                         self._registry.inc("serve_shed_total")
@@ -1059,6 +1273,7 @@ class ServeEngine:
                                 "shed from the same-session backlog under "
                                 "overload (shed_policy='oldest')",
                                 reason="shed_oldest"))
+                        req.deferrals += 1
                         self._deferred.append(req)
                     else:
                         self._registry.inc("serve_queue_rejected_total")
@@ -1068,9 +1283,11 @@ class ServeEngine:
                             "same-session backlog exceeded serve.max_queue",
                             reason="deferred_overflow"))
                     continue
+                req.deferrals += 1
                 self._deferred.append(req)
                 continue
             if self._in_transit(req):
+                req.deferrals += 1
                 self._deferred.append(req)
                 continue
             req.t_collected = time.perf_counter()
@@ -1168,7 +1385,9 @@ class ServeEngine:
             obs, pidx = self._pad(reqs, cold_idx + warm_idx)
             cold = np.zeros((self.cfg.max_batch,), np.bool_)
             cold[:len(cold_reqs)] = True
-            self._stamp(reqs)
+            self._stamp(reqs, self._batch_serial, False)
+            for req in cold_reqs:
+                req.cold = True
             act, logits, values = self._generic_program(
                 params, self._upload(obs), self._upload(pidx),
                 self._upload(cold))
@@ -1182,7 +1401,7 @@ class ServeEngine:
                 if not reqs:
                     continue
                 obs, pidx = self._pad(reqs, idx)
-                self._stamp(reqs)
+                self._stamp(reqs, self._batch_serial, key == "cold")
                 act, logits, values = program(params, self._upload(obs),
                                               self._upload(pidx))
                 groups.append((reqs, act, logits, values))
@@ -1200,10 +1419,14 @@ class ServeEngine:
                           installed=tuple(unpark_rows))
 
     @staticmethod
-    def _stamp(reqs: list[_Request]) -> None:
+    def _stamp(reqs: list[_Request], serial: int, cold: bool) -> None:
+        """The dispatch edge: the program is enqueued right after, so the
+        device stage holds its device work and the queue ahead of it."""
         t = time.perf_counter()
         for req in reqs:
             req.t_dispatched = t
+            req.batch = serial
+            req.cold = cold
 
     def _pad(self, reqs: list[_Request],
              idx: list[int]) -> tuple[np.ndarray, np.ndarray]:
@@ -1371,6 +1594,12 @@ class ServeEngine:
                     self._poisoned.append(req.session_id)
                     if not req._event.is_set():
                         req.error = exc
+                        req.outcome = "failed"
+                        with self._lock:
+                            # Pending fell with the batch; only the SLO
+                            # accounting is per request here.
+                            self._term_total += 1
+                            self._term_bad += 1
                         req._event.set()
                         _fire(req.callback, None)
             self._consumer_fault = exc
@@ -1440,30 +1669,66 @@ class ServeEngine:
         return row
 
     def _complete_batch(self, done: _DoneBatch) -> None:
-        """Readback + completion; blocking host work belongs here."""
-        n_done = 0
+        """Readback + completion; blocking host work belongs here. Each
+        completed request is observed into the stage histograms and checked
+        against the stage decomposition; the tick then publishes."""
+        n_done = slow = 0
+        hists = self._hists
+        slo_target = self._slo[1]
         try:
             for reqs, act_dev, logit_dev, val_dev in done.groups:
                 actions = act_dev.cpu().numpy()
                 logits = logit_dev.cpu().numpy()
                 values = val_dev.cpu().numpy()
                 now = time.perf_counter()
+                # The consumer completes a batch's requests one after the
+                # other: the readback histogram bills each only its own
+                # completion slice.
+                t_prev = now
                 for i, req in enumerate(reqs):
+                    req.t_device = now
                     t_coll = req.t_collected or req.t_enq
                     t_disp = req.t_dispatched or t_coll
+                    latency_ms = (now - req.t_enq) * 1e3
                     stages = {"queue_wait_ms": (t_coll - req.t_enq) * 1e3,
                               "batch_wait_ms": (t_disp - t_coll) * 1e3,
                               "device_ms": (now - t_disp) * 1e3}
+                    if req.cold:
+                        # What a cold re-entry costs (device ms with its
+                        # queueing): the warm tier's economics gauge.
+                        prev = self._ewma_prefill_ms
+                        self._ewma_prefill_ms = (
+                            stages["device_ms"] if prev == 0.0
+                            else 0.9 * prev + 0.1 * stages["device_ms"])
                     result = ServeResult(
                         session_id=req.session_id, action=int(actions[i]),
                         logits=logits[i], value=float(values[i]),
-                        params_step=done.live.step,
-                        latency_ms=(now - req.t_enq) * 1e3, stages=stages,
-                        batch=done.serial)
+                        params_step=done.live.step, latency_ms=latency_ms,
+                        stages=stages, batch=done.serial)
                     req.result = result
+                    req.outcome = "completed"
                     req._event.set()
                     n_done += 1
                     _fire(req.callback, result)
+                    req.t_done = time.perf_counter()
+                    hists["serve_queue_wait_ms"].observe(
+                        stages["queue_wait_ms"])
+                    hists["serve_batch_wait_ms"].observe(
+                        stages["batch_wait_ms"])
+                    hists["serve_device_ms"].observe(stages["device_ms"])
+                    hists["serve_readback_ms"].observe(
+                        (req.t_done - t_prev) * 1e3)
+                    t_prev = req.t_done
+                    self._h_e2e.observe(latency_ms)
+                    if abs(sum(stages.values()) - latency_ms) > 1e-6:
+                        # Exact by construction: drift means a stamp broke.
+                        self._registry.inc(
+                            "serve_trace_decomposition_error_total")
+                    if slo_target and latency_ms > slo_target:
+                        slow += 1
+                    if self._exemplar_k:
+                        self._note_exemplar(req, latency_ms, stages,
+                                            done.live.step)
             if done.install_events is not None:
                 start, end = done.install_events
                 end.synchronize()
@@ -1474,11 +1739,18 @@ class ServeEngine:
                 self._pending -= done.n
                 self.counters["completed"] += n_done
                 self.counters["failed"] += done.n - n_done
+                self._term_total += n_done
+                self._term_completed += n_done
+                self._term_slow += slow
         # A completed batch dispatched after the latest fault heals the
         # consecutive-fault streak.
         with self._sup_lock:
             if done.epoch == self._fault_epoch:
                 self._restart_streak = 0
+        with self._lock:
+            self._stats_completed += done.n
+            self._stats_occupancy += done.n / self.cfg.max_batch
+            self._stats_ticks += 1
         reg = self._registry
         reg.inc("serve_responses_total", done.n)
         reg.inc("serve_batches_total")
@@ -1486,3 +1758,151 @@ class ServeEngine:
             reg.inc("serve_prefills_total", done.cold)
         if done.evicted:
             reg.inc("serve_evictions_total", done.evicted)
+        self._publish_stats()
+
+    # -- telemetry ----------------------------------------------------------
+
+    def _note_exemplar(self, req: _Request, latency_ms: float,
+                       stages: dict, step: int) -> None:
+        """Keep the window's ``exemplar_k`` slowest completed requests with
+        their stage split (consumer thread; K is small)."""
+        with self._ex_lock:
+            w = self._window_slowest
+            if len(w) >= self._exemplar_k:
+                m = min(range(len(w)), key=lambda j: w[j]["latency_ms"])
+                if latency_ms <= w[m]["latency_ms"]:
+                    return
+                del w[m]
+            w.append({
+                "session": str(req.session_id),
+                "latency_ms": round(latency_ms, 3),
+                "stages": {k: round(v, 3) for k, v in stages.items()},
+                "batch": req.batch,
+                "cold": req.cold,
+                "deferrals": req.deferrals,
+                "params_step": step,
+            })
+
+    def _publish_stats(self, *, force: bool = False,
+                       io_ok: bool = True) -> None:
+        """The gauges at ``serve.stats_interval_s``: from the consumer after
+        every batch, from failure paths on any thread (``io_ok=False``: no
+        disk I/O there), and from ``stop`` / ``page_out_all`` (``force``).
+        A caller that is not forced skips when another thread publishes."""
+        now = time.perf_counter()
+        if not force and now - self._stats_t < self.cfg.stats_interval_s:
+            return
+        if not self._stats_lock.acquire(blocking=force):
+            return
+        try:
+            if force:
+                # Past any publish that won the lock while this one waited.
+                now = time.perf_counter()
+            self._publish_stats_locked(now, force, io_ok)
+        finally:
+            self._stats_lock.release()
+
+    def _publish_stats_locked(self, now: float, force: bool,
+                              io_ok: bool) -> None:
+        interval = now - self._stats_t
+        if (not force and interval < self.cfg.stats_interval_s
+                or interval <= 0):
+            return
+        with self._lock:
+            overload_events = self._overload_events
+            self._overload_events = 0
+            term = (self._term_total, self._term_bad,
+                    self._term_completed, self._term_slow)
+            completed = self._stats_completed
+            occupancy, ticks = self._stats_occupancy, self._stats_ticks
+            self._stats_completed = 0
+            self._stats_occupancy, self._stats_ticks = 0.0, 0
+        depth = self._q.qsize()
+        overloaded = overload_events > 0 or depth >= self._knobs.max_queue
+        row: dict[str, float] = {
+            "serve_qps": completed / interval,
+            "serve_queue_depth": float(depth),
+            # 1 while the engine sheds or rejects or the queue is pinned.
+            "serve_overload": float(overloaded),
+        }
+        # p50/p99 of the window: the end-to-end histogram's bucket delta.
+        snap = self._h_e2e.snapshot()
+        delta = [a - b for a, b in zip(snap["counts"],
+                                       self._p50_prev_counts)]
+        self._p50_prev_counts = snap["counts"]
+        if sum(delta) > 0:
+            row["serve_p50_ms"] = self._h_e2e.quantile(0.50, counts=delta)
+            row["serve_p99_ms"] = self._h_e2e.quantile(0.99, counts=delta)
+        if ticks:
+            row["serve_batch_occupancy"] = occupancy / ticks
+        # Dispatcher-owned sizes read as gauges (a tick stale at worst).
+        row["serve_sessions_hot"] = float(len(self._slots))
+        if self._warm_enabled:
+            warm = self._warm
+            row["serve_warm_sessions"] = float(len(warm))
+            row["serve_warm_bytes"] = float(warm.bytes)
+            row["serve_warm_budget_bytes"] = float(warm.max_bytes)
+            # Prefill ms this window's warm hits avoided, per MB held.
+            hits = self._registry.counters().get("serve_warm_hits_total",
+                                                 0.0)
+            d_hits = max(0.0, hits - self._prev_warm_hits)
+            self._prev_warm_hits = hits
+            held_mb = warm.bytes / 2**20
+            row["serve_warm_econ_ms_per_mb"] = (
+                d_hits * self._ewma_prefill_ms / held_mb
+                if held_mb > 0 else 0.0)
+        arena = self._arena
+        if arena is not None:
+            if io_ok:
+                arena.scan_usage()      # one bounded scandir, consumer only
+            row["serve_spill_bytes"] = float(arena.bytes)
+            row["serve_spill_sessions"] = float(arena.sessions)
+            row["serve_spill_budget_bytes"] = float(arena.max_bytes)
+        row.update(self._slo_burn(now, term))
+        self._registry.record_many(row)
+        self._fold_exemplars()
+        self._stats_t = now
+
+    def _slo_burn(self, now: float, term: tuple) -> dict[str, float]:
+        """Burn rates over ``obs.slo_window_s``: the difference of the
+        terminal-outcome totals between now and the newest publish at or
+        before the window's edge (publishes sparser than the window leave
+        one interval). Burn 1.0 spends exactly the error budget; crossing
+        ``obs.slo_burn_threshold`` counts an alert, re-armed once the burn
+        is under half of it."""
+        if not self._slo_on:
+            return {}
+        avail, target_p99, window_s, threshold = self._slo
+        win = self._slo_win
+        win.append((now, *term))
+        while len(win) > 1 and win[1][0] <= now - window_s:
+            win.popleft()
+        base = win[0]
+        d_total, d_bad = term[0] - base[1], term[1] - base[2]
+        d_completed, d_slow = term[2] - base[3], term[3] - base[4]
+        out: dict[str, float] = {}
+        burns: dict[str, float] = {}
+        if avail > 0 and d_total > 0:
+            burns["availability"] = (d_bad / d_total) / (1.0 - avail)
+            out["serve_slo_availability_burn"] = burns["availability"]
+        if target_p99 > 0 and d_completed > 0:
+            burns["latency"] = (d_slow / d_completed) / 0.01
+            out["serve_slo_latency_burn"] = burns["latency"]
+        worst = max(burns.values(), default=0.0)
+        if worst >= threshold and not self._burn_alarm:
+            self._burn_alarm = True
+            self._registry.inc("serve_slo_burn_alerts_total")
+            log.warning("SLO burn rate %.2f crossed threshold %.2f (window "
+                        "%ds: %d/%d bad, %d/%d slow)", worst, threshold,
+                        int(window_s), d_bad, d_total, d_slow, d_completed)
+        elif self._burn_alarm and worst < 0.5 * threshold:
+            self._burn_alarm = False
+        return out
+
+    def _fold_exemplars(self) -> None:
+        """End of a window: its slowest requests join the bounded ring."""
+        with self._ex_lock:
+            if self._window_slowest:
+                self._exemplars.extend(sorted(
+                    self._window_slowest, key=lambda e: -e["latency_ms"]))
+                self._window_slowest = []

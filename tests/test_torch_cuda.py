@@ -23,6 +23,8 @@ size, and the policy term within the bound its formula gives.
 Checkpoints on the card: a CUDA generator's state and every leaf round-trip
 bit for bit, and ``save_async``'s pinned side-stream copy holds the bits of
 the state it was handed while the caller's stream updates it in place.
+Serving on the card: the flagship engine takes live knobs mid-load, and
+the online controller tightens, then relaxes, never past config.
 """
 
 import numpy as np
@@ -915,3 +917,98 @@ def test_a_chunk_that_cannot_be_captured_raises(cuda, tmp_path):
         program(ts)
     assert program.replays == 0 and program.capture_seconds is None
     assert int(ts.updates) == updates
+
+
+# ---------------------------------------------------------------------------
+# serving's live knobs and online controller on the card (the flagship)
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_SERVE = [
+    "learner.algo=ppo", "model.kind=transformer", "model.seq_mode=episode",
+    "model.num_layers=2", "model.num_heads=2", "model.head_dim=128",
+    "env.window=201", "precision.mode=bf16_mixed", "serve.max_batch=64",
+    "serve.slots=256", "serve.stats_interval_s=0.25"]
+
+
+def _flagship_engine(cuda, **serve):
+    import dataclasses
+
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.data.synthetic import synthetic_price_series
+    from sharetrade_tpu_torch.env.trading import obs_dim
+    from sharetrade_tpu_torch.models import build_model
+    from sharetrade_tpu_torch.precision import policy_from_config
+    from sharetrade_tpu_torch.serve import ServeEngine
+
+    cfg = FrameworkConfig().apply_overrides(FLAGSHIP_SERVE)
+    model = build_model(cfg.model, obs_dim(cfg.env.window), device=cuda)
+    engine = ServeEngine(
+        model, dataclasses.replace(cfg.serve, **serve),
+        model.init(torch.Generator().manual_seed(cfg.seed)),
+        precision=policy_from_config(cfg.precision))
+    engine.warmup()
+    return engine, synthetic_price_series(length=2048).prices, cfg
+
+
+def test_flagship_engine_takes_live_knobs_mid_load(cuda):
+    """Closed loop over 192 sessions; halfway, a tighter knob vector: every
+    answer finite, the ingress bound and gauges retargeted, the stages
+    telescoping, flash_fwd launched on the cold ticks."""
+    import threading
+
+    from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
+
+    engine, prices, cfg = _flagship_engine(cuda)
+    attention.reset_launch_counts()
+    out: dict = {}
+    try:
+        thread = threading.Thread(target=lambda: out.update(run_closed_loop(
+            engine, make_sessions(prices, cfg.env.window, 192, seed=1),
+            concurrency=192, duration_s=2.0)))
+        thread.start()
+        thread.join(1.0)
+        knobs = engine.set_knobs(batch_timeout_ms=0.5, max_queue=128)
+        assert tuple(knobs) == (0.5, 128) and engine._q.maxsize == 128
+        thread.join(120.0)
+        assert engine.drain(60.0)
+        reg = engine.registry
+        assert out["completed"] > 0
+        assert reg.latest("serve_knob_max_queue") == 128.0
+        assert reg.counters().get(
+            "serve_trace_decomposition_error_total", 0) == 0
+        assert engine.latency_histogram.count == engine.counters["completed"]
+        assert reg.latest("serve_p99_ms") > 0
+        assert attention.launch_counts["flash_fwd"] == (
+            cfg.model.num_layers * engine.counters["cold_batches"]) > 0
+    finally:
+        engine.stop(timeout_s=30.0)
+
+
+def test_controller_tightens_then_relaxes_on_the_card(cuda):
+    """An unmeetable target tightens both knobs under 128 sessions in
+    flight; a second controller with a generous target grows them back
+    under 32 (fewer than the tightened queue holds, so no window is
+    overloaded), never past config."""
+    from sharetrade_tpu_torch.serve import ServeController
+    from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
+
+    engine, prices, cfg = _flagship_engine(cuda, max_queue=512)
+    ceiling = (engine.cfg.batch_timeout_ms, engine.cfg.max_queue)
+    try:
+        for target, sessions, prefix in ((0.01, 128, "t"), (1e4, 32, "r")):
+            ctl = ServeController(engine, target_p99_ms=target,
+                                  interval_s=0.2).start()
+            start = tuple(engine.knobs)
+            run_closed_loop(engine, make_sessions(
+                prices, cfg.env.window, sessions, seed=2, prefix=prefix),
+                concurrency=sessions, duration_s=1.5)
+            ctl.stop()
+            end = tuple(engine.knobs)
+            assert ctl.adjustments > 0
+            assert end[0] <= ceiling[0] and end[1] <= ceiling[1]
+            if target < 1:
+                assert end[0] < start[0] and end[1] < start[1]
+            else:
+                assert end[1] > start[1]
+    finally:
+        engine.stop(timeout_s=30.0)

@@ -8,7 +8,8 @@ learner (``qlearn``, ``dqn`` uniform and PER, ``pg``, ``a2c``) and, with
 ``--eval``, the greedy eval; ``serve`` then boots the Q-network from that
 run's ``tag_best`` with the weight-swap watcher running
 (``serve.swap_poll_s`` defaults to 5 s). ``serve`` refuses, with a
-``ConfigError`` and exit code 2, the knobs it cannot honour yet.
+``ConfigError`` and exit code 2, the knobs it cannot honour yet and a
+missing tuned profile, and runs the online controller.
 """
 
 import json
@@ -92,10 +93,32 @@ def test_cli_serve_builds_the_head_the_learner_trains(tmp_path):
 
 
 @pytest.mark.parametrize("knob", [
-    "obs.enabled=true", "tuning.serve_controller=true",
-    "tuning.profile=/nonexistent/tuned_profile.json"])
+    "obs.enabled=true", "tuning.profile=/nonexistent/tuned_profile.json"])
 def test_cli_serve_refuses_what_it_cannot_honour(knob, tmp_path):
+    """``obs.enabled`` is not ported; a profile that is not there is a
+    ``ProfileError`` (a ``ConfigError``), as in the JAX package."""
     serve = _run("serve", tmp_path, knob, args=["--duration", "0.5"])
     assert serve.returncode == 2
-    assert "ConfigError" in serve.stderr and "not yet ported" in serve.stderr
+    if knob.startswith("obs."):
+        assert ("ConfigError" in serve.stderr
+                and "not yet ported" in serve.stderr)
+    else:
+        assert ("ProfileError" in serve.stderr
+                and "tuned profile not found" in serve.stderr)
     assert not serve.stdout.strip()
+
+
+def test_cli_serve_runs_the_online_controller(tmp_path):
+    """``tuning.serve_controller`` serves: a target no tick can meet makes
+    the controller tighten, and the summary counts its adjustments."""
+    serve = _run("serve", tmp_path, "tuning.serve_controller=true",
+                 "tuning.target_p99_ms=0.001",
+                 "tuning.controller_interval_s=0.1", "serve.max_batch=4",
+                 "serve.slots=8", args=["--duration", "1", "--sessions", "8"])
+    assert serve.returncode == 0, serve.stderr[-2000:]
+    summary = json.loads(serve.stdout.strip().splitlines()[-1])
+    assert summary["completed"] > 0 and summary["failed"] == 0
+    assert summary["controller_adjustments"] > 0
+    assert set(summary["stage_p99_ms"]) == {"queue_wait", "batch_wait",
+                                            "device", "readback"}
+    assert "serve controller tighten" in serve.stderr

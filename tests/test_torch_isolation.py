@@ -2,7 +2,8 @@
 
 - Importing the port's modules in a fresh interpreter leaves ``jax`` and
   ``sharetrade_tpu`` out of ``sys.modules``.
-- A source scan of the package (its ``checkpoint/`` included),
+- A source scan of the package (its ``checkpoint/``, ``obs/``,
+  ``tuning.py`` and ``serve/controller.py`` included),
   ``chip_smoke.py`` and ``tools/torch_*.py`` finds no import of ``jax``, ``flax``, ``optax`` or
   ``msgpack`` (the machine with the card has none of them) and no reference
   to the JAX package's modules.
@@ -39,8 +40,12 @@ def _sources():
     files = (sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
              + sorted((REPO / "tools").glob("torch_*.py")))
     assert len(files) > 10
-    assert PACKAGE / "checkpoint" / "manager.py" in files
-    assert REPO / "tools" / "torch_train_ab.py" in files
+    for path in (PACKAGE / "checkpoint" / "manager.py",
+                 PACKAGE / "obs" / "__init__.py", PACKAGE / "obs" / "hist.py",
+                 PACKAGE / "tuning.py", PACKAGE / "serve" / "controller.py",
+                 REPO / "tools" / "torch_train_ab.py",
+                 REPO / "tools" / "torch_autotune.py"):
+        assert path in files, path
     return files
 
 

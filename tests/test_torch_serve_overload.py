@@ -9,7 +9,9 @@ mirrored on the port's engine, plus its load drivers.
 - Deadlines: an expired request completes with ``ServeDeadlineExceeded``
   before batch collection (``submit(deadline_ms=)`` and
   ``serve.default_deadline_ms``), and the coalescing wait is clamped to the
-  earliest surviving deadline.
+  earliest surviving deadline; past that deadline a tick still takes
+  the requests already queued, so a backlog at ``batch_timeout_ms=0``
+  is served in full batches.
 - Supervision (``serve.max_restarts``): a malformed observation fails its
   batch and rebuilds the engine; the formerly warm session then answers as
   a fresh one, bit for bit; a storm of faults ends in the terminal state
@@ -97,7 +99,11 @@ def _stalled_engine(model, params, prices, *, max_queue, shed_policy,
         engaged.set()
         release.wait(30.0)
 
-    handle = engine.submit("stall", obs_at(prices, 0, 0), callback=stall)
+    # No deadline for the stall request itself: under a loaded host a
+    # short serve.default_deadline_ms could expire it before it is
+    # collected, and nothing would hold the consumer.
+    handle = engine.submit("stall", obs_at(prices, 0, 0), callback=stall,
+                           deadline_ms=0)
     assert engaged.wait(20.0), "stall request never dispatched"
     return engine, handle, release
 
@@ -225,6 +231,53 @@ def test_deadline_anchors_batch_coalescing(mlp, prices):
         assert result is not None
         assert time.perf_counter() - t0 < 1.5
     finally:
+        engine.stop()
+
+
+def test_backlog_fills_the_batch_past_the_coalescing_deadline(mlp, prices):
+    """At ``batch_timeout_ms=0`` a tick still takes the requests already
+    queued, up to ``max_batch``, without waiting for more: a backlog is
+    served in full batches, not one request a tick."""
+    mb = 4
+    engine = ServeEngine(mlp[0], ServeConfig(max_batch=mb, slots=4 * mb,
+                                             batch_timeout_ms=0.0,
+                                             max_queue=64),
+                         mlp[1], done_depth=1)
+    engine.warmup()
+    engaged, release = threading.Event(), threading.Event()
+
+    def stall(_result):
+        engaged.set()
+        release.wait(30.0)
+
+    def until(cond):
+        t_due = time.perf_counter() + 20.0
+        while not cond():
+            assert time.perf_counter() < t_due
+            time.sleep(0.001)
+
+    try:
+        # The consumer holds inside the stall's callback; one tick fills
+        # the done queue and the next blocks the dispatcher on it, so the
+        # backlog below is queued whole before any of it is collected.
+        stall = engine.submit("stall", obs_at(prices, 0, 0), callback=stall)
+        assert engaged.wait(20.0), "stall request never dispatched"
+        held = [engine.submit("held0", obs_at(prices, 1, 0))]
+        until(engine._done_q.full)
+        held.append(engine.submit("held1", obs_at(prices, 2, 0)))
+        until(lambda: engine._q.qsize() == 0
+              and len(engine._done_q.not_full._waiters) == 1)
+        backlog = [engine.submit(f"b{i}", obs_at(prices, 3 + i, 0))
+                   for i in range(3 * mb)]
+        assert engine.queue_depth() == 3 * mb
+        release.set()
+        batches = [h.wait(30.0).batch for h in backlog]
+        assert all(h.wait(30.0) is not None for h in held)
+        assert batches == [b for b in sorted(set(batches))
+                           for _ in range(mb)]
+    finally:
+        release.set()
+        assert stall.wait(10.0) is not None
         engine.stop()
 
 
