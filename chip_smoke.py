@@ -217,6 +217,32 @@ Phases, in order (any failure exits non-zero before the final line):
                ``is_causal``, and ``fused_update`` over each family's
                leaves (``FAMILY_UPDATE_CASES``) against its plain version.
 
+14. fleet    — the serving fleet on the same flagship serving config, two
+               ``cli serve --listen`` workers time-slicing the one card (so
+               this measures the tier's overhead and correctness, not
+               scale-out): (a) ``cli fleet`` as a user runs it (an empty
+               checkpoint directory: both workers boot the seeded init),
+               192 sessions in closed loop for 3 s through ``WireEngine``
+               in a client process of its own (qps, client p50 / p99, the
+               router's merged ``fleet_request_ms``, and the CPU seconds
+               each process spent meanwhile: client, router, workers, this
+               process and the busiest others); (b) 32 sessions x 8 steps through the
+               router, one request in flight each, against an in-process
+               engine fed the same sequences (``LOGIT_ATOL`` /
+               ``VALUE_ATOL``); the relay overhead (sequential p50 through
+               the router minus straight to one worker); SIGTERM: exit 75,
+               requests = completed + refused, nothing unrouted, each
+               worker's summary with ``flash_fwd`` launches; (c) in this
+               process, ``EnginePool`` + ``FleetRouter`` + ``ServeFrontend``
+               with a shared spill arena: one worker SIGKILLed under 192
+               sessions in closed loop (every request one outcome,
+               migrations, the victim respawned once, two endpoints again),
+               then ``pool.scale(1)``: the retired worker pages out, the
+               survivor adopts warm (``serve_adopt_warm_total``) and every
+               answer before and after stays within the bf16 tolerances of
+               an in-process engine. The fleet's ``flash_fwd`` launches are
+               the workers' own counts (each worker's summary).
+
 Every price read journals into a fresh scratch directory, and every CLI
 run works in a fresh scratch directory (the checkout on ``PYTHONPATH``):
 nothing is written into the checkout's ``journal/``, and no run recovers a
@@ -248,7 +274,7 @@ PHASES = ("build", "kernels", "train", "serve", "serve_tiers", "serve_slo",
           "cli",
           "cli_train",
           "resilience", "reference", "pipeline", "journal", "cli_defaults",
-          "families")
+          "families", "fleet")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -1142,7 +1168,7 @@ def kernels_line(results: dict) -> dict:
         by_path = {path: results[path]["launches"].get(name, 0)
                    for path in ("train", "serve", "serve_tiers", "serve_slo",
                                 "resilience", "reference", "pipeline",
-                                "journal", "families")
+                                "journal", "families", "fleet")
                    if path in results}
         # The same kernel at the families' shapes (families (d)).
         family_rows = [
@@ -4498,6 +4524,535 @@ def phase_profile(torch, *, ticks: int = 20) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The fleet: cli fleet, the wire, the router, the engine pool.
+
+#: The fleet phase's config: the served flagship (``FLAGSHIP``) on two
+#: ``cli serve --listen`` workers sharing the card by time-slicing.
+FLEET = FLAGSHIP + ["fleet.num_engines=2"]
+#: (c)'s pool: the warm tier (a few carries) and a shared spill arena, so a
+#: retired engine pages its sessions out for the survivor to adopt.
+FLEET_TIERS = ["serve.warm_bytes=16777216", "serve.spill_bytes=4294967296"]
+FLEET_SESSIONS = 192
+FLEET_LOOP_S = 3.0
+#: (a)'s wire client, run in a process of its own (no CUDA device visible)
+#: so its threads share no interpreter with the smoke's earlier phases:
+#: ``python -c FLEET_CLIENT HOST PORT PRICES.npy WINDOW SESSIONS SECONDS``
+#: prints the closed loop's summary as one JSON line.
+FLEET_CLIENT = """\
+import json, sys
+import numpy as np
+from sharetrade_tpu_torch.fleet import WireEngine
+from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
+host, port, prices, window, n, seconds = sys.argv[1:]
+wire = WireEngine(host, int(port), workers=int(n), timeout_s=120.0)
+try:
+    row = run_closed_loop(wire, make_sessions(
+        np.load(prices), int(window), int(n), seed=1, prefix="fa"),
+        concurrency=int(n), duration_s=float(seconds))
+    row["wire_drained"] = wire.drain(60.0)
+finally:
+    wire.stop()
+print(json.dumps(row), flush=True)
+"""
+
+
+def _json_lines(path: str) -> list[dict]:
+    """The JSON objects among a log's lines (a worker's stdout and stderr
+    share its pool log)."""
+    out = []
+    try:
+        with open(path, encoding="utf-8", errors="replace") as f:
+            for line in f:
+                if line.startswith("{"):
+                    try:
+                        out.append(json.loads(line))
+                    except ValueError:
+                        pass
+    except OSError:
+        pass
+    return out
+
+
+def _worker_summaries(fleet_dir: str) -> dict:
+    """Per worker log: its ``engine_listening`` lines' ``proto_backend``
+    and every incarnation's final summary (``mode: listen``)."""
+    out = {}
+    for name in sorted(os.listdir(fleet_dir)):
+        if not (name.startswith("e") and name.endswith(".log")):
+            continue
+        rows = _json_lines(os.path.join(fleet_dir, name))
+        out[name[:-4]] = {
+            "proto_backends": [r.get("proto_backend") for r in rows
+                               if r.get("event") == "engine_listening"],
+            "summaries": [r for r in rows if r.get("mode") == "listen"]}
+    return out
+
+
+def _lockstep(submit, sids: list, sessions: list, steps: int,
+              workers: int) -> list[list[dict]]:
+    """``steps`` rounds: every session's current observation submitted at
+    once (one request in flight per session), each round waited for, every
+    session advanced by its own served action. ``submit(sid, obs) ->
+    dict`` (the wire reply). Returns per round, per session: the reply and
+    the observation sent."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rounds = []
+    with ThreadPoolExecutor(workers) as pool:
+        for _ in range(steps):
+            obs = [s.observation() for s in sessions]
+            replies = list(pool.map(submit, sids, obs, timeout=120.0))
+            for sess, reply in zip(sessions, replies):
+                sess.advance(int(reply["action"]))
+            rounds.append([{**r, "obs": o} for r, o in zip(replies, obs)])
+    return rounds
+
+
+def _wire_submit(host: str, port: int):
+    """A ``submit(sid, obs) -> reply`` over one keep-alive FleetClient per
+    calling thread."""
+    import threading
+
+    from sharetrade_tpu_torch.fleet import FleetClient
+    local = threading.local()
+    clients = []
+
+    def submit(sid, obs):
+        client = getattr(local, "client", None)
+        if client is None:
+            client = local.client = FleetClient(host, port, timeout_s=120.0)
+            clients.append(client)
+        return client.submit(sid, obs)
+
+    submit.close = lambda: [c.close() for c in clients]
+    return submit
+
+
+def _reference_errors(torch, engine, rounds: list[list[dict]],
+                      sids: list) -> dict:
+    """The same observation sequences through an in-process engine, round
+    by round (its sessions never evicted): the largest logit and value
+    differences against the wire's answers."""
+    logit_err = value_err = 0.0
+    for rnd in rounds:
+        handles = [engine.submit(sid, r["obs"]) for sid, r in zip(sids, rnd)]
+        for h, r in zip(handles, rnd):
+            res = h.wait(120.0)
+            if res is None:
+                raise RuntimeError(f"chip_smoke: reference request failed: "
+                                   f"{h.error!r}")
+            logit_err = max(logit_err, float(np.abs(
+                np.asarray(r["logits"], np.float32) - res.logits).max()))
+            value_err = max(value_err, abs(float(r["value"]) - res.value))
+    return {"logit_max_abs_err": logit_err, "value_max_abs_err": value_err}
+
+
+def _cpu_s(pid: int) -> float | None:
+    """User + system CPU seconds of a live process (``/proc/<pid>/stat``),
+    or None once it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rpartition(")")[2].split()
+    except OSError:
+        return None
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _all_cpu_s() -> dict:
+    """``{pid: (command name, CPU seconds)}`` of every process visible."""
+    out = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/comm") as f:
+                    comm = f.read().strip()
+            except OSError:
+                continue
+            cpu = _cpu_s(int(entry))
+            if cpu is not None:
+                out[int(entry)] = (comm, cpu)
+    return out
+
+
+def _host_share(pids: dict, run) -> tuple:
+    """Run ``run()`` and return its result with where the host's CPU went
+    meanwhile: CPU seconds per named process (``pids``; this process as
+    ``smoke``, the children ``run`` waits for as ``client``) and of the
+    busiest other processes, the wall seconds, and this process's live
+    threads by name (digits dropped)."""
+    import resource
+    import threading
+
+    pids = {"smoke": os.getpid(), **pids}
+    before = _all_cpu_s()
+    kids = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    kids_after = resource.getrusage(resource.RUSAGE_CHILDREN)
+    after = _all_cpu_s()
+    spent = {pid: (comm, cpu - before.get(pid, (comm, 0.0))[1])
+             for pid, (comm, cpu) in after.items()}
+    cpu = {k: spent.get(v, ("", None))[1] for k, v in pids.items()}
+    cpu["client"] = (kids_after.ru_utime + kids_after.ru_stime
+                     - kids.ru_utime - kids.ru_stime)
+    named = set(pids.values())
+    others = sorted(((c, comm, pid) for pid, (comm, c) in spent.items()
+                     if pid not in named and c > 0.05), reverse=True)
+    threads: dict = {}
+    for t in threading.enumerate():
+        name = "".join(c for c in t.name if not c.isdigit()).strip("-_ ")
+        threads[name] = threads.get(name, 0) + 1
+    return out, {"wall_s": wall, "cores": os.cpu_count(), "cpu_s": cpu,
+                 "other_processes": len(after) - len(named),
+                 "busiest_others": [{"pid": pid, "comm": comm, "cpu_s": c}
+                                    for c, comm, pid in others[:6]],
+                 "smoke_threads": threads}
+
+
+def _p50_ms(fn, n: int) -> float:
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat))
+
+
+def _wait_for(predicate, timeout_s: float, what: str) -> float:
+    t0 = time.monotonic()
+    while not predicate():
+        if time.monotonic() - t0 > timeout_s:
+            raise RuntimeError(f"chip_smoke: timed out waiting for {what}")
+        time.sleep(0.1)
+    return time.monotonic() - t0
+
+
+def _fleet_cli(torch, engine, problems: list) -> dict:
+    """(a), (b) and the relay overhead of (d): ``cli fleet`` as a user runs
+    it, driven over the wire, then SIGTERM."""
+    import signal
+    import tempfile
+
+    from sharetrade_tpu_torch.fleet import FleetClient
+    from sharetrade_tpu_torch.serve.driver import make_sessions
+
+    cfg_prices = _prices(_flagship_cfg().data)
+    window = _flagship_cfg().env.window
+    work = _fresh_dir("fleet-cli-")
+    fleet_dir = os.path.join(work, "fleet")
+    ckpts = tempfile.mkdtemp(prefix="ckpt-", dir=work)   # empty: seeded init
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "fleet"]
+    for item in FLEET + [f"runtime.checkpoint_dir={ckpts}",
+                         f"fleet.dir={fleet_dir}"]:
+        cmd += ["--set", item]
+    out_path = os.path.join(work, "fleet.out")
+    err_path = os.path.join(work, "fleet.err")
+    row: dict = {}
+    t0 = time.perf_counter()
+    with open(out_path, "wb") as out, open(err_path, "wb") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, cwd=work,
+                                env=_cli_env())
+    try:
+        ready = None
+
+        def _ready():
+            nonlocal ready
+            if proc.poll() is not None:
+                raise RuntimeError("chip_smoke: cli fleet exited before "
+                                   "fleet_ready")
+            for r in _json_lines(out_path):
+                if r.get("event") == "fleet_ready":
+                    ready = r
+            return ready is not None
+
+        _wait_for(_ready, 300.0, "fleet_ready")
+        row["ready_s"] = time.perf_counter() - t0
+        row["ready"] = ready
+        if ready["engines"] != 2:
+            problems.append(f"fleet_ready with {ready['engines']} engines")
+        host, port = ready["host"], ready["port"]
+
+        # (a) closed loop through the router, from a fresh client process.
+        prices_path = os.path.join(work, "prices.npy")
+        np.save(prices_path, cfg_prices)
+        with open(os.path.join(fleet_dir, "engine_pool.json")) as f:
+            workers = {name: e["pid"] for name, e in json.load(f)[
+                "engines"].items()}
+        client, row["host"] = _host_share(
+            {"router": proc.pid, **workers}, lambda: subprocess.run(
+                [sys.executable, "-c", FLEET_CLIENT, host, str(port),
+                 prices_path, str(window), str(FLEET_SESSIONS),
+                 str(FLEET_LOOP_S)], capture_output=True, text=True,
+                timeout=300, cwd=work, env={**_cli_env(),
+                                            "CUDA_VISIBLE_DEVICES": ""}))
+        if client.returncode != 0:
+            raise RuntimeError(f"chip_smoke: the fleet's wire client "
+                               f"failed:\n{client.stderr[-2000:]}")
+        row["closed_loop"] = json.loads(client.stdout.strip().splitlines()[-1])
+        time.sleep(1.2)         # two router polls past the loop
+        with open(os.path.join(fleet_dir, "fleet_status.json")) as f:
+            status = json.load(f)
+        row["router"] = {"fleet_request_ms": status["fleet_request_ms"],
+                         **{k: status["gauges"].get(k) for k in (
+                             "fleet_p50_ms", "fleet_p99_ms",
+                             "fleet_engines_live")}}
+        if (row["closed_loop"]["failed"] or not row["closed_loop"]["completed"]
+                or not row["closed_loop"]["wire_drained"]):
+            problems.append("(a) closed loop had failures or no answers")
+
+        # (b) 32 sessions x 8 steps, one in flight each, against an
+        # in-process engine on the same seeded weights.
+        sids = [f"ans{i}" for i in range(32)]
+        submit = _wire_submit(host, port)
+        try:
+            rounds = _lockstep(submit, sids, make_sessions(
+                cfg_prices, window, 32, seed=2, prefix="ans"), 8, 32)
+        finally:
+            submit.close()
+        row["answers"] = {"sessions": 32, "steps": 8, **_reference_errors(
+            torch, engine, rounds, sids)}
+        row["answers"]["engines"] = sorted({r["engine"] for rnd in rounds
+                                            for r in rnd})
+        if (row["answers"]["logit_max_abs_err"] > LOGIT_ATOL
+                or row["answers"]["value_max_abs_err"] > VALUE_ATOL):
+            problems.append("(b) fleet answers disagree with the "
+                            "in-process engine")
+
+        # (d) relay overhead: sequential warm requests through the router
+        # against the same straight to one worker.
+        with open(os.path.join(fleet_dir, "engine_pool.json")) as f:
+            worker_port = next(e["port"] for e in json.load(f)[
+                "engines"].values() if e["port"])
+        obs = make_sessions(cfg_prices, window, 1, seed=3)[0].observation()
+        via, direct = FleetClient(host, port), FleetClient(host, worker_port)
+        try:
+            via.submit("ov-r", obs)
+            direct.submit("ov-d", obs)
+            row["router_p50_ms"] = _p50_ms(lambda: via.submit("ov-r", obs),
+                                           100)
+            row["direct_p50_ms"] = _p50_ms(
+                lambda: direct.submit("ov-d", obs), 100)
+        finally:
+            via.close()
+            direct.close()
+        row["relay_overhead_ms"] = row["router_p50_ms"] - row["direct_p50_ms"]
+
+        proc.send_signal(signal.SIGTERM)
+        row["rc"] = proc.wait(120.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = _json_lines(out_path)
+    summary = lines[-1] if lines else {}
+    row["summary"] = summary
+    row["workers"] = _worker_summaries(fleet_dir)
+    if row.get("rc") != 75:
+        problems.append(f"cli fleet exited {row.get('rc')} on SIGTERM, "
+                        "not 75")
+    if not (summary.get("requests") and summary.get("requests")
+            == summary.get("completed", 0) + summary.get("refused", 0)
+            and summary.get("unrouted", 1) == 0):
+        problems.append("cli fleet summary: requests != completed + refused, "
+                        "or unrouted requests")
+    launches = [w["summaries"][-1].get("flash_fwd_launches", 0)
+                if w["summaries"] else 0 for w in row["workers"].values()]
+    row["worker_flash_fwd_launches"] = launches
+    if len(launches) != 2 or min(launches) <= 0:
+        problems.append("(a) a worker's summary shows no flash_fwd launch")
+    if not ready or ready.get("proto_backend") != "py":
+        problems.append("fleet_ready names no live proto_backend")
+    if row.get("rc") != 75:
+        row["stderr_tail"] = open(err_path, errors="replace").read()[-2000:]
+    return row
+
+
+def _flagship_cfg(extra: list | None = None):
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    return FrameworkConfig().apply_overrides(FLAGSHIP + (extra or []))
+
+
+def _fleet_pool(torch, engine_factory, problems: list) -> dict:
+    """(c): EnginePool + FleetRouter + ServeFrontend in this process."""
+    import signal
+    import tempfile
+
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.fleet import (
+        EnginePool, FleetClient, FleetRouter, ServeFrontend, WireEngine)
+    from sharetrade_tpu_torch.obs.exporter import parse_prom_text
+    from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+    work = _fresh_dir("fleet-pool-")
+    cfg = FrameworkConfig().apply_overrides(FLEET + FLEET_TIERS + [
+        f"runtime.checkpoint_dir={tempfile.mkdtemp(dir=work)}",
+        f"fleet.dir={os.path.join(work, 'fleet')}",
+        f"data.journal_dir={os.path.join(work, 'journal')}"])
+    prices = _prices(cfg.data)
+    window = cfg.env.window
+    registry = MetricsRegistry()
+    row: dict = {}
+    # The workers are `python -m sharetrade_tpu_torch.cli` children of this
+    # process: they find the checkout through PYTHONPATH while the pool runs.
+    saved_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = _cli_env()["PYTHONPATH"]
+    t0 = time.perf_counter()
+    pool = EnginePool(cfg, registry=registry, device="cuda").start()
+    router = FleetRouter(pool, cfg.fleet, registry, obs_cfg=cfg.obs).start()
+    frontend = ServeFrontend(router, registry).start()
+
+    def engine(engine_id: str) -> dict:
+        return pool.status()["engines"][engine_id]
+
+    try:
+        _wait_for(lambda: len(pool.endpoints()) == 2, 300.0,
+                  "two pool workers listening")
+        row["bring_up_s"] = time.perf_counter() - t0
+        router.poll_once()
+
+        # 1. SIGKILL one worker under a closed loop of 192 sessions.
+        counters0 = dict(registry.counters())
+        wire = WireEngine(frontend.host, frontend.port,
+                          workers=FLEET_SESSIONS, timeout_s=120.0)
+        import threading
+        loop: dict = {}
+        runner = threading.Thread(target=lambda: loop.update(run_closed_loop(
+            wire, make_sessions(prices, window, FLEET_SESSIONS, seed=4,
+                                prefix="fk"),
+            concurrency=FLEET_SESSIONS, duration_s=FLEET_LOOP_S)))
+        runner.start()
+        time.sleep(1.0)
+        victim_pid = engine("e0")["pid"]
+        os.kill(victim_pid, signal.SIGKILL)
+        runner.join(120.0)
+        drained = wire.drain(60.0)
+        wire.stop()
+        counters = registry.counters()
+        delta = {k: counters.get(k, 0) - counters0.get(k, 0) for k in (
+            "fleet_requests_total", "fleet_completed_total",
+            "fleet_refused_total", "fleet_unrouted_total",
+            "fleet_migrations_total")}
+        row["kill"] = {"closed_loop": loop, "router": delta,
+                       "wire_drained": drained}
+        if not (drained and loop and loop["completed"] + loop["failed"]
+                == delta["fleet_requests_total"]
+                and loop["completed"] == delta["fleet_completed_total"]):
+            problems.append("(c) a request under the kill did not end in "
+                            "exactly one outcome")
+        if delta["fleet_migrations_total"] <= 0:
+            problems.append("(c) the SIGKILL migrated no request")
+        row["kill"]["respawn_s"] = _wait_for(
+            lambda: (pool.restarts_total == 1 and len(pool.endpoints()) == 2
+                     and engine("e0")["state"] == "alive"
+                     and engine("e0")["pid"] != victim_pid),
+            300.0, "the killed worker's respawn")
+        router.poll_once()
+        row["kill"]["restarts_total"] = pool.restarts_total
+        row["kill"]["endpoints_after"] = len(pool.endpoints())
+
+        # 2. scale(1): the newest engine drains and pages out; the survivor
+        # adopts its sessions warm through their session clocks.
+        sids = [f"ad{i}" for i in range(32)]
+        sessions = make_sessions(prices, window, 32, seed=5, prefix="ad")
+        submit = _wire_submit(frontend.host, frontend.port)
+        try:
+            rounds = _lockstep(submit, sids, sessions, 4, 32)
+            homes = [r["engine"] for r in rounds[-1]]
+            pool.scale(1)
+            retired = "e1"
+            row["scale"] = {"homes": {e: homes.count(e) for e in set(homes)},
+                            "retire_s": _wait_for(
+                                lambda: engine(retired)["state"]
+                                == "retired", 120.0, "e1's retirement")}
+            rounds += _lockstep(submit, sids, sessions, 1, 32)
+        finally:
+            submit.close()
+        survivor = pool.endpoints()
+        row["scale"]["endpoints_after"] = sorted(survivor)
+        client = FleetClient(*survivor["e0"])
+        try:
+            metrics = parse_prom_text(client.metrics())["counters"]
+        finally:
+            client.close()
+        row["scale"]["adopt_warm"] = metrics.get(
+            "sharetrade_serve_adopt_warm_total", 0)
+        row["scale"]["adopt_cold"] = metrics.get(
+            "sharetrade_serve_adopt_cold_total", 0)
+        row["scale"]["last_engines"] = sorted({r["engine"]
+                                               for r in rounds[-1]})
+        ref = engine_factory()
+        try:
+            row["scale"].update(_reference_errors(torch, ref, rounds, sids))
+        finally:
+            ref.stop(drain=False, timeout_s=10.0)
+        if row["scale"]["adopt_warm"] <= 0:
+            problems.append("(c) no session adopted warm after scale(1)")
+        if homes.count(retired) == 0:
+            problems.append("(c) no session lived on the retired engine")
+        if (row["scale"]["logit_max_abs_err"] > LOGIT_ATOL
+                or row["scale"]["value_max_abs_err"] > VALUE_ATOL):
+            problems.append("(c) answers after the scale-down disagree "
+                            "with the in-process engine")
+        if row["kill"]["restarts_total"] != 1:
+            problems.append("(c) the pool did not respawn the victim once")
+    finally:
+        frontend.stop()
+        router.stop()
+        pool.stop(grace_s=30.0)
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+    row["workers"] = _worker_summaries(os.path.join(work, "fleet"))
+    row["flash_fwd_launches"] = sum(
+        s.get("flash_fwd_launches", 0) for w in row["workers"].values()
+        for s in w["summaries"])
+    return row
+
+
+def phase_fleet(torch) -> dict:
+    """The serving fleet on the card; see the module docstring."""
+    from sharetrade_tpu_torch.env.trading import obs_dim
+    from sharetrade_tpu_torch.models import build_model
+    from sharetrade_tpu_torch.precision import policy_from_config
+    from sharetrade_tpu_torch.serve import ServeEngine
+
+    cfg = _flagship_cfg()
+    model = build_model(cfg.model, obs_dim(cfg.env.window), device="cuda")
+    params = model.init(torch.Generator().manual_seed(cfg.seed))
+    policy = policy_from_config(cfg.precision)
+
+    def engine_factory():
+        engine = ServeEngine(model, cfg.serve, params, precision=policy)
+        engine.warmup()
+        return engine
+
+    problems: list = []
+    t0 = time.perf_counter()
+    reference = engine_factory()
+    try:
+        cli_row = _fleet_cli(torch, reference, problems)
+    finally:
+        reference.stop(drain=False, timeout_s=10.0)
+    pool_row = _fleet_pool(torch, engine_factory, problems)
+    launches = sum(cli_row.get("worker_flash_fwd_launches", [])) \
+        + pool_row["flash_fwd_launches"]
+    return {"phase": "fleet", "config": FLEET, "seconds":
+            time.perf_counter() - t0, "cli": cli_row, "pool": pool_row,
+            "worker_bring_up_s": {"cli_fleet_ready": cli_row.get("ready_s"),
+                                  "pool_two_listening":
+                                  pool_row.get("bring_up_s")},
+            "relay_overhead_ms": cli_row.get("relay_overhead_ms"),
+            "proto_backend": (cli_row.get("ready") or {}).get(
+                "proto_backend"),
+            "launches": {"flash_fwd": launches},
+            "logit_atol": LOGIT_ATOL, "value_atol": VALUE_ATOL,
+            "problems": problems}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4628,11 +5183,18 @@ def _run_phases(torch, phases: list[str]) -> int:
             print(f"chip_smoke: the policy families failed: "
                   f"{results['families']['problems']}", file=sys.stderr)
             return 1
+    if "fleet" in phases:
+        results["fleet"] = phase_fleet(torch)
+        _print(results["fleet"])
+        if results["fleet"]["problems"]:
+            print(f"chip_smoke: the serving fleet failed: "
+                  f"{results['fleet']['problems']}", file=sys.stderr)
+            return 1
     if "profile" in phases:
         _print(phase_profile(torch))
     if "kernels" in phases and {"serve", "serve_tiers", "serve_slo", "train",
                                 "resilience", "reference", "pipeline",
-                                "journal", "families"} & set(phases):
+                                "journal", "families", "fleet"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

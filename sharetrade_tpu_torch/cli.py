@@ -7,7 +7,10 @@
     python -m sharetrade_tpu_torch.cli serve [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
         [--duration S] [--sessions N] [--rate QPS] [--device cuda|cpu]
-        [--params p.npz]
+        [--params p.npz] [--listen HOST:PORT]
+    python -m sharetrade_tpu_torch.cli fleet [--config cfg.json]
+        [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
+        [--engines N] [--autoscale] [--duration S] [--device cuda|cpu]
     python -m sharetrade_tpu_torch.cli query [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
 
@@ -73,6 +76,28 @@ slowest requests with their stage split (``slowest``) and, with
 ``obs.slo_*`` set, the last burn rates (``slo_availability_burn``,
 ``slo_latency_burn``). ``obs.enabled`` is refused.
 
+``serve --listen HOST:PORT`` is the fleet's worker mode (fleet/frontend.py):
+instead of synthetic load the engine serves the fleet wire protocol
+(``POST /v1/submit``, ``GET /healthz``, ``GET /metrics``) on that address
+(port 0: an ephemeral one), prints an ``engine_listening`` line (``host``,
+``port``, ``pid``, ``proto_backend``, ``params_step``) once bound, and serves
+for ``--duration`` seconds (0: until a signal). SIGTERM drains the
+front-end, then the engine, then pages every carry out to the spill tier,
+prints the summary (``mode: listen``) and exits 75.
+
+``fleet`` boots the serving fleet (fleet/): ``fleet.num_engines``
+(``--engines``) ``serve --listen`` workers on the same device under the
+engine pool's supervision, the telemetry-driven router behind one public
+front-end on ``fleet.host:fleet.port``, and with ``--autoscale`` the
+autoscaler. The CUDA kernels are built once before any worker starts. It
+prints ``fleet_ready`` (``port``, ``engines``, ``proto_backend``) once the
+engines listen, serves for ``--duration`` seconds (0: until a signal), and
+on SIGTERM drains the front-end and every engine, prints its summary
+(``requests``, ``completed``, ``refused``, ``migrations``,
+``engine_restarts``, ``engines_*``) and exits 75. Refused with exit code 2:
+``--learner`` (the flywheel, ROADMAP item 11) and ``obs.enabled`` (fleet
+tracing, item 13).
+
 ``train`` and ``serve`` resolve ``tuning.profile`` (a tuned profile from
 ``tools/torch_autotune.py``) as the JAX package does: registered knobs
 still at their defaults take the profile's values, explicit ones win.
@@ -82,8 +107,8 @@ foreign profile is a ``ProfileError``) exits 2 with its message.
 
 The device is ``cuda`` unless ``--device`` says otherwise; without a GPU
 and without ``--device cpu`` the command fails with a message saying so.
-Not yet ported: ``actor``, ``learner``, ``fleet``, ``obs``, ``--mesh``
-and ``--listen``.
+Not yet ported: ``actor``, ``learner``, ``obs``, ``--mesh`` and ``fleet
+--learner``.
 """
 
 from __future__ import annotations
@@ -400,7 +425,7 @@ def cmd_serve(args) -> int:
 
     prev_handlers = {s: signal.signal(s, _on_signal)
                      for s in (signal.SIGTERM, signal.SIGINT)}
-    engine = service = watcher = controller = None
+    engine = service = watcher = controller = frontend = None
     try:
         service = PriceDataService(config=cfg.data)
         prices = service.request(args.symbol.split(",")[0].strip(),
@@ -449,15 +474,32 @@ def cmd_serve(args) -> int:
                           "slots": cfg.serve.slots,
                           "swap_watcher": watcher is not None}), flush=True)
 
-        sessions = make_sessions(prices, cfg.env.window, args.sessions,
-                                 seed=cfg.seed)
-        if args.rate > 0:
-            stats = run_open_loop(engine, sessions, rate_qps=args.rate,
-                                  duration_s=args.duration, stop=stop_evt)
+        if args.listen:
+            frontend = _listen(cfg, engine, registry, args.listen, step)
+            deadline = (time.monotonic() + args.duration
+                        if args.duration > 0 else None)
+            while not stop_evt.is_set():
+                if deadline is not None and time.monotonic() >= deadline:
+                    break
+                stop_evt.wait(0.2)
+            # The front-end first (the listener closes, in-flight requests
+            # finish), then the engine below, then the page-out.
+            frontend.drain(timeout_s=cfg.runtime.preempt_grace_s * 0.25)
+            frontend.stop()
+            stats = {"mode": "listen", "host": frontend.host,
+                     "port": frontend.port}
         else:
-            stats = run_closed_loop(engine, sessions,
-                                    concurrency=cfg.serve.max_batch,
-                                    duration_s=args.duration, stop=stop_evt)
+            sessions = make_sessions(prices, cfg.env.window, args.sessions,
+                                     seed=cfg.seed)
+            if args.rate > 0:
+                stats = run_open_loop(engine, sessions, rate_qps=args.rate,
+                                      duration_s=args.duration,
+                                      stop=stop_evt)
+            else:
+                stats = run_closed_loop(engine, sessions,
+                                        concurrency=cfg.serve.max_batch,
+                                        duration_s=args.duration,
+                                        stop=stop_evt)
         grace = cfg.runtime.preempt_grace_s
         drained = engine.drain(timeout_s=grace * 0.5)
         if controller is not None:
@@ -489,6 +531,8 @@ def cmd_serve(args) -> int:
     finally:
         for s, h in prev_handlers.items():
             signal.signal(s, h)
+        if frontend is not None:
+            frontend.stop()
         if controller is not None:
             controller.stop()
         if watcher is not None:
@@ -497,6 +541,163 @@ def cmd_serve(args) -> int:
             engine.stop(drain=False, timeout_s=5.0)
         if service is not None:
             service.close()
+
+
+def _listen(cfg, engine, registry, address: str, step: int):
+    """Serve ``engine`` on the fleet wire at ``address`` (``HOST:PORT``)
+    and print the ``engine_listening`` line the engine pool waits for."""
+    from sharetrade_tpu_torch.fleet import EngineBackend, ServeFrontend
+    from sharetrade_tpu_torch.fleet import proto
+
+    # The parse/render rung before the front-end starts ("native" falls
+    # back to "py" with one loud line: the port has no native rung).
+    proto.set_backend(cfg.fleet.proto_backend)
+    host, _, port = address.rpartition(":")
+    frontend = ServeFrontend(
+        EngineBackend(engine, request_timeout_s=cfg.fleet.request_timeout_s),
+        registry, host=host or "127.0.0.1", port=int(port or 0),
+        wire_backend=cfg.fleet.wire_backend).start()
+    print(json.dumps({"event": "engine_listening", "host": frontend.host,
+                      "port": frontend.port, "pid": os.getpid(),
+                      "proto_backend": proto.proto_backend,
+                      "params_step": step}), flush=True)
+    return frontend
+
+
+def cmd_fleet(args) -> int:
+    from sharetrade_tpu_torch.config import ConfigError
+    from sharetrade_tpu_torch.device import resolve_device
+    from sharetrade_tpu_torch.fleet import (
+        EnginePool, FleetRouter, ServeFrontend, proto)
+    from sharetrade_tpu_torch.fleet.autoscale import EngineAutoscaler
+    from sharetrade_tpu_torch.runtime.orchestrator import (
+        SERVE_REFUSED, check_ported)
+    from sharetrade_tpu_torch.utils.logging import get_logger
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+    log = get_logger("cli")
+    if args.learner:
+        raise ConfigError(
+            "cli fleet --learner (the flywheel: served sessions' journals "
+            "ingested by a live learner) is not yet ported to "
+            "sharetrade_tpu_torch (ROADMAP item 11)")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    cfg = _load_config(args)
+    if args.engines:
+        cfg.fleet.num_engines = args.engines
+    if args.autoscale:
+        cfg.fleet.autoscale = True
+    check_ported(cfg, SERVE_REFUSED, mesh=False)
+    if device.type == "cuda":
+        # Once, before any worker starts: each worker would otherwise spend
+        # its own compile inside fleet.startup_timeout_s.
+        from sharetrade_tpu_torch.ops import cuda_build
+        cuda_build.build_all()
+
+    pool = router = frontend = autoscaler = None
+    stop_evt = threading.Event()
+    preempted: list[float] = []
+
+    def _on_signal(signum, frame):
+        if not preempted:
+            log.warning("received %s; draining the fleet",
+                        signal.Signals(signum).name)
+            preempted.append(time.monotonic())
+            stop_evt.set()
+            if pool is not None:
+                pool.quiesce()
+        else:
+            log.warning("received %s during the drain; hard exit",
+                        signal.Signals(signum).name)
+            if pool is not None:
+                pool.kill_all()     # os._exit skips every finally
+            os._exit(EXIT_PREEMPTED)
+
+    prev_handlers = {s: signal.signal(s, _on_signal)
+                     for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        registry = MetricsRegistry()
+        # The router's own front-end and relay legs frame through the same
+        # rung the workers pick from this config.
+        proto.set_backend(cfg.fleet.proto_backend)
+        pool = EnginePool(cfg, registry=registry, symbol=args.symbol,
+                          start=args.start, end=args.end,
+                          device=str(device)).start()
+        if preempted:
+            pool.quiesce()
+        router = FleetRouter(pool, cfg.fleet, registry,
+                             workdir=cfg.fleet.dir, obs_cfg=cfg.obs).start()
+        frontend = ServeFrontend(router, registry, host=cfg.fleet.host,
+                                 port=cfg.fleet.port,
+                                 wire_backend=cfg.fleet.wire_backend).start()
+        if cfg.fleet.autoscale:
+            autoscaler = EngineAutoscaler(pool, cfg.fleet,
+                                          workdir=cfg.fleet.dir,
+                                          registry=registry).start()
+        # Readiness: every engine reported its port (or hit its bring-up
+        # budget: say what came up either way).
+        deadline = time.monotonic() + cfg.fleet.startup_timeout_s + 10.0
+        while (time.monotonic() < deadline and not stop_evt.is_set()
+               and len(pool.endpoints()) < cfg.fleet.num_engines):
+            stop_evt.wait(0.25)
+        router.poll_once()
+        print(json.dumps({"event": "fleet_ready",
+                          "host": frontend.host, "port": frontend.port,
+                          "engines": len(pool.endpoints()),
+                          "target_engines": cfg.fleet.num_engines,
+                          "dir": cfg.fleet.dir, "device": str(device),
+                          "wire_backend": cfg.fleet.wire_backend,
+                          "proto_backend": proto.proto_backend,
+                          "pid": os.getpid()}), flush=True)
+        run_deadline = (time.monotonic() + args.duration
+                        if args.duration > 0 else None)
+        while not stop_evt.is_set():
+            if run_deadline is not None and time.monotonic() >= run_deadline:
+                break
+            stop_evt.wait(0.25)
+
+        grace = cfg.fleet.drain_grace_s
+        if autoscaler is not None:
+            autoscaler.stop()   # membership frozen before the drain
+        frontend.drain(timeout_s=grace * 0.5)
+        frontend.stop()
+        router.stop()
+        pool.stop(grace_s=grace)
+        counters = registry.counters()
+        summary = {
+            "requests": int(counters.get("fleet_requests_total", 0)),
+            "completed": int(counters.get("fleet_completed_total", 0)),
+            "refused": int(counters.get("fleet_refused_total", 0)),
+            "unrouted": int(counters.get("fleet_unrouted_total", 0)),
+            "migrations": int(counters.get("fleet_migrations_total", 0)),
+            "engine_restarts": pool.restarts_total,
+            **{f"engines_{k}": v for k, v in pool.counts().items()},
+        }
+        if autoscaler is not None:
+            summary["scale_events"] = pool.scale_events
+            summary["autoscale_up"] = int(
+                counters.get("fleet_autoscale_up_total", 0))
+            summary["autoscale_down"] = int(
+                counters.get("fleet_autoscale_down_total", 0))
+        if preempted:
+            summary["preempted"] = True
+        print(json.dumps(summary), flush=True)
+        return EXIT_PREEMPTED if preempted else 0
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+        if autoscaler is not None:
+            autoscaler.stop()
+        if frontend is not None:
+            frontend.stop()
+        if router is not None:
+            router.stop()
+        if pool is not None:
+            pool.stop(grace_s=10.0)
 
 
 def cmd_query(args) -> int:
@@ -564,7 +765,26 @@ def main(argv=None) -> int:
                    help=".npz of a params tree (convert.save_npz); default "
                         "the run's checkpoints (tag_best, then the newest "
                         "step), else a seeded init")
+    p.add_argument("--listen", default=None, metavar="HOST:PORT",
+                   help="fleet worker mode: serve the fleet wire protocol "
+                        "on HOST:PORT instead of synthetic load (port 0: "
+                        "ephemeral, named in the engine_listening line; "
+                        "--duration 0 serves until SIGTERM)")
     p.set_defaults(fn=cmd_serve)
+    p = sub.add_parser("fleet", help="the serving fleet: supervised serve "
+                                     "--listen workers behind the router")
+    _common(p)
+    p.add_argument("--engines", type=int, default=0,
+                   help="engine workers (0: fleet.num_engines)")
+    p.add_argument("--duration", type=float, default=0.0,
+                   help="seconds to run (0: until SIGTERM)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="drive the pool's size from the router's telemetry "
+                        "history (fleet/autoscale.py; sets fleet.autoscale)")
+    p.add_argument("--learner", action="store_true",
+                   help="the flywheel's in-process learner: not yet ported "
+                        "(refused, exit 2)")
+    p.set_defaults(fn=cmd_fleet)
     p = sub.add_parser("query", help="one symbol's price rows through the "
                                      "data service (journaled)")
     p.add_argument("--config", default=None, help="JSON config file")

@@ -1,7 +1,10 @@
-"""Telemetry of the port: the mergeable histograms (:mod:`hist`) and the
-serve stage names. The span tracer, the flight recorder, the metrics
-exporter and ``obs.enabled`` are not ported; the engine's histograms and
-gauges live in its ``MetricsRegistry``."""
+"""Telemetry of the port: the mergeable histograms (:mod:`hist`), the serve
+stage names, the Prometheus renderer and its strict reader
+(:mod:`exporter`, the fleet's ``/metrics``), the fleet's history ring
+(:mod:`tsdb`) and trace ids (:mod:`trace`). The span tracer, the flight
+recorder, the background metrics exporter and ``obs.enabled`` are not
+ported; the engine's histograms and gauges live in its
+``MetricsRegistry``."""
 
 from __future__ import annotations
 

@@ -86,8 +86,9 @@ def _start_build(name: str) -> tuple[subprocess.Popen, str, str] | None:
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [nvcc_path(), *ARCH_FLAGS, *CFLAGS, "-o", tmp,
            os.path.join(CSRC_DIR, f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    # nvcc runs beside its siblings; _finish_build waits for it.
+    proc = subprocess.Popen(  # actor-spawn-ok: waited for by _finish_build
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 

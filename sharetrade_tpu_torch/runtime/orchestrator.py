@@ -147,12 +147,12 @@ DEFAULT_ERROR_POLICY: dict[type, str] = {
     KeyboardInterrupt: ESCALATE,
 }
 
-#: Knobs whose feature is not ported, with the default the port runs at:
-#: any other value is refused.
+#: Knobs whose feature is not ported, with the default the port runs at
+#: (any other value is refused) and the ROADMAP item that ports it.
 _REFUSED = {
-    "runtime.profile_dir": None,
-    "obs.enabled": False,
-    "distrib.num_actors": 0,
+    "runtime.profile_dir": (None, 13),
+    "obs.enabled": (False, 13),
+    "distrib.num_actors": (0, 11),
 }
 #: The knobs of ``_REFUSED`` each command refuses. ``cli serve`` lets
 #: ``runtime.profile_dir`` and ``distrib.num_actors`` through, as the JAX
@@ -173,9 +173,10 @@ def check_ported(cfg: FrameworkConfig,
     among ``knobs`` (and, with ``mesh``, for a multi-device mesh)."""
     for path in knobs:
         value = _knob(cfg, path)
-        if value != _REFUSED[path]:
+        default, item = _REFUSED[path]
+        if value != default:
             raise ConfigError(f"{path}={value!r} is not yet ported to "
-                              "sharetrade_tpu_torch")
+                              f"sharetrade_tpu_torch (ROADMAP item {item})")
     if mesh and cfg.parallel.mesh_shape:
         raise ConfigError("parallel.mesh_shape: multi-device layouts are not "
                           "yet ported to sharetrade_tpu_torch")

@@ -620,6 +620,9 @@ class ServeEngine:
         self._exemplars: deque[dict] = deque(
             maxlen=max(1, 4 * self._exemplar_k))
         self._ex_lock = threading.Lock()
+        #: perf_counter of the last spill-arena scan (the stats cadence
+        #: also bounds :meth:`refresh_spill_gauges`' scans).
+        self._spill_scan_t = 0.0
 
         self._dispatcher = threading.Thread(
             target=self._serve_loop, name="serve-dispatcher", daemon=True)
@@ -742,11 +745,18 @@ class ServeEngine:
         each into its own pinned host carry on the copy stream, which waits
         for the gather (an event) and so overlaps the tick's programs; the
         dispatcher commits the carries once the copy's event has passed."""
+        rows, packed, events = self._copy_out(slots)
+        self._pageouts.append(_PageOut(list(sids), list(steps), rows, packed,
+                                       events))
+
+    def _copy_out(self, slots: list[int]) -> tuple[list, Any, tuple]:
+        """The page-out's device work: (pinned host rows, the packed device
+        rows they are read from, the events around it)."""
         start = self._event()
         packed = self._park_gather(slots)
         gathered = self._event()
         rows = [torch.empty(self._carry_nbytes, dtype=torch.uint8,
-                            pin_memory=self._cuda) for _ in sids]
+                            pin_memory=self._cuda) for _ in slots]
         if self._cuda:
             self._copy_stream.wait_event(gathered)
             with torch.cuda.stream(self._copy_stream):
@@ -758,8 +768,7 @@ class ServeEngine:
             for i, row in enumerate(rows):
                 row.copy_(packed[i])
             events = ()
-        self._pageouts.append(_PageOut(list(sids), list(steps), rows, packed,
-                                       events))
+        return rows, packed, events
 
     def _upload_tensor(self, host: torch.Tensor) -> torch.Tensor:
         if not self._cuda:
@@ -847,6 +856,25 @@ class ServeEngine:
         with self._ex_lock:
             merged = list(self._exemplars) + list(self._window_slowest)
         return sorted(merged, key=lambda e: -e["latency_ms"])
+
+    def refresh_spill_gauges(self) -> None:
+        """Republish ``serve_spill_bytes`` / ``serve_spill_sessions`` from a
+        fresh arena scan while no batch completes (the fleet front-end's
+        ``/healthz`` calls it). The stats publish rides batch completions,
+        so an idle engine's gauges would otherwise freeze exactly when a
+        router sums them for a drain. At most one scan per
+        ``serve.stats_interval_s``; safe from any thread."""
+        arena = self._arena
+        if arena is None:
+            return
+        now = time.perf_counter()
+        if now - self._spill_scan_t < self.cfg.stats_interval_s:
+            return
+        self._spill_scan_t = now
+        arena.scan_usage()
+        self._registry.record_many({
+            "serve_spill_bytes": float(arena.bytes),
+            "serve_spill_sessions": float(arena.sessions)})
 
     def paging_ms(self) -> dict[str, float | None]:
         """Mean device ms per tick that paged: ``pageout`` (the park gather
@@ -950,12 +978,14 @@ class ServeEngine:
                 self._cold_program(params, obs, idx)
                 self._warm_program(params, obs, idx)
             if self._warm_enabled:
-                self._start_page_out(["warmup"], [0], [cfg.slots])
+                # The page-out's device work alone: a queued page-out would
+                # race the running dispatcher, which commits it into the
+                # warm store as a session.
+                self._copy_out([cfg.slots])
                 self._install([self._park_gather([cfg.slots])[0].cpu()],
                               [cfg.slots])
         if self._cuda:
             torch.cuda.synchronize(self.device)
-        self._pageouts.clear()
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Block until every submitted request has been answered; False on
@@ -1855,6 +1885,7 @@ class ServeEngine:
         if arena is not None:
             if io_ok:
                 arena.scan_usage()      # one bounded scandir, consumer only
+                self._spill_scan_t = now
             row["serve_spill_bytes"] = float(arena.bytes)
             row["serve_spill_sessions"] = float(arena.sessions)
             row["serve_spill_budget_bytes"] = float(arena.max_bytes)

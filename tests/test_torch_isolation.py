@@ -7,8 +7,15 @@
   ``chip_smoke.py`` and ``tools/torch_*.py`` finds no import of ``jax``, ``flax``, ``optax`` or
   ``msgpack`` (the machine with the card has none of them) and no reference
   to the JAX package's modules.
-- Without a GPU and without ``--device cpu``, ``cli serve`` and ``cli
-  train`` fail with a message that says so instead of running on the CPU.
+- Without a GPU and without ``--device cpu``, ``cli serve``, ``cli train``
+  and ``cli fleet`` fail with a message that says so instead of running on
+  the CPU.
+- What the fleet does not port is refused with exit code 2 and a message
+  naming its ROADMAP item: ``cli fleet --learner`` (item 11), and
+  ``obs.enabled`` with ``cli serve --listen`` or ``cli fleet`` (item 13).
+- The repo's network, spawn and native-wire lints
+  (``tools/lint_hot_loop.py`` checks 12, 14, 15 and 18) find nothing in the
+  port but lines carrying the JAX package's own markers.
 """
 
 import json
@@ -46,7 +53,19 @@ def _sources():
                  REPO / "tools" / "torch_train_ab.py",
                  REPO / "tools" / "torch_autotune.py"):
         assert path in files, path
+    for rel in FLEET_MODULES:
+        assert PACKAGE / rel in files, rel
     return files
+
+
+#: The fleet slice's modules: the source scan and the import check must
+#: cover each of them.
+FLEET_MODULES = (
+    "distrib/__init__.py", "distrib/ladder.py", "obs/exporter.py",
+    "obs/tsdb.py", "obs/trace.py", "fleet/__init__.py", "fleet/proto.py",
+    "fleet/wire.py", "fleet/frontend.py", "fleet/evloop.py",
+    "fleet/router.py", "fleet/pool.py", "fleet/loadgen.py",
+    "fleet/autoscale.py")
 
 
 def test_import_leaves_jax_and_the_jax_package_out(tmp_path):
@@ -96,6 +115,53 @@ def test_cli_train_without_gpu_refuses_instead_of_running_on_cpu(tmp_path):
     assert "avg_portfolio" not in out.stdout
 
 
+def test_cli_fleet_without_gpu_refuses_instead_of_running_on_cpu(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "sharetrade_tpu_torch.cli", "fleet",
+         "--engines", "1", "--duration", "1"], capture_output=True,
+        text=True, timeout=120, cwd=tmp_path, env=_env(CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 2
+    assert "CUDA" in out.stderr and "--device cpu" in out.stderr
+    assert "fleet_ready" not in out.stdout
+    assert not (tmp_path / "fleet").exists()     # no worker was spawned
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["fleet", "--learner", "--device", "cpu"], "ROADMAP item 11"),
+    (["fleet", "--device", "cpu", "--set", "obs.enabled=true"],
+     "ROADMAP item 13"),
+    (["serve", "--listen", "127.0.0.1:0", "--device", "cpu", "--set",
+      "obs.enabled=true"], "ROADMAP item 13"),
+], ids=["fleet-learner", "fleet-obs", "listen-obs"])
+def test_unported_fleet_parts_are_refused(argv, item, capsys, tmp_path,
+                                          monkeypatch):
+    from sharetrade_tpu_torch import cli
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(argv) == 2
+    err = capsys.readouterr().err
+    assert "ConfigError" in err and item in err
+    assert not (tmp_path / "fleet").exists()
+
+
+def test_network_spawn_and_native_wire_lints_pass_on_the_port():
+    sys.path.insert(0, str(REPO / "tools"))
+    try:
+        import lint_hot_loop as lint
+    finally:
+        sys.path.remove(str(REPO / "tools"))
+    listeners, _ = lint.lint_fleet_net(PACKAGE)
+    assert listeners == []
+    assert lint.lint_evloop_sansio(PACKAGE) == ([], [])
+    spawns, _ = lint.lint_actor_spawn(PACKAGE)
+    assert spawns == []
+    assert lint.lint_native_wire(PACKAGE) == ([], [], [])
+    # The scans saw the fleet's files: its spawn and listener lines carry
+    # the JAX package's markers.
+    pool = (PACKAGE / "fleet" / "pool.py").read_text()
+    assert lint.ACTOR_SPAWN_MARKER in pool and "subprocess.Popen(" in pool
+    assert (PACKAGE / "fleet" / "proto.py").exists()
+
+
 def test_library_entry_points_default_to_cuda():
     torch = pytest.importorskip("torch")
     if torch.cuda.is_available():
@@ -127,6 +193,15 @@ def test_the_policy_family_modules_are_scanned_and_imported(module):
     """The other policy families' modules are among the files the source
     scan reads and the modules the import check imports (both walk the
     package)."""
+    path = PACKAGE / module
+    assert path.exists() and path in _sources()
+    assert path in sorted(PACKAGE.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_the_fleet_modules_are_scanned_and_imported(module):
+    """The fleet slice's modules are among the files the source scan reads
+    and the modules the import check imports (both walk the package)."""
     path = PACKAGE / module
     assert path.exists() and path in _sources()
     assert path in sorted(PACKAGE.rglob("*.py"))

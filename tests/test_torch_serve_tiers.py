@@ -486,6 +486,33 @@ def test_page_out_all_refuses_until_stopped(model, params, prices,
                                        for s in ("h0", "h1", "w0"))
 
 
+def test_warmup_parks_no_session_even_if_the_dispatcher_commits(
+        model, params, tmp_path):
+    """``warmup`` runs the page-out's device work on a scratch row while the
+    dispatcher thread already runs. Were that page-out queued, a dispatcher
+    commit landing inside warmup (forced here, before the install) would
+    park a "warmup" session in the warm store, and ``page_out_all`` would
+    seal it into the arena as a fifth record beside the real sessions."""
+    engine = ServeEngine(
+        model, ServeConfig(max_batch=2, slots=2, batch_timeout_ms=2.0,
+                           warm_bytes=4 * _carry_nbytes(model),
+                           spill_dir=str(tmp_path), spill_bytes=1 << 26),
+        params, registry=MetricsRegistry())
+    install = engine._install
+
+    def interleaved(rows, slots):
+        engine._commit_page_outs(wait=True)   # the dispatcher, mid-warmup
+        return install(rows, slots)
+
+    engine._install = interleaved
+    engine.warmup()
+    engine._install = install
+    assert len(engine._warm) == 0
+    assert engine.stop(timeout_s=30.0)
+    assert engine.page_out_all()["written"] == 0
+    assert _sealed(tmp_path) == []
+
+
 # ---------------------------------------------------------------------------
 # records across the packages
 
