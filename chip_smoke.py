@@ -212,7 +212,8 @@ Phases, in order (any failure exits non-zero before the final line):
                (``FAMILY_SERVE_ATOL`` per compute dtype), then 2 s in
                closed loop (qps, p50, p99), and ``cli serve`` for 2 s on
                each (the portfolio: ``cli train --symbol MSFT,AAPL`` over
-               three chunks); (d) ``flash_fwd`` (and at the replay's bh the
+               three chunks), the seven CLI runs at once after the
+               in-process runs; (d) ``flash_fwd`` (and at the replay's bh the
                backward) at the window shapes, timed beside SDPA with
                ``is_causal``, and ``fused_update`` over each family's
                leaves (``FAMILY_UPDATE_CASES``) against its plain version.
@@ -242,6 +243,47 @@ Phases, in order (any failure exits non-zero before the final line):
                answer before and after stays within the bf16 tolerances of
                an in-process engine. The fleet's ``flash_fwd`` launches are
                the workers' own counts (each worker's summary).
+15. remat_moe — the episode transformer's mixture of experts and
+               rematerialisation, counts reset before each part and read
+               before its comparisons: (a) the flagship with an 8-expert
+               MoE FFN (``MOE_FLAGSHIPS``), dense-mask top-1 and capacity
+               top-2: three chunks eagerly and through the chunk program,
+               bit-equal, each chunk the flagship's launches
+               (34/32/32/16), the replay's ms; one minibatch through the
+               kernels against the plain attention (``MB_*``) with its
+               balance loss > 0; served as the families are (every batch
+               against the plain path; at top-0 every session's answers
+               against the plain lockstep ``apply_batch``), and ``cli
+               serve`` at top-2. Here (not in the families phase) every
+               plain and fp32 pass of the MoE takes the routing of the
+               same pass through the kernels (``_routing``): in bf16 a
+               near tie in the gate flips between the two attention
+               paths. The decisions so overridden are held by
+               ``_flip_check`` (kernel-vs-plain flips at most
+               ``MB_FACTOR`` times plain-vs-fp32 flips plus ``MB_FLOOR``
+               of all decisions), and the kernels' rerun of each served
+               batch must give the served answers bit for bit; (b)
+               ``ppo_transformer_b1024_bf16`` (``B1024``) with
+               ``learner.remat`` on and off and (c)
+               ``ppo_tr_episode_large_d1024`` (``D1024``) with
+               ``model.remat_blocks`` on and off, each from the same
+               seeded state through a chunk program (``_eager_vs_graph``,
+               graph mode: eager, capture, three replays): per chunk ms,
+               launches against ``_expected_launches`` (a checkpointed
+               pass runs ``flash_fwd`` again in its backward) and peak
+               device memory; the median replay's agent-steps/s and MFU
+               (``utils/flops.py`` against the card's data-sheet peak)
+               and the recompute's price (the remat replay's
+               agent-steps/s over the plain one's); the final states
+               bit-equal or within ``MB_FLOOR`` of each leaf's change
+               (reported which); remat must show more ``flash_fwd``
+               launches and a lower peak; then one minibatch of the remat
+               configuration through the kernels against the plain
+               attention and fp32 (``MB_*``); (d) the attention kernels
+               at (b)'s and (c)'s grids (``REMAT_ATTENTION_CASES``) and
+               fused_update over d1024's and the top-2 MoE flagship's
+               leaves (``REMAT_UPDATE_CASES``) against their plain
+               versions, timed.
 
 Every price read journals into a fresh scratch directory, and every CLI
 run works in a fresh scratch directory (the checkout on ``PYTHONPATH``):
@@ -254,13 +296,15 @@ CUDA graph replay a chunk after an eager first chunk.
 
 Opt-in: ``profile`` (a serving device-time breakdown).
 
-Then one ``{"kernels": [...]}`` line, and last the
+Then a ``{"phase_seconds": {...}}`` line (each phase's wall seconds), one
+``{"kernels": [...]}`` line, and last the
 ``{"ok": true, "device": {...}}`` line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -274,7 +318,7 @@ PHASES = ("build", "kernels", "train", "serve", "serve_tiers", "serve_slo",
           "cli",
           "cli_train",
           "resilience", "reference", "pipeline", "journal", "cli_defaults",
-          "families", "fleet")
+          "families", "fleet", "remat_moe")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -689,11 +733,19 @@ def _model_params(torch, model: str = "flagship"):
     """A parameter tree on the card: the flagship's (34 leaves), the
     reference Q-network's (``q_mlp``, 203 -> 200 -> 3: 4 leaves, 41,403
     parameters), the actor-critic MLP's (``ac_mlp``: 8 leaves, 81,804
-    parameters) or a family's of ``FAMILIES`` at its full width (the
-    portfolio's over 2 assets: 405 inputs, 5 actions)."""
+    parameters), a family's of ``FAMILIES`` at its full width (the
+    portfolio's over 2 assets: 405 inputs, 5 actions) or one of
+    ``REMAT_UPDATE_MODELS``."""
     from sharetrade_tpu_torch.models.mlp import ac_mlp, q_mlp
     from sharetrade_tpu_torch.models.transformer_episode import (
         episode_transformer_policy)
+    if model in REMAT_UPDATE_MODELS:
+        from sharetrade_tpu_torch.config import FrameworkConfig
+        from sharetrade_tpu_torch.models import build_model
+        cfg = FrameworkConfig().apply_overrides(REMAT_UPDATE_MODELS[model])
+        return build_model(cfg.model, cfg.env.window + 2, device="cuda",
+                           num_actions=3).init(
+                               torch.Generator().manual_seed(0))
     if model in FAMILIES:
         from sharetrade_tpu_torch.config import FrameworkConfig
         from sharetrade_tpu_torch.models import build_model
@@ -1168,16 +1220,19 @@ def kernels_line(results: dict) -> dict:
         by_path = {path: results[path]["launches"].get(name, 0)
                    for path in ("train", "serve", "serve_tiers", "serve_slo",
                                 "resilience", "reference", "pipeline",
-                                "journal", "families", "fleet")
+                                "journal", "families", "fleet", "remat_moe")
                    if path in results}
-        # The same kernel at the families' shapes (families (d)).
+        # The same kernel at the families' shapes (families (d)) and at
+        # the remat / MoE paths' (remat_moe (d)).
         family_rows = [
             {k: r[k] for k in (
-                "case", "shape", "dtype", "model", "grad_dtype", "leaves",
-                "parameters", "max_abs_err", "kernel_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "library_bwd_ms")
+                "phase", "case", "shape", "dtype", "model", "grad_dtype",
+                "leaves", "parameters", "max_abs_err", "kernel_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_bwd_ms")
              if k in r}
-            for r in results.get("families", {}).get("kernels", [])
+            for phase in ("families", "remat_moe")
+            for r in results.get(phase, {}).get("kernels", [])
             if r["kernel"] == name]
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -1218,12 +1273,70 @@ def _plain_attention(cfg):
                                                          causal=True)
 
 
+@contextlib.contextmanager
+def _routing(pins: list, *, replay: bool):
+    """The MoE's routing decisions, call by call, through
+    ``parallel/moe.route_hook``: recorded into ``pins``, or (``replay``)
+    handed back in the same order, so that a pass through the plain
+    attention routes every token as the pass through the kernels did (in
+    bf16 a near tie in the gate flips between the two, and a flipped
+    token's output moves by an expert's size: PERF.md section 6).
+    Yields a dict: ``decisions`` counts the decisions taken, and on a
+    replay ``own`` keeps the path's own decisions (at the pinned routing
+    of the layers before) and ``flipped`` counts those that differ from
+    the pinned ones."""
+    from sharetrade_tpu_torch.parallel import moe
+    calls = iter(list(pins))
+    stats = {"decisions": 0, "flipped": 0, "own": []}
+
+    def hook(picks):
+        stats["decisions"] += picks.numel()
+        if not replay:
+            pins.append(picks.clone())
+            return picks
+        pinned = next(calls)
+        if pinned.shape != picks.shape:
+            raise RuntimeError("chip_smoke: a routing replay is out of step "
+                               "with its recording")
+        stats["own"].append(picks.clone())
+        stats["flipped"] += int((pinned != picks).sum())
+        return pinned
+
+    moe.route_hook = hook
+    try:
+        yield stats
+    finally:
+        moe.route_hook = None
+
+
+def _flip_check(pairs: list) -> dict:
+    """The routing flips of pinned passes (``(plain, fp32)`` pairs of
+    ``_routing`` replays at the kernel path's routing), held as the MB_*
+    rule holds an error: the decisions where the kernel path and the plain
+    one part may number at most ``MB_FACTOR`` times those where the plain
+    path and fp32 part, plus ``MB_FLOOR`` of all decisions. Rank-ordered
+    top-k picks count one flip per rank that differs."""
+    decisions = sum(p["decisions"] for p, _ in pairs)
+    kernel_plain = sum(p["flipped"] for p, _ in pairs)
+    between = sum(int((a != b).sum()) for p, f in pairs
+                  for a, b in zip(p["own"], f["own"]))
+    limit = MB_FACTOR * between + MB_FLOOR * decisions
+    return {"decisions": decisions, "kernel_vs_plain": kernel_plain,
+            "kernel_vs_fp32": sum(f["flipped"] for _, f in pairs),
+            "plain_vs_fp32": between, "limit": limit,
+            "ok": kernel_plain <= limit}
+
+
 def _minibatch_check(torch, cfg, env, agent, ts,
-                     overrides=FLAGSHIP_TRAIN) -> dict:
+                     overrides=FLAGSHIP_TRAIN, *,
+                     pin_routing: bool = False) -> dict:
     """One PPO minibatch (the first minibatch's agents of a fresh rollout
     from ``ts``) through the kernels, through the plain attention and
     through the fp32 model, held as the MB_* constants state.
-    ``overrides`` is ``cfg``'s config (its fp32 form is the reference)."""
+    ``overrides`` is ``cfg``'s config (its fp32 form is the reference).
+    With ``pin_routing`` a mixture of experts' plain and fp32 paths take
+    the kernel path's routing (``_routing``), and the decisions they would
+    have taken otherwise are held by ``_flip_check``."""
     from sharetrade_tpu_torch.agents import build_agent
     from sharetrade_tpu_torch.agents.ppo import num_minibatches
     from sharetrade_tpu_torch.agents.rollout import (
@@ -1261,15 +1374,20 @@ def _minibatch_check(torch, cfg, env, agent, ts,
     paths = {"kernel": (agent, compute, carry),
              "plain": (plain_agent(cfg), compute, carry),
              "fp32": (plain_agent(cfg32), ts.params, carry32)}
-    got = {}
+    got, pins, routed = {}, [], {}
+    pin = pin_routing and bool(cfg.model.moe_experts)
     for name, (ag, params, c) in paths.items():
-        with torch.no_grad():
-            logits, values, _ = replay_forward(ag.model, params, traj, c)
-            logp = torch.log_softmax(logits.float(), dim=-1).gather(
-                -1, traj.action[..., None])[..., 0]
-        terms, grads = ag.minibatch_grads(params, traj, c, adv, ret)
+        with (_routing(pins, replay=name != "kernel") if pin
+              else contextlib.nullcontext()) as stats:
+            with torch.no_grad():
+                logits, values, aux = replay_forward(ag.model, params, traj,
+                                                     c)
+                logp = torch.log_softmax(logits.float(), dim=-1).gather(
+                    -1, traj.action[..., None])[..., 0]
+            terms, grads = ag.minibatch_grads(params, traj, c, adv, ret)
+        routed[name] = stats
         got[name] = {"logp": logp, "value": values.float(),
-                     "terms": terms.float(),
+                     "terms": terms.float(), "aux": float(aux),
                      "grads": [g.float() for g in grads]}
     ref = got["fp32"]
 
@@ -1307,6 +1425,10 @@ def _minibatch_check(torch, cfg, env, agent, ts,
                       - got["plain"]["terms"][1]).item()
     if not policy_diff <= policy_bound:
         failed.append("policy term")
+    routing = (_flip_check([(routed["plain"], routed["fp32"])]) if pin
+               else None)
+    if routing and not routing["ok"]:
+        failed.append("routing flips")
     gk, gp = got["kernel"]["grads"], got["plain"]["grads"]
     leaf_rel = [((a - b).norm() / b.norm()).item() for a, b in zip(gk, gp)]
     return {
@@ -1321,6 +1443,8 @@ def _minibatch_check(torch, cfg, env, agent, ts,
             "grad_leaf_rel_l2_max": max(leaf_rel),
             "grad_leaf_rel_l2_median": statistics.median(leaf_rel)},
         "policy_term_diff": policy_diff, "policy_term_bound": policy_bound,
+        "aux": {k: g["aux"] for k, g in got.items()},
+        **({"routing": routing} if pin else {}),
         "rule": {"factor": MB_FACTOR, "floor": MB_FLOOR,
                  "policy_slack": MB_POLICY_SLACK},
         "failed": failed,
@@ -2239,23 +2363,27 @@ def _bit_equal(torch, a, b) -> bool:
     return bool(torch.equal(a.rng.get_state(), b.rng.get_state()))
 
 
-def _eager_vs_graph(torch, agent, seed: int, chunks: int = 3) -> dict:
+def _eager_vs_graph(torch, agent, seed: int, chunks: int = 3,
+                    modes=("eager", "graph"), finals=None) -> dict:
     """``chunks`` chunks from ``agent.init(seed)`` eagerly (``agent.step``)
     and through a chunk program (chunk 1 eager, chunk 2 captured and
-    replayed, then replays): each chunk's wall ms (ending in its metrics'
-    readback; the last one a plain replay), the launches of each kernel per
-    chunk, peak device memory, whether the states and every chunk's metrics
-    are bit-equal, and the capture's seconds and graph nodes."""
+    replayed, then replays), each of ``modes``: each chunk's wall ms
+    (ending in its metrics' readback; the last one a plain replay), the
+    launches of each kernel per chunk, peak device memory per chunk (reset
+    before each) and over the run, whether the two modes' states and every
+    chunk's metrics are bit-equal, and the capture's seconds and graph
+    nodes. ``finals``, when given, receives each mode's final state."""
     from sharetrade_tpu_torch.agents.base import ChunkProgram, _metric_vector
     out: dict = {}
-    finals, rows = {}, {}
-    for mode in ("eager", "graph"):
+    finals = {} if finals is None else finals
+    rows = {}
+    for mode in modes:
         program = ChunkProgram(agent) if mode == "graph" else None
         ts = agent.init(seed)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ms, vectors, launches = [], [], []
+        ms, vectors, launches, peaks = [], [], [], []
         for _ in range(chunks):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             before = _all_launch_counts()
             t0 = time.perf_counter()
             if program is None:
@@ -2269,19 +2397,24 @@ def _eager_vs_graph(torch, agent, seed: int, chunks: int = 3) -> dict:
             after = _all_launch_counts()
             launches.append({k: after[k] - before[k] for k in after
                              if after[k] != before[k]})
+            peaks.append(torch.cuda.max_memory_allocated())
             vectors.append(vector)
         finals[mode], rows[mode] = ts, vectors
         out[mode] = {"chunk_ms": ms, "launches_per_chunk": launches,
-                     "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+                     "peak_allocated_bytes": max(peaks),
+                     "peak_allocated_bytes_per_chunk": peaks,
+                     "metrics": [v.tolist() for v in vectors]}
         if program is not None:
             out[mode].update(capture_s=program.capture_seconds,
                              graph_nodes=program.nodes,
                              launches_per_replay=program.launches_per_replay)
-    out["bit_equal"] = (_bit_equal(torch, finals["eager"], finals["graph"])
-                        and all(torch.equal(a, b) for a, b in
-                                zip(rows["eager"], rows["graph"])))
-    out["launches_equal"] = (out["eager"]["launches_per_chunk"]
-                             == out["graph"]["launches_per_chunk"])
+    if len(modes) == 2:
+        out["bit_equal"] = (
+            _bit_equal(torch, finals["eager"], finals["graph"])
+            and all(torch.equal(a, b)
+                    for a, b in zip(rows["eager"], rows["graph"])))
+        out["launches_equal"] = (out["eager"]["launches_per_chunk"]
+                                 == out["graph"]["launches_per_chunk"])
     return out
 
 
@@ -3079,8 +3212,34 @@ def _family_train(torch, name, cfg, overrides, prices) -> tuple[dict, list]:
     return row, problems
 
 
-def _family_serve(torch, name, cfg, prices) -> tuple[dict, list]:
-    """(c) The serving engine on the family's model (its generic program):
+def _apply_by_step(model, params, obs, carry):
+    """``model.apply_batch`` over a batch whose rows may sit at different
+    episode steps: the episode transformer's lockstep step takes one step
+    per call, so its rows go in groups of one step clock (their answers do
+    not depend on each other's at top-0); other carries in one call."""
+    import torch
+    from sharetrade_tpu_torch.models.core import ModelOut
+    if not (isinstance(carry, dict) and "t" in carry):
+        return model.apply_batch(params, obs, carry)
+    logits = torch.empty((obs.shape[0], model.num_actions),
+                         dtype=torch.float32, device=obs.device)
+    value = torch.empty((obs.shape[0],), dtype=torch.float32,
+                        device=obs.device)
+    new = {k: v.clone() for k, v in carry.items()}
+    for step in carry["t"].unique().tolist():
+        idx = (carry["t"] == step).nonzero()[:, 0]
+        out, sub = model.apply_batch(params, obs[idx],
+                                     {k: v[idx] for k, v in carry.items()})
+        logits[idx], value[idx] = out.logits, out.value
+        for k in new:
+            new[k][idx] = sub[k].to(new[k].dtype)
+    return ModelOut(logits=logits, value=value), new
+
+
+def _family_serve(torch, name, cfg, prices, *,
+                  pin_routing: bool = False) -> tuple[dict, list]:
+    """(c) The serving engine on the family's model (its generic program,
+    or for the episode transformer its prefill and warm programs):
     ``FAMILY_SERVE_TICKS`` ticks of ``max_batch`` sessions, the first cold
     and the others warm (each session moves on by its served action),
     checked two ways within ``FAMILY_SERVE_ATOL`` for the compute dtype:
@@ -3088,13 +3247,22 @@ def _family_serve(torch, name, cfg, prices) -> tuple[dict, list]:
     - every device batch the engine ran, recorded with its padded rows and
       the carries it gathered, against the plain path on the same inputs
       (the plain attention for the transformers; the LSTM and the TCN run
-      no kernel here, so for them this is the model against itself);
+      no kernel here, so for them this is the model against itself, as is
+      the episode transformer's warm program, whose cache attention is
+      plain);
     - where a row's answer does not depend on the rest of its batch (all
       but the MoE top-2, whose routing groups and capacity span the batch),
       every answer against the plain model stepped tick by tick from the
-      init carry, a session's carry threaded through, apart from the
-      engine: this holds the arena's carry bookkeeping (the LSTM's
-      ``(h, c)`` across warm ticks).
+      init carry (``apply_batch``: the episode transformer's lockstep
+      step), a session's carry threaded through, apart from the engine:
+      this holds the arena's carry bookkeeping (the LSTM's ``(h, c)``
+      across warm ticks, the episode transformer's K/V ring).
+
+    With ``pin_routing`` a mixture of experts' plain passes (and an fp32
+    pass of each) take the routing of the same pass through the kernels
+    (``_routing``, recomputed on the recorded inputs, which must give the
+    served answers bit for bit), and ``_flip_check`` holds the decisions
+    they would have taken otherwise.
 
     Then ``FAMILY_SERVE_S`` seconds in closed loop."""
     import dataclasses
@@ -3113,17 +3281,28 @@ def _family_serve(torch, name, cfg, prices) -> tuple[dict, list]:
     params = model.init(torch.Generator().manual_seed(cfg.seed))
     policy = policy_from_config(cfg.precision)
     recorded, recording = [], [False]
+    pair = (model.apply_prefill is not None
+            and model.apply_serve_batch is not None)
+    programs = (("apply_prefill", "apply_serve_batch") if pair
+                else ("apply_batch",))
 
-    def apply_recorded(p, obs, rows):
-        out, new_rows = model.apply_batch(p, obs, rows)
-        if recording[0]:
-            recorded.append((obs.clone(), tree_map(torch.clone, rows),
-                             out.logits.clone(), out.value.clone()))
-        return out, new_rows
+    def recorder(program):
+        fn = getattr(model, program)
 
-    engine = ServeEngine(dataclasses.replace(model,
-                                             apply_batch=apply_recorded),
-                         cfg.serve, params, precision=policy)
+        def run(p, obs, *rows):
+            # Rows copied before the call: the warm program updates the
+            # gathered carry in place.
+            saved = tree_map(torch.clone, rows) if recording[0] else None
+            out, new_rows = fn(p, obs, *rows)
+            if recording[0]:
+                recorded.append((program, obs.clone(), saved,
+                                 out.logits.clone(), out.value.clone()))
+            return out, new_rows
+        return run
+
+    engine = ServeEngine(dataclasses.replace(
+        model, **{program: recorder(program) for program in programs}),
+        cfg.serve, params, precision=policy)
     engine.warmup()
     _reset_launch_counts()
     before = dict(engine.counters)
@@ -3162,39 +3341,92 @@ def _family_serve(torch, name, cfg, prices) -> tuple[dict, list]:
     compute = policy.cast_compute(params)
     dname = "bfloat16" if policy.mixed else "float32"
     logit_atol, value_atol = FAMILY_SERVE_ATOL[dname]
-    batch_err = [0.0, 0.0]
+    moe = pin_routing and bool(cfg.model.moe_experts)
+    batch_err, rerun_equal, batch_pairs = [0.0, 0.0], True, []
+
+    def floats(rows):
+        return tree_map(lambda r: r.float() if r.is_floating_point()
+                        else r.clone(), rows)
+
+    def pinned(program, obs, rows):
+        """``plain``'s answer on one batch; with a mixture of experts at
+        the routing of ``model`` (the kernels) on the same batch, beside
+        the kernels' own answer, and an fp32 pass at that routing too."""
+        if not moe:
+            return getattr(plain, program)(compute, obs,
+                                           *tree_map(torch.clone, rows))
+        pins = []
+        with _routing(pins, replay=False):
+            own, own_rows = getattr(model, program)(
+                compute, obs, *tree_map(torch.clone, rows))
+        with _routing(pins, replay=True) as stats:
+            ref, ref_rows = getattr(plain, program)(
+                compute, obs, *tree_map(torch.clone, rows))
+        with _routing(pins, replay=True) as stats32:
+            getattr(plain, program)(params, obs, *floats(rows))
+        batch_pairs.append((stats, stats32))
+        return ref, ref_rows, own
+
     with torch.inference_mode():
-        for obs, rows, logits, value in recorded:
-            ref, _ = plain.apply_batch(compute, obs, rows)
+        for program, obs, rows, logits, value in recorded:
+            ref, _, *own = pinned(program, obs, rows)
+            if own:
+                rerun_equal &= bool(torch.equal(own[0].logits, logits)
+                                    and torch.equal(own[0].value, value))
             batch_err[0] = max(batch_err[0],
                                (logits - ref.logits).abs().max().item())
             batch_err[1] = max(batch_err[1],
                                (value - ref.value).abs().max().item())
-        session_err = None
+        session_err, session_routing = None, None
         if not (cfg.model.moe_experts and cfg.model.moe_top_k > 0):
-            session_err = [0.0, 0.0]
             init = tree_map(lambda c: c[None].expand(
                 (len(sessions),) + c.shape).contiguous(), policy.cast_carry(
                     model.init_carry(), model))
-            carry, last = init, None
-            for (sids, obs), results in zip(asked, served):
-                if last is not None:
-                    # A session that wrapped comes back as a new one.
-                    fresh = torch.tensor([a != b for a, b in zip(sids, last)],
-                                         device="cuda")
-                    carry = tree_map(lambda c, c0: torch.where(
-                        fresh.reshape((-1,) + (1,) * (c.ndim - 1)), c0, c),
-                        carry, init)
-                ref, carry = plain.apply_batch(
-                    compute, torch.from_numpy(obs).cuda(), carry)
-                carry = tree_map(lambda c, c0: c.to(c0.dtype), carry, init)
+
+            def stepped(m, p=compute, init=init):
+                """``m`` under ``p`` stepped tick by tick over the asked
+                sessions from ``init``, a session's carry threaded through:
+                the answers of each tick."""
+                carry, last, answers = init, None, []
+                for sids, obs in asked:
+                    if last is not None:
+                        # A session that wrapped comes back as a new one.
+                        fresh = torch.tensor(
+                            [a != b for a, b in zip(sids, last)],
+                            device="cuda")
+                        carry = tree_map(lambda c, c0: torch.where(
+                            fresh.reshape((-1,) + (1,) * (c.ndim - 1)), c0,
+                            c), carry, init)
+                    ref, carry = _apply_by_step(
+                        m, p, torch.from_numpy(obs).cuda(), carry)
+                    carry = tree_map(lambda c, c0: c.to(c0.dtype), carry,
+                                     init)
+                    answers.append((ref.logits.cpu().numpy(),
+                                    ref.value.cpu().numpy()))
+                    last = sids
+                return answers
+
+            if moe:
+                # Top-1 routes each token alone: the plain steps take the
+                # kernel steps' routing, token for token.
+                pins = []
+                with _routing(pins, replay=False):
+                    stepped(model)
+                with _routing(pins, replay=True) as stats:
+                    answers = stepped(plain)
+                with _routing(pins, replay=True) as stats32:
+                    stepped(plain, params, floats(init))
+                session_routing = _flip_check([(stats, stats32)])
+            else:
+                answers = stepped(plain)
+            session_err = [0.0, 0.0]
+            for results, (ref_logits, ref_values) in zip(served, answers):
                 session_err[0] = max(session_err[0], float(np.abs(
                     np.stack([r.logits for r in results])
-                    - ref.logits.cpu().numpy()).max()))
+                    - ref_logits).max()))
                 session_err[1] = max(session_err[1], float(np.abs(
                     np.array([r.value for r in results])
-                    - ref.value.cpu().numpy()).max()))
-                last = sids
+                    - ref_values).max()))
     row = {"qps": load["qps"], "p50_ms": load.get("p50_ms"),
            "p99_ms": load.get("p99_ms"), "requests": load.get("completed"),
            "failed": load["failed"] + counters["failed"],
@@ -3205,17 +3437,31 @@ def _family_serve(torch, name, cfg, prices) -> tuple[dict, list]:
            "batch_value_max_abs_err": batch_err[1],
            "session_logit_max_abs_err": session_err and session_err[0],
            "session_value_max_abs_err": session_err and session_err[1],
+           **({"routing": {"batches": _flip_check(batch_pairs),
+                           "sessions": session_routing,
+                           "rerun_bit_equal": rerun_equal}}
+              if moe else {}),
            "tolerance": {"logit_atol": logit_atol, "value_atol": value_atol}}
     problems: list[str] = []
     for what, err in (("batches", batch_err), ("sessions", session_err)):
         if err and (err[0] > logit_atol or err[1] > value_atol):
             problems.append(f"{name}: served outputs ({what}) disagree with "
                             f"the plain path: {err}")
+    if moe:
+        if not rerun_equal:
+            problems.append(f"{name}: the kernels' rerun of a served batch "
+                            "differs from the served answers")
+        for what, check in row["routing"].items():
+            if isinstance(check, dict) and not check["ok"]:
+                problems.append(f"{name}: routing flips ({what}) between "
+                                f"the kernels and the plain path: {check}")
     if not recorded or row["failed"] or not (drained and stopped):
         problems.append(f"{name}: serving failed requests or did not stop")
+    batches = counters["cold_batches" if pair else "generic_batches"]
     if cfg.model.kind == "transformer" and launches["flash_fwd"] != \
-            cfg.model.num_layers * counters["generic_batches"]:
-        problems.append(f"{name}: flash_fwd launches != layers x batches")
+            cfg.model.num_layers * batches:
+        problems.append(f"{name}: flash_fwd launches != layers x batches "
+                        "through the attention")
     del engine, model, plain, params, recorded
     return row, problems
 
@@ -3289,11 +3535,14 @@ def _family_kernel_rows(torch) -> list[dict]:
 
 def phase_families(torch) -> dict:
     """The other policy families; see the module docstring."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from sharetrade_tpu_torch.config import FrameworkConfig
 
     row: dict = {"phase": "families"}
     problems: list[str] = []
     totals: dict = {}
+    cli_args = []
     for name, extra in FAMILIES.items():
         overrides = FAMILY_BASE + extra
         cfg = FrameworkConfig().apply_overrides(overrides)
@@ -3305,14 +3554,23 @@ def phase_families(torch) -> dict:
         problems += bad
         serve, bad = _family_serve(torch, name, cfg, prices)
         problems += bad
-        cli, bad = _family_cli(name, cfg, overrides)
-        problems += bad
+        cli_args.append((name, cfg, overrides))
         for k, n in launches.items():
             totals[k] = totals.get(k, 0) + n + serve.get(
                 "launches", {}).get(k, 0)
-        row[name] = {"train": train, "serve": serve, "cli": cli,
+        row[name] = {"train": train, "serve": serve,
                      "seconds": time.perf_counter() - t0}
         torch.cuda.empty_cache()
+    # (c) Every family's CLI run at once, after the in-process runs (whose
+    # times they would otherwise disturb): most of a run is its process
+    # start, and one after another they took half the phase.
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cli_args)) as pool:
+        clis = list(pool.map(lambda args: _family_cli(*args), cli_args))
+    row["cli_seconds"] = time.perf_counter() - t0
+    for (name, _, _), (cli, bad) in zip(cli_args, clis):
+        row[name]["cli"] = cli
+        problems += bad
     row["kernels"] = _family_kernel_rows(torch)
     problems += [f"{r['kernel']}:{r['case']} disagrees with its plain "
                  "version" for r in row["kernels"] if not r["ok"]]
@@ -5053,6 +5311,313 @@ def phase_fleet(torch) -> dict:
             "problems": problems}
 
 
+#: The remat_moe phase. (a) The flagship (``FLAGSHIP_TRAIN``) with an
+#: 8-expert MoE FFN in every block, dense-mask top-1 and capacity top-2,
+#: trained and served (64-row batches, 256 slots, as ``FLAGSHIP``).
+MOE_FLAGSHIPS = {
+    f"flagship_moe_top{k}": FLAGSHIP_TRAIN + [
+        "model.moe_experts=8", f"model.moe_top_k={k}",
+        "serve.max_batch=64", "serve.slots=256"]
+    for k in (0, 2)}
+#: (b) ``ppo_transformer_b1024_bf16`` (benchmarks/run_all.py:138): the
+#: window transformer, 1,024 agents, unroll 32; ``learner.remat`` on (as
+#: there) and off.
+B1024 = ["learner.algo=ppo", "model.kind=transformer", "model.num_layers=2",
+         "model.num_heads=2", "model.head_dim=128",
+         "precision.mode=bf16_mixed", "parallel.num_workers=1024",
+         "learner.unroll_len=32", "runtime.chunk_steps=32"]
+#: (c) ``ppo_tr_episode_large_d1024`` and ``_remat`` (run_all.py:180, :190):
+#: d_model 1,024 (L 4, H 8, Dh 128), 64 agents, unroll 512;
+#: ``model.remat_blocks`` off and on.
+D1024 = ["learner.algo=ppo", "model.kind=transformer",
+         "model.seq_mode=episode", "model.num_layers=4", "model.num_heads=8",
+         "model.head_dim=128", "precision.mode=bf16_mixed",
+         "parallel.num_workers=64", "learner.unroll_len=512",
+         "runtime.chunk_steps=512"]
+#: Chunks of each remat pair's run through the chunk program: the eager
+#: warm-up, the capture (and its replay), then plain replays, whose median
+#: wall time is the replay's.
+REMAT_CHUNKS = 5
+#: (d) The attention kernels at these paths' own grids, bf16 D 128, against
+#: their plain versions and timed: d1024's rollout trunk (1 representative
+#: x 8 heads, hist 600 + window 201 + unroll 512 = 1,313 ticks) and shared
+#: replay (1,312), band 201; b1024's rollout step (1,024 agents x 2 heads)
+#: and replay fold group (2,048 rows x 2 heads), causal over T 202. The
+#: backward at the replays'.
+REMAT_ATTENTION_CASES = [
+    dict(name="d1024_trunk_bf16", batch=1, heads=8, seq=1313, window=201),
+    dict(name="d1024_replay_bf16", batch=1, heads=8, seq=1312, window=201,
+         backward=True),
+    dict(name="b1024_rollout_bf16", batch=1024, heads=2, seq=202,
+         window=None),
+    dict(name="b1024_replay_bf16", batch=2048, heads=2, seq=202, window=None,
+         backward=True),
+]
+#: (d) fused_update over the leaves of d1024 (4 blocks at d 1,024) and of
+#: the top-2 MoE flagship (the (8, 256, 1024) / (8, 1024, 256) expert
+#: leaves), as the training path runs it: adagrad, bf16 grads, the bf16
+#: compute copy written.
+REMAT_UPDATE_MODELS = {"ppo_tr_episode_large_d1024": D1024,
+                       "flagship_moe_top2": MOE_FLAGSHIPS["flagship_moe_top2"]}
+REMAT_UPDATE_CASES = [dict(name=f"{model}_adagrad_bf16", optimizer="adagrad",
+                           grad_dtype="bfloat16", emit=True, model=model)
+                      for model in REMAT_UPDATE_MODELS]
+
+
+def _expected_launches(cfg) -> dict:
+    """Kernel launches of one PPO chunk of ``cfg``, from the code: the
+    rollout's attention passes (one trunk pass a layer in episode mode;
+    ``unroll + 1`` batched steps a layer in window mode), then per update
+    one replay pass a layer (episode mode) or one per fold group and layer
+    (``agents/rollout.replay_forward``), each with its backward; a
+    checkpointed replay runs its forward once more in the backward."""
+    from sharetrade_tpu_torch.agents.ppo import num_minibatches
+    from sharetrade_tpu_torch.agents.rollout import _MAX_FOLD_ROWS
+    layers, steps = cfg.model.num_layers, cfg.runtime.chunk_steps
+    workers = cfg.parallel.num_workers
+    updates = cfg.learner.ppo_epochs * num_minibatches(cfg.learner, workers)
+    if cfg.model.seq_mode == "episode":
+        rollout, groups = 1, 1
+    else:
+        rows = workers // num_minibatches(cfg.learner, workers)
+        fold = max(f for f in range(1, steps + 1) if steps % f == 0
+                   and (f * rows <= _MAX_FOLD_ROWS or f == 1))
+        rollout, groups = steps + 1, steps // fold
+    passes = layers * updates * groups
+    remat = cfg.learner.remat or cfg.model.remat_blocks
+    return {"flash_fwd": layers * rollout + passes * (2 if remat else 1),
+            "flash_bwd_dq": passes, "flash_bwd_dkv": passes,
+            "fused_update": updates}
+
+
+def _moe_flagship(torch, name, overrides) -> tuple[dict, list]:
+    """(a) One MoE flagship: three chunks eagerly and through the chunk
+    program (``_eager_vs_graph``: bit-equal, the same launches, each chunk
+    the flagship's counts), one minibatch through the kernels against the
+    plain attention (MB_*; its replay's aux > 0), then served
+    (``_family_serve``: every batch against the plain path, and at top-0
+    every session's answers too), and for top-2 ``cli serve``."""
+    from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.env.trading import make_trading_env
+
+    cfg = FrameworkConfig().apply_overrides(overrides)
+    prices = _prices(cfg.data)
+    env = make_trading_env(prices, window=cfg.env.window,
+                           initial_budget=cfg.env.initial_budget,
+                           initial_shares=cfg.env.initial_shares,
+                           device="cuda")
+    agent = build_agent(cfg, env, device="cuda")
+    problems: list[str] = []
+    before = _all_launch_counts()
+    train = _eager_vs_graph(torch, agent, cfg.seed)
+    after = _all_launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    expect = _expected_launches(cfg)
+    replay_ms = train["graph"]["chunk_ms"][-1]
+    train.update(expected_per_chunk=expect, replay_ms=replay_ms,
+                 agent_steps_per_s=(cfg.parallel.num_workers
+                                    * cfg.runtime.chunk_steps
+                                    / (replay_ms / 1e3)))
+    if not (train["bit_equal"] and train["launches_equal"]):
+        problems.append(f"{name}: graph chunks differ from the eager ones")
+    if any({k: c.get(k, 0) for k in expect} != expect
+           for c in train["eager"]["launches_per_chunk"]):
+        problems.append(f"{name}: launches per chunk differ from {expect}")
+    if not np.isfinite(train["eager"]["metrics"]).all():
+        problems.append(f"{name}: non-finite chunk metrics")
+    minibatch = _minibatch_check(torch, cfg, env, agent,
+                                 agent.init(cfg.seed + 1), overrides,
+                                 pin_routing=True)
+    if minibatch["failed"]:
+        problems.append(f"{name}: one minibatch through the kernels "
+                        f"disagrees with the plain attention's: "
+                        f"{minibatch['failed']}")
+    if not minibatch["aux"]["kernel"] > 0.0:
+        problems.append(f"{name}: the replay's balance loss is not live")
+    del agent
+    torch.cuda.empty_cache()
+    serve, bad = _family_serve(torch, name, cfg, prices, pin_routing=True)
+    problems += bad
+    for k, n in serve.get("launches", {}).items():
+        launches[k] = launches.get(k, 0) + n
+    row = {"config": overrides, "train": train, "minibatch": minibatch,
+           "serve": serve, "launches": launches}
+    if cfg.model.moe_top_k:
+        row["cli"], bad = _family_cli(name, cfg, overrides)
+        problems += bad
+    return row, problems
+
+
+def _remat_state_check(torch, a, b, start) -> dict:
+    """Two states after the same chunks with remat on (``a``) and off
+    (``b``): bit-equal (expected: the recompute runs the same kernels on
+    the same inputs), or else each parameter leaf within ``MB_FLOOR`` of
+    that leaf's own change over the chunks, in L2 norm."""
+    from sharetrade_tpu_torch import convert
+    out = {"bit_equal": _bit_equal(torch, a, b), **_state_diff(a, b)}
+    if out["bit_equal"]:
+        out["within"] = "bit_equal"
+        return out
+    la, lb = convert.train_state_leaves(a), convert.train_state_leaves(b)
+    l0 = convert.train_state_leaves(start)
+    worst = 0.0
+    for leaf, x in la.items():
+        if not leaf.startswith("params."):
+            continue
+        moved = (lb[leaf].float() - l0[leaf].float()).norm().item()
+        diff = (x.float() - lb[leaf].float()).norm().item()
+        worst = max(worst, diff / max(moved, 1e-30))
+    out["worst_param_diff_over_change"] = worst
+    out["within"] = "mb_floor" if worst <= MB_FLOOR else "no"
+    return out
+
+
+def _remat_pair(torch, name, overrides, knob) -> tuple[dict, list]:
+    """(b), (c) One configuration with ``knob`` on and off from the same
+    seeded state, each through a chunk program (``_eager_vs_graph`` in
+    graph mode, ``REMAT_CHUNKS`` chunks: eager, capture, replays): per
+    chunk the wall ms, the launches against ``_expected_launches`` and the
+    peak device memory; agent-steps/s and MFU of the median replay. Then
+    the two final states held by ``_remat_state_check``, and remat must
+    show more ``flash_fwd`` launches and a lower peak. An out-of-memory
+    error of the run without remat is reported, not raised. Last, one
+    minibatch of the remat configuration through the kernels against the
+    plain attention and fp32 (``_minibatch_check``; with remat, because
+    the fp32 path without it would keep twice the plain run's residuals,
+    37 GB at b1024)."""
+    from sharetrade_tpu_torch.agents import build_agent
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.env.trading import make_trading_env
+    from sharetrade_tpu_torch.runtime.orchestrator import _clone_state
+    from sharetrade_tpu_torch.utils import flops
+
+    row: dict = {"config": overrides, "knob": knob}
+    problems: list[str] = []
+    finals, launches = {}, {}
+    for remat in (True, False):
+        tag = "remat" if remat else "plain"
+        cfg = FrameworkConfig().apply_overrides(
+            overrides + [f"{knob}={'true' if remat else 'false'}"])
+        env = make_trading_env(_prices(cfg.data), window=cfg.env.window,
+                               initial_budget=cfg.env.initial_budget,
+                               initial_shares=cfg.env.initial_shares,
+                               device="cuda")
+        agent = build_agent(cfg, env, device="cuda")
+        states: dict = {}
+        try:
+            run = _eager_vs_graph(torch, agent, cfg.seed, REMAT_CHUNKS,
+                                  modes=("graph",), finals=states)["graph"]
+        except torch.cuda.OutOfMemoryError as exc:
+            run = {"out_of_memory": str(exc).splitlines()[0][:300]}
+            if remat:
+                problems.append(f"{name} {tag}: out of memory")
+        if "out_of_memory" not in run:
+            steps = cfg.parallel.num_workers * cfg.runtime.chunk_steps
+            replay_ms = statistics.median(run["chunk_ms"][2:])
+            rate = steps / (replay_ms / 1e3)
+            run.update(
+                replay_ms=replay_ms, agent_steps_per_s=rate,
+                model_flops_per_agent_step=flops.train_flops_per_agent_step(
+                    cfg, env.obs_dim),
+                mfu=flops.mfu(rate, cfg, env.obs_dim),
+                expected_per_chunk=_expected_launches(cfg))
+            if not np.isfinite(run["metrics"]).all():
+                problems.append(f"{name} {tag}: non-finite metrics")
+            for c in run["launches_per_chunk"]:
+                for k, n in c.items():
+                    launches[k] = launches.get(k, 0) + n
+            if any({k: c.get(k, 0) for k in run["expected_per_chunk"]}
+                   != run["expected_per_chunk"]
+                   for c in run["launches_per_chunk"]):
+                problems.append(f"{name} {tag}: launches per chunk differ "
+                                f"from {run['expected_per_chunk']}")
+            finals[tag] = _clone_state(states["graph"])
+        row[tag] = run
+        if remat:
+            remat_cfg, remat_env, remat_agent = cfg, env, agent
+        del agent, states
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    if len(finals) == 2:
+        cfg = FrameworkConfig().apply_overrides(overrides)
+        env = make_trading_env(_prices(cfg.data), window=cfg.env.window,
+                               device="cuda")
+        start = build_agent(cfg, env, device="cuda").init(cfg.seed)
+        row["remat_vs_plain"] = _remat_state_check(
+            torch, finals["remat"], finals["plain"], start)
+        if row["remat_vs_plain"]["within"] == "no":
+            problems.append(f"{name}: the state with remat differs from "
+                            "the state without")
+        fwd = [row[t]["launches_per_chunk"][0].get("flash_fwd", 0)
+               for t in ("remat", "plain")]
+        peak = [row[t]["peak_allocated_bytes"] for t in ("remat", "plain")]
+        row["recompute_price"] = (row["remat"]["agent_steps_per_s"]
+                                  / row["plain"]["agent_steps_per_s"])
+        if not (fwd[0] > fwd[1] and peak[0] < peak[1]):
+            problems.append(f"{name}: remat shows flash_fwd {fwd} and peak "
+                            f"bytes {peak} (remat, plain)")
+        del start, finals
+    # The main path's launches end here: the minibatch check compares.
+    row["launches"] = launches
+    row["minibatch"] = _minibatch_check(
+        torch, remat_cfg, remat_env, remat_agent,
+        remat_agent.init(remat_cfg.seed + 1), overrides + [f"{knob}=true"])
+    if row["minibatch"]["failed"]:
+        problems.append(f"{name}: one minibatch through the kernels "
+                        f"disagrees with the plain attention's: "
+                        f"{row['minibatch']['failed']}")
+    del remat_agent
+    torch.cuda.empty_cache()
+    return row, problems
+
+
+def _remat_kernel_rows(torch) -> list[dict]:
+    """(d) ``REMAT_ATTENTION_CASES`` and ``REMAT_UPDATE_CASES`` against
+    their plain versions, timed as the kernels phase times."""
+    rows = []
+    for case in REMAT_ATTENTION_CASES:
+        case = dict(case, head_dim=128, dtype=torch.bfloat16)
+        backward = case.pop("backward", False)
+        rows.append(check_flash_fwd(torch, **case))
+        if backward:
+            rows += check_flash_bwd(torch, **case)
+    rows += [check_fused_update(torch, **case) for case in REMAT_UPDATE_CASES]
+    return [{**r, "phase": "remat_moe"} for r in rows]
+
+
+def phase_remat_moe(torch) -> dict:
+    """The episode transformer's MoE and rematerialisation; see the
+    module docstring."""
+    row: dict = {"phase": "remat_moe"}
+    problems: list[str] = []
+    totals: dict = {}
+    parts = [(name, lambda n=name, o=overrides: _moe_flagship(torch, n, o))
+             for name, overrides in MOE_FLAGSHIPS.items()]
+    parts += [("ppo_transformer_b1024_bf16",
+               lambda: _remat_pair(torch, "ppo_transformer_b1024_bf16",
+                                   B1024, "learner.remat")),
+              ("ppo_tr_episode_large_d1024",
+               lambda: _remat_pair(torch, "ppo_tr_episode_large_d1024",
+                                   D1024, "model.remat_blocks"))]
+    for name, run in parts:
+        t0 = time.perf_counter()
+        _reset_launch_counts()
+        part, bad = run()
+        part["seconds"] = time.perf_counter() - t0
+        problems += bad
+        for k, n in part["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        row[name] = part
+        torch.cuda.empty_cache()
+    row["kernels"] = _remat_kernel_rows(torch)
+    problems += [f"{r['kernel']}:{r['case']} disagrees with its plain "
+                 "version" for r in row["kernels"] if not r["ok"]]
+    row["launches"] = totals
+    row["problems"] = problems
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -5088,10 +5653,19 @@ def _run_phases(torch, phases: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results: dict = {}
+    seconds: dict = {}
+
+    def _timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
     if "build" in phases:
-        _print(phase_build())
+        _print(_timed("build", phase_build))
     if "kernels" in phases:
-        results["kernels"] = phase_kernels(torch)
+        results["kernels"] = _timed("kernels", phase_kernels, torch)
         for row in results["kernels"]:
             _print(row)
         bad = [f"{r['kernel']}:{r['case']}" for r in results["kernels"]
@@ -5101,28 +5675,28 @@ def _run_phases(torch, phases: list[str]) -> int:
                   f"in {bad}", file=sys.stderr)
             return 1
     if "train" in phases:
-        results["train"] = phase_train(torch)
+        results["train"] = _timed("train", phase_train, torch)
         _print(results["train"])
         if results["train"]["problems"]:
             print(f"chip_smoke: training path failed: "
                   f"{results['train']['problems']}", file=sys.stderr)
             return 1
     if "serve" in phases:
-        results["serve"] = phase_serve(torch)
+        results["serve"] = _timed("serve", phase_serve, torch)
         _print(results["serve"])
         if results["serve"]["problems"]:
             print(f"chip_smoke: serving path failed: "
                   f"{results['serve']['problems']}", file=sys.stderr)
             return 1
     if "serve_tiers" in phases:
-        results["serve_tiers"] = phase_serve_tiers(torch)
+        results["serve_tiers"] = _timed("serve_tiers", phase_serve_tiers, torch)
         _print(results["serve_tiers"])
         if results["serve_tiers"]["problems"]:
             print(f"chip_smoke: the serving tiers failed: "
                   f"{results['serve_tiers']['problems']}", file=sys.stderr)
             return 1
     if "serve_slo" in phases:
-        results["serve_slo"] = phase_serve_slo(torch)
+        results["serve_slo"] = _timed("serve_slo", phase_serve_slo, torch)
         _print(results["serve_slo"])
         if results["serve_slo"]["problems"]:
             print(f"chip_smoke: serving's telemetry and control loop "
@@ -5130,71 +5704,80 @@ def _run_phases(torch, phases: list[str]) -> int:
                   file=sys.stderr)
             return 1
     if "cli" in phases:
-        row = phase_cli()
+        row = _timed("cli", phase_cli)
         _print(row)
         if not row["ok"]:
             print("chip_smoke: cli serve failed", file=sys.stderr)
             return 1
     if "cli_train" in phases:
-        row = phase_cli_train()
+        row = _timed("cli_train", phase_cli_train)
         _print(row)
         if not row["ok"]:
             print("chip_smoke: cli train failed", file=sys.stderr)
             return 1
     if "resilience" in phases:
-        results["resilience"] = phase_resilience(torch)
+        results["resilience"] = _timed("resilience", phase_resilience, torch)
         _print(results["resilience"])
         if results["resilience"]["problems"]:
             print(f"chip_smoke: resilience failed: "
                   f"{results['resilience']['problems']}", file=sys.stderr)
             return 1
     if "reference" in phases:
-        results["reference"] = phase_reference(torch)
+        results["reference"] = _timed("reference", phase_reference, torch)
         _print(results["reference"])
         if results["reference"]["problems"]:
             print(f"chip_smoke: reference workload failed: "
                   f"{results['reference']['problems']}", file=sys.stderr)
             return 1
     if "pipeline" in phases:
-        results["pipeline"] = phase_pipeline(torch)
+        results["pipeline"] = _timed("pipeline", phase_pipeline, torch)
         _print(results["pipeline"])
         if results["pipeline"]["problems"]:
             print(f"chip_smoke: the chunk program / hot loop failed: "
                   f"{results['pipeline']['problems']}", file=sys.stderr)
             return 1
     if "journal" in phases:
-        results["journal"] = phase_journal(torch)
+        results["journal"] = _timed("journal", phase_journal, torch)
         _print(results["journal"])
         if results["journal"]["problems"]:
             print(f"chip_smoke: the journaled DQN path failed: "
                   f"{results['journal']['problems']}", file=sys.stderr)
             return 1
     if "cli_defaults" in phases:
-        row = phase_cli_defaults()
+        row = _timed("cli_defaults", phase_cli_defaults)
         _print(row)
         if not row["ok"]:
             print("chip_smoke: cli train / serve at the defaults failed",
                   file=sys.stderr)
             return 1
     if "families" in phases:
-        results["families"] = phase_families(torch)
+        results["families"] = _timed("families", phase_families, torch)
         _print(results["families"])
         if results["families"]["problems"]:
             print(f"chip_smoke: the policy families failed: "
                   f"{results['families']['problems']}", file=sys.stderr)
             return 1
     if "fleet" in phases:
-        results["fleet"] = phase_fleet(torch)
+        results["fleet"] = _timed("fleet", phase_fleet, torch)
         _print(results["fleet"])
         if results["fleet"]["problems"]:
             print(f"chip_smoke: the serving fleet failed: "
                   f"{results['fleet']['problems']}", file=sys.stderr)
             return 1
+    if "remat_moe" in phases:
+        results["remat_moe"] = _timed("remat_moe", phase_remat_moe, torch)
+        _print(results["remat_moe"])
+        if results["remat_moe"]["problems"]:
+            print(f"chip_smoke: the episode MoE / remat paths failed: "
+                  f"{results['remat_moe']['problems']}", file=sys.stderr)
+            return 1
     if "profile" in phases:
         _print(phase_profile(torch))
+    _print({"phase_seconds": seconds})
     if "kernels" in phases and {"serve", "serve_tiers", "serve_slo", "train",
                                 "resilience", "reference", "pipeline",
-                                "journal", "families", "fleet"} & set(phases):
+                                "journal", "families", "fleet",
+                                "remat_moe"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ from sharetrade_tpu_torch.agents.pg import policy_gradients
 from sharetrade_tpu_torch.agents.rollout import (
     collect_rollout, discounted_returns, gumbel_noise,
     normalize_advantages_masked, replay_forward)
-from sharetrade_tpu_torch.config import ConfigError, LearnerConfig
+from sharetrade_tpu_torch.config import LearnerConfig
 from sharetrade_tpu_torch.env.core import TradingEnv
 from sharetrade_tpu_torch.models.core import Model
 from sharetrade_tpu_torch.precision import FP32
@@ -29,9 +29,6 @@ from sharetrade_tpu_torch.precision import FP32
 def make_a2c_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
                    num_agents: int = 10, steps_per_chunk: int | None = None,
                    precision=None) -> Agent:
-    if cfg.remat:
-        raise ConfigError("learner.remat is not yet ported to "
-                          "sharetrade_tpu_torch")
     optimizer = build_optimizer(cfg)
     precision = precision or FP32
     apply_update = make_update_fn(optimizer, precision)
@@ -56,7 +53,7 @@ def make_a2c_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
 
         def loss_fn(params):
             logits, values, aux = replay_forward(model, params, traj,
-                                                 init_carry)
+                                                 init_carry, remat=cfg.remat)
             log_probs = torch.log_softmax(logits, dim=-1)
             logp = log_probs.gather(-1, traj.action[..., None])[..., 0]
             adv = (returns - values).detach() * weight

@@ -19,7 +19,7 @@ from sharetrade_tpu_torch.agents.base import (
 from sharetrade_tpu_torch.agents.rollout import (
     collect_rollout, discounted_returns, gumbel_noise,
     normalize_advantages_masked, replay_forward)
-from sharetrade_tpu_torch.config import ConfigError, LearnerConfig
+from sharetrade_tpu_torch.config import LearnerConfig
 from sharetrade_tpu_torch.env.core import TradingEnv
 from sharetrade_tpu_torch.models.core import Model, tree_leaves, unflatten_like
 from sharetrade_tpu_torch.precision import FP32
@@ -40,9 +40,6 @@ def policy_gradients(params, loss_fn):
 def make_pg_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
                   num_agents: int = 10, steps_per_chunk: int | None = None,
                   precision=None) -> Agent:
-    if cfg.remat:
-        raise ConfigError("learner.remat is not yet ported to "
-                          "sharetrade_tpu_torch")
     optimizer = build_optimizer(cfg)
     precision = precision or FP32
     apply_update = make_update_fn(optimizer, precision)
@@ -70,7 +67,8 @@ def make_pg_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
                 adv = normalize_advantages_masked(adv, weight, denom)
 
         def loss_fn(params):
-            logits, _, aux = replay_forward(model, params, traj, init_carry)
+            logits, _, aux = replay_forward(model, params, traj, init_carry,
+                                            remat=cfg.remat)
             logp = torch.log_softmax(logits, dim=-1).gather(
                 -1, traj.action[..., None])[..., 0]
             return (-(logp * adv).sum() / denom

@@ -37,7 +37,7 @@ from sharetrade_tpu_torch.agents.base import (
 from sharetrade_tpu_torch.agents.rollout import (
     collect_rollout, gae_advantages, gumbel_noise,
     normalize_advantages_masked, replay_forward)
-from sharetrade_tpu_torch.config import ConfigError, LearnerConfig
+from sharetrade_tpu_torch.config import LearnerConfig
 from sharetrade_tpu_torch.env.core import TradingEnv
 from sharetrade_tpu_torch.models.core import (
     Model, tree_leaves, tree_map, unflatten_like)
@@ -67,9 +67,6 @@ def num_minibatches(cfg: LearnerConfig, num_agents: int) -> int:
 def make_ppo_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
                    num_agents: int = 10, steps_per_chunk: int | None = None,
                    precision=None) -> Agent:
-    if cfg.remat:
-        raise ConfigError("learner.remat is not yet ported to "
-                          "sharetrade_tpu_torch")
     optimizer = build_optimizer(cfg)
     precision = precision or FP32
     apply_update = make_update_fn(optimizer, precision)
@@ -81,7 +78,8 @@ def make_ppo_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
     init = make_init(model, env, optimizer, precision, num_agents)
 
     def minibatch_loss(params, traj_mb, carry_mb, adv_mb, ret_mb):
-        logits, values, aux = replay_forward(model, params, traj_mb, carry_mb)
+        logits, values, aux = replay_forward(model, params, traj_mb, carry_mb,
+                                             remat=cfg.remat)
         log_probs = torch.log_softmax(logits, dim=-1)
         logp = log_probs.gather(-1, traj_mb.action[..., None])[..., 0]
         weight = traj_mb.active

@@ -22,7 +22,9 @@ agent, argmax actions, the whole episode's trunk in one banded pass;
 The replay of a stateless model folds the trajectory batch-major into
 groups of at most ``_MAX_FOLD_ROWS`` rows, as the JAX package does (the
 MoE's top-k routing groups tokens in that order); a model with a carry (the
-LSTM) replays step by step from the unroll's initial carry.
+LSTM) replays step by step from the unroll's initial carry. With
+``remat=True`` (``learner.remat``) the replay checkpoints the units the
+JAX package does: the whole banded replay, each fold group, or each step.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import torch
 from sharetrade_tpu_torch.agents.base import (
     TrainState, election_health, quarantine_mask, select_rows)
 from sharetrade_tpu_torch.env.core import TradingEnv
-from sharetrade_tpu_torch.models.core import Model, tree_leaves, tree_map
+from sharetrade_tpu_torch.models.core import (
+    Model, checkpointed, tree_leaves, tree_map)
 
 
 class StepData(NamedTuple):
@@ -329,7 +332,8 @@ def _mean_aux(out, device) -> torch.Tensor:
     return torch.full((), float(out.aux), dtype=torch.float32, device=device)
 
 
-def replay_forward(model: Model, params: Any, traj: StepData, init_carry):
+def replay_forward(model: Model, params: Any, traj: StepData, init_carry,
+                   *, remat: bool = False):
     """Recompute ``(logits (T, B, A), values (T, B), aux)`` along a stored
     trajectory under ``params`` — the differentiable forward of the loss;
     ``aux`` is the mean of the model's ``ModelOut.aux`` over the replay
@@ -344,32 +348,53 @@ def replay_forward(model: Model, params: Any, traj: StepData, init_carry):
       over the groups. The row order and the group boundaries are the JAX
       package's: the MoE's top-k routing drops picks by them;
     - a model with a carry: ``model.apply_batch`` step by step from
-      ``init_carry`` (the JAX package's scan), aux the mean over steps."""
+      ``init_carry`` (the JAX package's scan), aux the mean over steps.
+
+    ``remat`` checkpoints (``models.core.checkpointed``) the whole banded
+    replay, each fold group, or each step, as the JAX package's
+    ``jax.checkpoint`` does: the backward recomputes that unit's
+    activations from its inputs instead of keeping them."""
     if model.apply_unroll_shared is not None:
-        return model.apply_unroll_shared(params, traj.obs, init_carry)
+        return checkpointed(model.apply_unroll_shared, remat)(
+            params, traj.obs, init_carry)
     if model.apply_unroll is not None:
-        return model.apply_unroll(params, traj.obs, init_carry)
+        return checkpointed(model.apply_unroll, remat)(
+            params, traj.obs, init_carry)
     t, b = traj.obs.shape[:2]
     device = traj.obs.device
     logits, values, aux = [], [], []
     if not tree_leaves(init_carry):
         fold = max(f for f in range(1, t + 1)
                    if t % f == 0 and (f * b <= _MAX_FOLD_ROWS or f == 1))
-        for g in range(t // fold):
-            obs_g = traj.obs[g * fold:(g + 1) * fold]        # (fold, B, D)
+
+        def group(params, obs_g):
+            # (fold, B, D) -> (B, fold, D) -> (B * fold, D): batch-major.
             out, _ = model.apply_batch(
                 params, obs_g.transpose(0, 1).reshape(b * fold, -1),
                 init_carry)
-            logits.append(out.logits.reshape(b, fold, -1).transpose(0, 1))
-            values.append(out.value.reshape(b, fold).transpose(0, 1))
-            aux.append(_mean_aux(out, device))
+            return (out.logits.reshape(b, fold, -1).transpose(0, 1),
+                    out.value.reshape(b, fold).transpose(0, 1),
+                    _mean_aux(out, device))
+
+        group = checkpointed(group, remat)
+        for g in range(t // fold):
+            lg, vg, ag = group(params, traj.obs[g * fold:(g + 1) * fold])
+            logits.append(lg)
+            values.append(vg)
+            aux.append(ag)
         return torch.cat(logits), torch.cat(values), torch.stack(aux).mean()
+
+    def one_step(params, obs_t, carry):
+        out, carry = model.apply_batch(params, obs_t, carry)
+        return out.logits, out.value, _mean_aux(out, device), carry
+
+    one_step = checkpointed(one_step, remat)
     carry = init_carry
     for i in range(t):
-        out, carry = model.apply_batch(params, traj.obs[i], carry)
-        logits.append(out.logits)
-        values.append(out.value)
-        aux.append(_mean_aux(out, device))
+        lg, vg, ag, carry = one_step(params, traj.obs[i], carry)
+        logits.append(lg)
+        values.append(vg)
+        aux.append(ag)
     return torch.stack(logits), torch.stack(values), torch.stack(aux).mean()
 
 

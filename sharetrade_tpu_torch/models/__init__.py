@@ -4,13 +4,13 @@ Counterpart of the JAX package's ``models/__init__.py``: the model zoo
 behind one ``build_model``, keyed by ``model.kind`` — the MLPs (``q_mlp``
 for ``head="q"``, ``ac_mlp`` for ``head="ac"``), the LSTM, the TCN, and the
 transformer in window mode (dense or mixture-of-experts FFN, single- or
-multi-asset) and in episode mode.
+multi-asset) and in episode mode (dense or mixture-of-experts FFN, with or
+without block rematerialisation).
 
 Refused with a ``ConfigError``, as the JAX package refuses them without a
-mesh or the port has not ported them: ring / ulysses attention, pipelined
-blocks, the all_to_all MoE dispatch (they need a mesh); the episode
-transformer's mixture of experts and block rematerialisation; the TCN and
-the episode transformer over more than one asset.
+mesh: ring / ulysses attention, pipelined blocks, the all_to_all MoE
+dispatch (they need a mesh); and, as the JAX package refuses them always,
+the TCN and the episode transformer over more than one asset.
 """
 
 from __future__ import annotations
@@ -111,17 +111,14 @@ def build_model(cfg: ModelConfig, obs_dim: int, *, head: str = "ac",
             raise ConfigError(
                 "model.seq_mode='episode' is single-asset (PARITY.md); use "
                 "seq_mode='window' for multi-asset portfolios")
-        for knob in ("moe_experts", "remat_blocks"):
-            if getattr(cfg, knob):
-                raise ConfigError(
-                    f"model.{knob}={getattr(cfg, knob)!r} with "
-                    "seq_mode='episode' is not yet ported to "
-                    "sharetrade_tpu_torch")
         from sharetrade_tpu_torch.models.transformer_episode import (
             episode_transformer_policy)
         return episode_transformer_policy(
             obs_dim, actions, num_layers=cfg.num_layers,
-            num_heads=cfg.num_heads, head_dim=cfg.head_dim, device=device,
+            num_heads=cfg.num_heads, head_dim=cfg.head_dim,
+            moe_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
+            moe_capacity_factor=cfg.moe_capacity_factor,
+            remat_blocks=cfg.remat_blocks, device=device,
             attention_fn=attention_fn)
     from sharetrade_tpu_torch.models.transformer import transformer_policy
     return transformer_policy(

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 _EPS = 1e-6
 
@@ -57,7 +58,10 @@ class Model:
     ``apply_batch(params, obs (B, obs_dim), carry_batch) -> (ModelOut,
     carry_batch)`` instead, the JAX package's ``apply_batched``: one forward
     step of the batch, which the generic rollout, the Q-learners, the greedy
-    scan and the serving engine's generic program run."""
+    scan and the serving engine's generic program run. The episode
+    transformer gives ``apply_batch`` too (its lockstep step, off the
+    learners' paths) and ``apply(params, obs (obs_dim,), carry) ->
+    (ModelOut, carry)``, the same for one session."""
 
     init: Callable[..., Any]
     init_carry: Callable[[], Any]
@@ -77,6 +81,7 @@ class Model:
     apply_rollout_trunk: Callable | None = None
     apply_rollout_head: Callable | None = None
     rollout_head_factored: Callable | None = None
+    apply: Callable | None = None
 
 
 def compute_dtype(params: Any) -> torch.dtype:
@@ -148,6 +153,26 @@ def rows_finite(tree: Any, batch: int, device=None) -> torch.Tensor:
                              "and no device was given")
         ok = torch.ones((batch,), dtype=torch.bool, device=device)
     return ok
+
+
+def checkpointed(fn, remat: bool):
+    """``fn`` under ``torch.utils.checkpoint`` when ``remat`` and gradients
+    are being recorded, else ``fn``: its activations are then dropped after
+    the forward and recomputed in the backward (the JAX package's
+    ``jax.checkpoint``). Non-reentrant, because the learners take
+    ``torch.autograd.grad``, which a reentrant checkpoint does not support;
+    the RNG state is not preserved, because no checkpointed unit draws
+    random numbers (the rollout's noise is drawn ahead of the replay) and
+    reading the CUDA generator's state is not allowed while a CUDA graph
+    captures the chunk."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run
 
 
 def dense(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

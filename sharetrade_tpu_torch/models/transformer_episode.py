@@ -32,13 +32,29 @@ Training runs the JAX package's trunk-precomputed pair and replays:
   once for a representative row and only the head per agent). Gradients
   flow through ``flash_attention``'s backward kernels.
 
+The lockstep step, :func:`apply_batch` (and :func:`apply` for one
+session), is the JAX package's generic per-step entry: a batch at one
+episode step, the prefill at ``t == 0`` and otherwise :func:`_incremental`,
+which writes every row's new K/V into the one ring slot ``(t[0] - 1) mod
+window``. It reads ``t`` on the host (a batch whose ``t`` is not uniform
+raises), so it stays off every captured path; no learner of either package
+reaches it on this model.
+
+``moe_experts`` routes every block's FFN through the single-device mixture
+of experts (``models/ffn.py``): dense-mask top-1 at ``moe_top_k=0``,
+capacity-bucketed top-k otherwise. Every pass sums the blocks' balance
+losses into a float32 scalar and returns it as ``aux`` (0 for the dense
+FFN); the rollout trunk drops it, as the JAX package's does.
+``remat_blocks`` runs each block of a banded pass under
+``torch.utils.checkpoint`` while gradients are recorded, so the backward
+recomputes the block's internals (its attention included) from the block's
+input.
+
 Carry per session: ``k``/``v`` ``(L, H, W, Dh)`` in the compute dtype,
 ``hist`` ``(hist_len,)`` float32 prices, ``t`` int32 step clock. Batched
 carries add a leading batch dimension.
 
-Not yet ported: the lockstep ``_incremental``/``apply_batch``/``apply``
-(the generic per-step rollout), block rematerialisation, the pipelined and
-MoE variants.
+Not ported: the pipelined variants (``pipeline_blocks``, which need a mesh).
 """
 
 from __future__ import annotations
@@ -48,8 +64,8 @@ import torch
 from sharetrade_tpu_torch.config import ConfigError
 from sharetrade_tpu_torch.device import resolve_device
 from sharetrade_tpu_torch.models.core import (
-    Model, ModelOut, compute_dtype, dense, dense_init, layer_norm,
-    portfolio_features, rows_finite)
+    Model, ModelOut, checkpointed, compute_dtype, dense, dense_init,
+    layer_norm, portfolio_features, rows_finite)
 from sharetrade_tpu_torch.models.ffn import ffn_apply
 from sharetrade_tpu_torch.ops.attention import flash_attention
 
@@ -84,6 +100,9 @@ def _tick_features(series: torch.Tensor) -> torch.Tensor:
 def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
                                num_layers: int = 2, num_heads: int = 4,
                                head_dim: int = 64, mlp_ratio: int = 4,
+                               moe_experts: int = 0, moe_top_k: int = 0,
+                               moe_capacity_factor: float = 1.25,
+                               remat_blocks: bool = False,
                                device: torch.device | str | None = None,
                                attention_fn=None) -> Model:
     """Build the episode-mode policy.
@@ -92,7 +111,9 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
     ``attention_fn(q, k, v, window) -> out`` replaces the banded flash
     attention of every banded pass (``chip_smoke.py`` passes the plain
     version to hold the kernels' end-to-end outputs and gradients against
-    it)."""
+    it). ``moe_experts``, ``moe_top_k`` and ``moe_capacity_factor`` pick
+    the blocks' FFN (``models/ffn.py``); ``remat_blocks`` checkpoints each
+    block of a banded pass that records gradients."""
     if head_dim % 2:
         raise ConfigError(f"RoPE needs an even head_dim, got {head_dim}")
     device = resolve_device(device)
@@ -126,17 +147,25 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         }
         out_scale = 0.02 / max(num_layers, 1)
         for _ in range(num_layers):
-            params["blocks"].append({
+            block = {
                 "ln1": ln(),
                 "qkv": dense_init(gen, d_model, 3 * d_model, device=device),
                 "proj": dense_init(gen, d_model, d_model, scale=out_scale,
                                    device=device),
                 "ln2": ln(),
-                "mlp_in": dense_init(gen, d_model, mlp_ratio * d_model,
-                                     device=device),
-                "mlp_out": dense_init(gen, mlp_ratio * d_model, d_model,
-                                      scale=out_scale, device=device),
-            })
+            }
+            if moe_experts:
+                from sharetrade_tpu_torch.parallel.moe import init_moe_params
+                block["moe"] = init_moe_params(
+                    gen, moe_experts, d_model, mlp_ratio * d_model,
+                    device=device)
+            else:
+                block["mlp_in"] = dense_init(
+                    gen, d_model, mlp_ratio * d_model, device=device)
+                block["mlp_out"] = dense_init(
+                    gen, mlp_ratio * d_model, d_model, scale=out_scale,
+                    device=device)
+            params["blocks"].append(block)
         return params
 
     def _qkv(blk, x, positions):
@@ -147,48 +176,59 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         return _rope(q, positions), _rope(k, positions), v
 
     def _block_tail(blk, x, attn_out, dtype):
+        """The block after its attention: projection, residual, FFN.
+        Returns ``(x, aux)``, aux the FFN's MoE balance loss."""
         bsz, s_len = x.shape[0], x.shape[1]
         attn_out = attn_out.transpose(1, 2).reshape(
             bsz, s_len, d_model).to(dtype)
         x = x + dense(blk["proj"], attn_out)
         h = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
-        return x + ffn_apply(blk, h)[0]     # dense FFN: its aux is 0
+        y, aux = ffn_apply(blk, h, moe_experts=moe_experts,
+                           moe_top_k=moe_top_k,
+                           moe_capacity_factor=moe_capacity_factor)
+        return x + y, aux
 
     def block_apply(blk, x, positions, kv_offset=0):
         """One banded pre-LN block over (B, S, d). Returns ``(x, (k_tail,
-        v_tail))``, the rotated K/V of the ``window`` ticks that end
-        ``kv_offset`` ticks before the series end."""
+        v_tail), aux)``: the rotated K/V of the ``window`` ticks that end
+        ``kv_offset`` ticks before the series end, and the FFN's balance
+        loss."""
         dtype = compute_dtype(blk)
         q, k, v = _qkv(blk, x, positions)
         x_attn = attend(q, k, v, window)
         lo = x.shape[1] - window - kv_offset
-        return _block_tail(blk, x, x_attn, dtype), (
-            k[:, :, lo:lo + window], v[:, :, lo:lo + window])
+        x, aux = _block_tail(blk, x, x_attn, dtype)
+        return x, (k[:, :, lo:lo + window], v[:, :, lo:lo + window]), aux
 
     def forward(params, series, positions, port_feats, *, kv_offset=0,
                 heads=True):
         """Banded forward over a (B, S) tick series. ``port_feats`` (B, S,
         3) is zero except at query positions. Returns (logits (B, S, A) f32,
         values (B, S) f32, per-layer rotated (k, v) tails, hidden (B, S,
-        d)). ``kv_offset`` shifts the cached window that many ticks back
-        from the series end (the rollout trunk's last tick belongs to the
+        d), aux: the blocks' balance losses summed, a float32 scalar).
+        ``kv_offset`` shifts the cached window that many ticks back from
+        the series end (the rollout trunk's last tick belongs to the
         bootstrap position). ``heads=False`` skips the policy/value heads
         (logits and values are then None) for the passes that only read the
-        hidden state."""
+        hidden state. With ``remat_blocks`` each block runs under
+        ``models.core.checkpointed``."""
         dtype = compute_dtype(params)
         x = dense(params["embed"], _tick_features(series).to(dtype))
-        kv = []
+        apply_block = checkpointed(block_apply, remat_blocks)
+        kv, aux = [], torch.zeros((), dtype=torch.float32,
+                                  device=series.device)
         for blk in params["blocks"]:
-            x, kv_tail = block_apply(blk, x, positions, kv_offset)
+            x, kv_tail, blk_aux = apply_block(blk, x, positions, kv_offset)
             kv.append(kv_tail)
+            aux = aux + blk_aux
         hn = layer_norm(x, params["final_ln"]["scale"],
                         params["final_ln"]["bias"])
         if not heads:
-            return None, None, kv, hn
+            return None, None, kv, hn, aux
         hn_port = hn + dense(params["port"], port_feats.to(dtype))
         logits = dense(params["policy"], hn_port).float()
         values = dense(params["value"], hn_port).float()[..., 0]
-        return logits, values, kv, hn
+        return logits, values, kv, hn, aux
 
     def _prefill(params, obs):
         """Episode-start pass for a batch of fresh sessions:
@@ -204,7 +244,8 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
                            device=obs.device)
         port[:, -1, :] = portfolio_features(obs[:, window], obs[:, window + 1],
                                             win[:, -1])
-        logits, values, kv, _hn = forward(params, series, positions, port)
+        logits, values, kv, _hn, aux = forward(params, series, positions,
+                                               port)
         carry = {
             "k": torch.stack([k for k, _ in kv], dim=1),   # (B, L, H, W, Dh)
             "v": torch.stack([v for _, v in kv], dim=1),
@@ -212,7 +253,61 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
                     .contiguous(),
             "t": torch.ones((bsz,), dtype=torch.int32, device=obs.device),
         }
-        return ModelOut(logits=logits[:, -1], value=values[:, -1]), carry
+        return ModelOut(logits=logits[:, -1], value=values[:, -1],
+                        aux=aux), carry
+
+    def _one_token(params, obs, carry, write):
+        """The one-token step both incremental programs share: the new
+        tick's token through every block against the K/V ring, each layer's
+        rotated K/V written by ``write(li, cache_k, cache_v, k, v)`` before
+        its cache attention. Returns ``(ModelOut, hist after the step)``."""
+        dtype = compute_dtype(params)
+        new, prev = obs[:, window - 1], obs[:, window - 2]
+        ret = (torch.log(torch.clamp(new, min=_EPS))
+               - torch.log(torch.clamp(prev, min=_EPS)))
+        tok = torch.stack([ret, ret.abs(), torch.zeros_like(ret)], dim=-1)
+        x = dense(params["embed"], tok.to(dtype))[:, None, :]      # (B, 1, d)
+        pos = (carry["t"] + window - 1).to(torch.int32)[:, None]   # (B, 1)
+        k_cache, v_cache = carry["k"], carry["v"]                  # (B,L,H,W,Dh)
+        aux = torch.zeros((), dtype=torch.float32, device=obs.device)
+        for li, blk in enumerate(params["blocks"]):
+            q, k, v = _qkv(blk, x, pos)                            # (B,H,1,Dh)
+            write(li, k_cache, v_cache, k[:, :, 0], v[:, :, 0])
+            k_all, v_all = k_cache[:, li], v_cache[:, li]          # (B,H,W,Dh)
+            s = torch.matmul(q.float(), k_all.float().transpose(-1, -2)) \
+                * sm_scale
+            probs = torch.softmax(s, dim=-1).to(v_all.dtype)
+            x, blk_aux = _block_tail(blk, x, torch.matmul(probs, v_all),
+                                     dtype)
+            aux = aux + blk_aux
+        hn = layer_norm(x[:, 0], params["final_ln"]["scale"],
+                        params["final_ln"]["bias"])
+        hn = hn + dense(params["port"], portfolio_features(
+            obs[:, window], obs[:, window + 1], new).to(dtype))
+        logits = dense(params["policy"], hn).float()
+        values = dense(params["value"], hn).float()[..., 0]
+        hist = carry["hist"]
+        if hist_len:
+            # Tick t (the window's oldest) leaves the window this step.
+            hist = torch.cat([hist[:, 1:], obs[:, :1]], dim=1)
+        return ModelOut(logits=logits, value=values, aux=aux), hist
+
+    def _incremental(params, obs, carry):
+        """One-token step for a lockstep batch (every row at step
+        ``t[0]`` >= 1, read on the host): each row's new rotated K/V goes
+        into the one ring slot ``(t[0] - 1) mod window`` of fresh copies of
+        the caches. Returns ``(ModelOut, carry)``."""
+        slot = (int(carry["t"][0]) - 1) % window
+        k_cache, v_cache = carry["k"].clone(), carry["v"].clone()
+
+        def write(li, ck, cv, k, v):
+            ck[:, li, :, slot] = k
+            cv[:, li, :, slot] = v
+
+        out, hist = _one_token(params, obs, {**carry, "k": k_cache,
+                                             "v": v_cache}, write)
+        return out, {"k": k_cache, "v": v_cache, "hist": hist,
+                     "t": carry["t"] + 1}
 
     def _incremental_serve(params, obs, carry):
         """One-token step for a batch of warm sessions (t >= 1) at
@@ -220,39 +315,39 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         into its own ring slot ``(t - 1) mod window``; updates ``carry`` in
         place (the engine hands it a gathered copy of the arena rows) and
         returns it."""
-        bsz = obs.shape[0]
-        dtype = compute_dtype(params)
-        new, prev = obs[:, window - 1], obs[:, window - 2]
-        ret = (torch.log(torch.clamp(new, min=_EPS))
-               - torch.log(torch.clamp(prev, min=_EPS)))
-        tok = torch.stack([ret, ret.abs(), torch.zeros_like(ret)], dim=-1)
-        x = dense(params["embed"], tok.to(dtype))[:, None, :]      # (B, 1, d)
         t = carry["t"]
-        pos = (t + window - 1).to(torch.int32)[:, None]            # (B, 1)
         slots = torch.remainder(t - 1, window).long()              # (B,)
-        rows = torch.arange(bsz, device=obs.device)
-        k_cache, v_cache = carry["k"], carry["v"]                  # (B,L,H,W,Dh)
-        for li, blk in enumerate(params["blocks"]):
-            q, k, v = _qkv(blk, x, pos)                            # (B,H,1,Dh)
-            k_cache[rows, li, :, slots] = k[:, :, 0]
-            v_cache[rows, li, :, slots] = v[:, :, 0]
-            k_all, v_all = k_cache[:, li], v_cache[:, li]          # (B,H,W,Dh)
-            s = torch.matmul(q.float(), k_all.float().transpose(-1, -2)) \
-                * sm_scale
-            probs = torch.softmax(s, dim=-1).to(v_all.dtype)
-            x = _block_tail(blk, x, torch.matmul(probs, v_all), dtype)
-        hn = layer_norm(x[:, 0], params["final_ln"]["scale"],
-                        params["final_ln"]["bias"])
-        hn = hn + dense(params["port"], portfolio_features(
-            obs[:, window], obs[:, window + 1], new).to(dtype))
-        logits = dense(params["policy"], hn).float()
-        values = dense(params["value"], hn).float()[..., 0]
-        if hist_len:
-            # Tick t (the window's oldest) leaves the window this step.
-            carry["hist"] = torch.cat([carry["hist"][:, 1:], obs[:, :1]],
-                                      dim=1)
+        rows = torch.arange(obs.shape[0], device=obs.device)
+
+        def write(li, ck, cv, k, v):
+            ck[rows, li, :, slots] = k
+            cv[rows, li, :, slots] = v
+
+        out, carry["hist"] = _one_token(params, obs, carry, write)
         carry["t"] = t + 1
-        return ModelOut(logits=logits, value=values), carry
+        return out, carry
+
+    def apply_batch(params, obs, carry):
+        """The lockstep batched step: the prefill when the batch is at
+        step 0, else :func:`_incremental`. Every row must sit at the same
+        step, as the JAX package's eager path asserts; ``t`` is read on the
+        host, so this is never captured in a CUDA graph."""
+        t = carry["t"]
+        if t.numel() and int(t.min()) != int(t.max()):
+            raise ValueError(
+                f"episode transformer requires a lockstep batch: carry t "
+                f"spans [{int(t.min())}, {int(t.max())}]")
+        if int(t[0]) == 0:
+            return _prefill(params, obs)
+        return _incremental(params, obs, carry)
+
+    def apply(params, obs, carry):
+        """:func:`apply_batch` for one session: ``obs`` (obs_dim,) and an
+        unbatched carry."""
+        out, new = apply_batch(params, obs[None],
+                               {k: v[None] for k, v in carry.items()})
+        return (ModelOut(logits=out.logits[0], value=out.value[0],
+                         aux=out.aux), {k: v[0] for k, v in new.items()})
 
     def _series(hist, first_win, ticks, t0):
         """[history | first window | ticks] and absolute positions, with the
@@ -268,7 +363,7 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         """Training replay: ONE banded pass over [history | chunk ticks].
         ``obs`` (T, B, obs_dim) is the stored trajectory, ``carry`` the
         batched carry at unroll start. Returns (logits (T, B, A), values
-        (T, B), aux 0)."""
+        (T, B), aux)."""
         t_len, bsz = obs.shape[0], obs.shape[1]
         first_win = obs[0, :, :window]                      # (B, W)
         newer = obs[1:, :, window - 1].T                    # (B, T-1)
@@ -282,10 +377,10 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         port = torch.zeros((bsz, s_len, 3), dtype=torch.float32,
                            device=obs.device)
         port[:, q0:q0 + t_len] = feats.transpose(0, 1)
-        logits, values, _kv, _hn = forward(params, series, positions, port)
+        logits, values, _kv, _hn, aux = forward(params, series, positions,
+                                                port)
         return (logits[:, q0:q0 + t_len].transpose(0, 1),
-                values[:, q0:q0 + t_len].transpose(0, 1),
-                torch.zeros((), device=obs.device))
+                values[:, q0:q0 + t_len].transpose(0, 1), aux)
 
     def _head_fold(params):
         """The (3 -> A) / (3 -> 1) folded portfolio-head matrices of the
@@ -319,8 +414,8 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         newer = obs1[1:, :, window - 1].T
         t0 = carry1["t"].to(torch.int32)
         series, positions = _series(carry1["hist"], first_win, newer, t0)
-        _l, _v, _kv, hn = forward(params, series, positions, None,
-                                  heads=False)
+        _l, _v, _kv, hn, aux = forward(params, series, positions, None,
+                                       heads=False)
         q0 = hist_len + window - 1
         hn_q = hn[0, q0:q0 + t_len]                                   # (T, d)
         # Per-agent head in the same factored form (and op order) as the
@@ -333,7 +428,7 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
                                    anchor).float()
         logits = base_l[:, None] + feats @ w_pl + b_pl
         values = base_v[:, None] + feats @ w_pv + b_pv
-        return logits, values, torch.zeros((), device=obs.device)
+        return logits, values, aux
 
     def apply_rollout_trunk(params, obs, future_ticks, carry):
         """The whole unroll's trunk in ONE banded pass. ``future_ticks`` (B,
@@ -346,8 +441,9 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         first_win = obs[:, :window]
         series, positions = _series(carry["hist"], first_win, future_ticks,
                                     t0)
-        _l, _v, kv, hn = forward(params, series, positions, None,
-                                 kv_offset=1, heads=False)
+        # The trunk drops its aux, as the JAX package's does.
+        _l, _v, kv, hn, _aux = forward(params, series, positions, None,
+                                       kv_offset=1, heads=False)
         q0 = hist_len + window - 1
         hn_base = hn[:, q0:q0 + t_len + 1]
         # The cached window (kv_offset=1) holds ticks [t_end-1, t_end+W-2]
@@ -410,7 +506,8 @@ def episode_transformer_policy(obs_dim: int = 203, num_actions: int = 3, *,
         return out
 
     return Model(init=init, init_carry=init_carry, apply_prefill=_prefill,
-                 apply_serve_batch=_incremental_serve, cast_carry=cast_carry,
+                 apply_serve_batch=_incremental_serve, apply_batch=apply_batch,
+                 apply=apply, cast_carry=cast_carry,
                  obs_dim=obs_dim, name="transformer_episode", device=device,
                  num_actions=num_actions, apply_unroll=apply_unroll,
                  apply_unroll_shared=apply_unroll_shared,

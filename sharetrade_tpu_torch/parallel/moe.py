@@ -23,6 +23,14 @@ expert index, as ``jax.lax.top_k`` does: a stable sort of the negated
 probabilities, not ``torch.topk``, whose order among equal values is not
 specified.
 
+``route_hook``, when set, is called with each routing decision (top-1's
+expert per token, top-k's picks per token in rank order) and returns the
+decision the layer then uses: ``chip_smoke.py`` records the decisions of a
+pass through the attention kernels and hands them to the same pass through
+the plain attention, so that the two are compared at one routing (in bf16
+a near tie in the gate flips between them, and a flipped token's output
+moves by the size of an expert's). None (the default) costs nothing.
+
 Not ported: the ep-sharded ``_sharded`` forms and the token-sharded
 ``_a2a`` dispatch (multi-device; ``models.build_model`` refuses
 ``model.moe_dispatch="a2a"``).
@@ -31,6 +39,9 @@ Not ported: the ep-sharded ``_sharded`` forms and the token-sharded
 from __future__ import annotations
 
 import torch
+
+#: ``route_hook(picks) -> picks``: see the module docstring.
+route_hook = None
 
 
 def init_moe_params(gen: torch.Generator, num_experts: int, in_dim: int,
@@ -56,8 +67,10 @@ def moe_apply(params: dict, tokens: torch.Tensor):
     logits = tokens @ params["gate"]                         # (N, E)
     probs = torch.softmax(logits, dim=-1)
     num_experts = params["gate"].shape[-1]
-    onehot = torch.nn.functional.one_hot(
-        torch.argmax(logits, dim=-1), num_experts).to(tokens.dtype)
+    picks = torch.argmax(logits, dim=-1)
+    if route_hook is not None:
+        picks = route_hook(picks)
+    onehot = torch.nn.functional.one_hot(picks, num_experts).to(tokens.dtype)
     weight = (probs * onehot).sum(dim=-1)                    # pick's gate
     h = torch.relu(torch.einsum("ni,eih->enh", tokens, params["w_in"]))
     y = torch.einsum("enh,ehi->eni", h, params["w_out"])
@@ -101,6 +114,8 @@ def _topk_route(gate_logits: torch.Tensor, top_k: int, capacity: int, dtype,
     groups, g, num_experts = gate_logits.shape
     probs = torch.softmax(gate_logits, dim=-1)
     order = torch.sort(-probs, dim=-1, stable=True).indices[..., :top_k]
+    if route_hook is not None:
+        order = route_hook(order)
     top_p = probs.gather(-1, order)                          # (G, g, k)
     sel = torch.nn.functional.one_hot(order, num_experts).float()
     if valid is not None:

@@ -79,10 +79,12 @@ def test_cli_serve_params_from_npz(tmp_path):
 
 
 def test_cli_rejects_unported_model(tmp_path):
+    # The episode MoE is ported; its all_to_all dispatch (a mesh) is not.
     out = _run(["serve", "--device", "cpu", "--duration", "1",
                 "--set", "learner.algo=ppo", "--set", "model.kind=transformer",
                 "--set", "model.seq_mode=episode",
-                "--set", "model.moe_experts=4"],
+                "--set", "model.moe_experts=4", "--set", "model.moe_top_k=2",
+                "--set", "model.moe_dispatch=a2a"],
                tmp_path)
     assert out.returncode != 0
     assert "not yet ported" in out.stderr

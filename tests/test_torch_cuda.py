@@ -717,6 +717,17 @@ GRAPH_LEARNERS.update({
                 "runtime.chunk_steps=8"],
     "ppo_portfolio": ["learner.algo=ppo", "model.head_dim=64"] + _WINDOW,
 })
+#: Rematerialisation and the episode transformer's MoE: the checkpointed
+#: replays recompute their forward (a second ``flash_fwd``) inside the
+#: captured backward, from the capture's private pool.
+GRAPH_LEARNERS.update({
+    "ppo_episode_remat": GRAPH_LEARNERS["ppo"] + [
+        "learner.remat=true", "model.remat_blocks=true"],
+    "ppo_episode_moe_top2": GRAPH_LEARNERS["ppo"] + [
+        "model.moe_experts=4", "model.moe_top_k=2",
+        "model.moe_capacity_factor=0.5"],
+    "ppo_window_remat": GRAPH_LEARNERS["ppo_window"] + ["learner.remat=true"],
+})
 
 
 #: DQN with its transitions collected (``learner.journal_replay``).

@@ -3,7 +3,7 @@
 - Importing the port's modules in a fresh interpreter leaves ``jax`` and
   ``sharetrade_tpu`` out of ``sys.modules``.
 - A source scan of the package (its ``checkpoint/``, ``obs/``,
-  ``tuning.py`` and ``serve/controller.py`` included),
+  ``tuning.py``, ``serve/controller.py`` and ``utils/flops.py`` included),
   ``chip_smoke.py`` and ``tools/torch_*.py`` finds no import of ``jax``, ``flax``, ``optax`` or
   ``msgpack`` (the machine with the card has none of them) and no reference
   to the JAX package's modules.
@@ -50,6 +50,7 @@ def _sources():
     for path in (PACKAGE / "checkpoint" / "manager.py",
                  PACKAGE / "obs" / "__init__.py", PACKAGE / "obs" / "hist.py",
                  PACKAGE / "tuning.py", PACKAGE / "serve" / "controller.py",
+                 PACKAGE / "utils" / "flops.py",
                  REPO / "tools" / "torch_train_ab.py",
                  REPO / "tools" / "torch_autotune.py"):
         assert path in files, path

@@ -11,7 +11,9 @@ one ``prices_fetched`` event. The checkpoint chain: ``train --eval`` preempted b
 ``tag_preempt`` written), ``train --resume --eval`` (completes, keeps
 ``tag_best``), then ``serve`` from the same directory boots from
 ``tag_best`` (``params_step`` its update count); ``--resume`` with nothing
-to resume from exits 1.
+to resume from exits 1. Unported knobs are refused; ``learner.remat``,
+``model.remat_blocks`` and the episode model's ``model.moe_experts`` each
+train a chunk.
 """
 
 import json
@@ -145,14 +147,24 @@ def test_preempt_mid_episode_and_trained_only_not_computed(tmp_path):
 
 
 @pytest.mark.parametrize("knob", ["runtime.profile_dir=trace",
-                                  "obs.enabled=true",
-                                  "learner.remat=true",
-                                  "model.remat_blocks=true",
-                                  "model.moe_experts=4"])
+                                  "obs.enabled=true"])
 def test_unported_knobs_are_refused(knob, tmp_path):
     with pytest.raises(ConfigError, match="not yet ported"):
         orch = _orchestrator(tmp_path, knob)
         orch.send_training_data(_prices(60))
+
+
+@pytest.mark.parametrize("knob", ["learner.remat=true",
+                                  "model.remat_blocks=true",
+                                  "model.moe_experts=4"])
+def test_remat_and_episode_moe_knobs_train_a_chunk(knob, tmp_path):
+    orch = _orchestrator(tmp_path, knob)
+    orch.send_training_data(_prices(12 + 16))      # horizon 16: one chunk
+    orch.start_training(background=False)
+    assert orch.lifecycle.phase is Phase.COMPLETED
+    snap = orch.snapshot()
+    assert snap["env_steps"] == 16 and snap["updates"] == 2
+    assert np.isfinite(orch.get_avg(trained_only=False).value)
 
 
 @pytest.mark.parametrize("knob", ["runtime.megachunk_factor=2",
