@@ -90,7 +90,9 @@ Phases, in order (any failure exits non-zero before the final line):
                ``SLO_TARGET_BOUNDS_MS``; a tick every 0.25 s) over 320
                sessions in open loop at twice (a)'s qps with ``max_queue``
                256, shed-oldest and 50 ms deadlines for 4 s, then at a
-               tenth of that rate for 4 s: it tightens, then grows back,
+               light rate for 4 s (a tenth of that rate, halved until a
+               1 s probe's windows sit under the re-arm line,
+               ``SLO_LIGHT_FRAC``): it tightens, then grows back,
                every knob read at or under config, every adjustment
                counted, the outcomes reconciling exactly; (d) on the same
                engine (``obs.slo_availability=0.999``, the target as
@@ -147,12 +149,14 @@ Phases, in order (any failure exits non-zero before the final line):
                chunk ms, launches per chunk, the DQN save's bytes and time.
 10. pipeline — the chunk as a CUDA graph (``agents/base.py``
                ``ChunkProgram``) and the orchestrator's default hot loop:
-               (a) the reference episode eagerly (``agent.step``), then
-               through the orchestrator at its defaults (an eager first
-               chunk, then one graph replay a chunk, the async readback
-               pipeline, a sample every 10 chunks), at K=8, and at K=8
-               with double buffering: each bit-equal to the eager episode
-               and ending on ``REFERENCE_DIGITS``; chunk ms and agent-steps/s
+               (a) the reference workload's episode over the series'
+               first ``PIPELINE_PRICES`` ticks (nine chunks and a partial
+               tenth) eagerly (``agent.step``), then through the
+               orchestrator at its defaults (an eager first chunk, then
+               one graph replay a chunk, the async readback pipeline, a
+               sample every 10 chunks), at K=8, and at K=8 with double
+               buffering: each bit-equal to the eager episode and ending
+               on its portfolio mean and std; chunk ms and agent-steps/s
                of each, the capture's seconds and graph nodes, launches per
                replay, and of a replayed chunk its CUDA-event time and
                ``torch.profiler`` busy share; (b) three chunks each of DQN,
@@ -268,7 +272,8 @@ Phases, in order (any failure exits non-zero before the final line):
                ``ppo_tr_episode_large_d1024`` (``D1024``) with
                ``model.remat_blocks`` on and off, each from the same
                seeded state through a chunk program (``_eager_vs_graph``,
-               graph mode: eager, capture, three replays): per chunk ms,
+               graph mode: eager, capture, then one plain replay at b1024
+               and three at d1024, ``B1024_CHUNKS``): per chunk ms,
                launches against ``_expected_launches`` (a checkpointed
                pass runs ``flash_fwd`` again in its backward) and peak
                device memory; the median replay's agent-steps/s and MFU
@@ -284,6 +289,44 @@ Phases, in order (any failure exits non-zero before the final line):
                fused_update over d1024's and the top-2 MoE flagship's
                leaves (``REMAT_UPDATE_CASES``) against their plain
                versions, timed.
+16. actors   — actors and the flywheel at the reference workload's width
+               (``ACTORS``: the JAX defaults under DQN, two actors), the
+               CLIs run as a user runs them, ``cli learner`` and ``cli
+               fleet --learner`` (``FLYWHEEL``, one engine) started
+               together: (e) once the fleet is ready, journaling sessions
+               over the wire until a response names weights newer than the
+               engine booted with, then SIGTERM (exit 75, served rows
+               ingested, no learner restart); (a) ``learner_ready``, both
+               actors alive in ``status.json`` with their rows growing
+               (rows/s per actor); (c) a0 SIGKILLed: respawned,
+               ``restarts_total`` = 1 injected, the learner's pid
+               unchanged, a0's stamps continuing past its high-water; while
+               it respawns, (b) in this process a DQN learner on the card
+               over the live actors' journals, uniform and PER: after an
+               ingest tick (its rows and ms) the replay buffer's size
+               grown by the rows read and the last row read just behind
+               its write position, then one replayed chunk bit-equal to an
+               eager chunk from a copy of the same state and generator;
+               (d) every live actor's ``params_step`` past its boot
+               weights once the learner republishes ``tag_best``, and
+               in this process an actor from a seeded init given
+               ``tag_best`` while its capture chunk runs: each replayed
+               chunk's greedy actions equal the argmax of a plain forward of
+               that chunk's weights (the chunk replay timed); (f) the
+               ``scale`` file retires a1, the learner ingests up to the
+               last stamp of a1's drained journal (the final ingest), then
+               SIGTERM drains the learner (exit 75, both actors retired,
+               no actor pid left in ``/proc``); from the learner's events
+               (``cli learner --events``), per actor and tick: read on from
+               the cursor the last tick left, 10 rows a counted env step
+               from its first record to its new cursor, and where that
+               record starts past the cursor the rows between retired
+               unread (none of them still in the journal; reported); the
+               ticks' sums the learner's counts, and a1's cursor at its
+               drained journal's high-water; the learner's episode times
+               and ingest ticks from its events. ``fused_update``'s
+               launches are the two CLI learners' own counts (each process
+               counts from 0).
 
 Every price read journals into a fresh scratch directory, and every CLI
 run works in a fresh scratch directory (the checkout on ``PYTHONPATH``):
@@ -318,7 +361,7 @@ PHASES = ("build", "kernels", "train", "serve", "serve_tiers", "serve_slo",
           "cli",
           "cli_train",
           "resilience", "reference", "pipeline", "journal", "cli_defaults",
-          "families", "fleet", "remat_moe")
+          "families", "fleet", "remat_moe", "actors")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -1220,7 +1263,8 @@ def kernels_line(results: dict) -> dict:
         by_path = {path: results[path]["launches"].get(name, 0)
                    for path in ("train", "serve", "serve_tiers", "serve_slo",
                                 "resilience", "reference", "pipeline",
-                                "journal", "families", "fleet", "remat_moe")
+                                "journal", "families", "fleet", "remat_moe",
+                                "actors")
                    if path in results}
         # The same kernel at the families' shapes (families (d)) and at
         # the remat / MoE paths' (remat_moe (d)).
@@ -2343,6 +2387,12 @@ def phase_reference(torch) -> dict:
 #: ``cli train`` (the ``cli_train`` phase). The graph must not move a bit
 #: of them.
 REFERENCE_DIGITS = (3817.440673828125, 592.10595703125)
+#: The pipeline phase's (a) episode: the first 2,046 ticks of the series
+#: (horizon 1,845: nine chunks and a partial tenth, as the whole episode
+#: ends on a partial chunk), so the eager reference takes a third of the
+#: whole episode's time; ``REFERENCE_DIGITS`` over the whole episode are
+#: held by ``cli_defaults`` and serve_slo (e).
+PIPELINE_PRICES = 2046
 FLAGSHIP_DIGITS = (2320.290771484375, 263.25079345703125)
 
 
@@ -2457,7 +2507,7 @@ def phase_pipeline(torch) -> dict:
     from sharetrade_tpu_torch.utils.logging import EventLog
 
     base = FrameworkConfig().apply_overrides(REFERENCE)
-    prices = _prices(base.data)
+    prices = _prices(base.data)[:PIPELINE_PRICES]
     horizon = len(prices) - base.env.window
     workers, steps = base.parallel.num_workers, base.runtime.chunk_steps
     chunks = -(-horizon // steps)
@@ -2467,10 +2517,11 @@ def phase_pipeline(torch) -> dict:
 
     # ---- the counted window: counts reset just before, read just after.
     _reset_launch_counts()
-    # (a) the reference episode: eagerly (agent.step, each chunk read
-    # back), then through the orchestrator at its defaults (graph, async
-    # pipeline, a sample every 10 chunks), at K=8, and at K=8 with double
-    # buffering (pipeline off).
+    # (a) the reference workload's episode over the series' first
+    # PIPELINE_PRICES ticks: eagerly (agent.step, each chunk read back),
+    # then through the orchestrator at its defaults (graph, async pipeline,
+    # a sample every 10 chunks), at K=8, and at K=8 with double buffering
+    # (pipeline off).
     env = make_trading_env(prices, window=base.env.window, device="cuda")
     agent = build_agent(base, env, device="cuda")
     ts = agent.init(base.seed)
@@ -2481,6 +2532,8 @@ def phase_pipeline(torch) -> dict:
         float(metrics["loss"])                             # syncs
     eager_s = time.perf_counter() - t0
     eager_ts = ts
+    eager_digits = (float(metrics["portfolio_mean"]),
+                    float(metrics["portfolio_std"]))
     runs = {}
     for name, extra in (
             ("default", []),
@@ -2522,16 +2575,16 @@ def phase_pipeline(torch) -> dict:
                             f"{runs[name]['completed']}, bit-equal to the "
                             f"eager episode {runs[name]['bit_equal_eager']} "
                             f"({orch.last_error!r})")
-        if (avg, std) != REFERENCE_DIGITS:
+        if (avg, std) != eager_digits:
             problems.append(f"reference {name}: portfolio {avg!r} / {std!r}, "
-                            f"expected {REFERENCE_DIGITS}")
+                            f"the eager episode's {eager_digits}")
         if program.launches_per_replay != {
                 "fused_update": REFERENCE_LAUNCHES["qlearn"]}:
             problems.append(f"reference {name}: launches per replay "
                             f"{program.launches_per_replay}")
         del orch
     row["reference"] = {
-        "chunks": chunks, "eager_episode_s": eager_s,
+        "prices": len(prices), "chunks": chunks, "eager_episode_s": eager_s,
         "eager_chunk_ms": eager_s / chunks * 1e3,
         "eager_agent_steps_per_s": workers * horizon / eager_s,
         "runs": runs,
@@ -4194,6 +4247,13 @@ SLO_CONTROLLER_INTERVAL_S = 0.25
 #: (the controller's re-arm line), one the relaxed phase gets under
 #: (PERF.md section 6).
 SLO_TARGET_BOUNDS_MS = (40.0, 50.0)
+#: The relaxed phase's rate: a tenth of the overload's, halved (up to three
+#: times) until a probe's windows' median p99 sits under this share of the
+#: controller's re-arm line (half the target). The load at a tenth ran at
+#: a window p99 of ~30 ms on some hosts, over a 20-25 ms re-arm line, and
+#: the controller then rightly never relaxed (ROADMAP C13).
+SLO_LIGHT_FRAC = 0.8
+SLO_LIGHT_PROBES = 4
 SLO_BURN = {"slo_availability": 0.999, "slo_window_s": 1.0,
             "slo_burn_threshold": 2.0, "exemplar_k": 4}
 
@@ -4420,8 +4480,31 @@ def _stage_p99s(registry) -> dict:
     return serve_stage_p99s(registry)
 
 
+def _light_rate(engine, registry, sessions, rate: float,
+                under_ms: float) -> dict:
+    """The relaxed phase's load: ``rate`` (a tenth of the overload's) or
+    its halving, down to ``SLO_LIGHT_PROBES`` probes, whichever first
+    serves with its windows' median p99 under ``under_ms``. Each probe is
+    an open loop of ``SLO_LOOP_S`` / 2 s on the engine, the controller not
+    yet running and the knobs at config."""
+    from sharetrade_tpu_torch.serve.driver import run_open_loop
+    probes = []
+    for _ in range(SLO_LIGHT_PROBES):
+        since = time.time()
+        run_open_loop(engine, sessions, rate_qps=rate,
+                      duration_s=SLO_LOOP_S / 2)
+        engine.drain(60.0)
+        p99s = [w["serve_p99_ms"] for w in _window_rows(registry, since)
+                if "serve_p99_ms" in w]
+        probes.append({"rate_qps": rate, "window_p99_ms": p99s})
+        if p99s and statistics.median(p99s) < under_ms:
+            break
+        rate /= 2.0
+    return {"rate_qps": probes[-1]["rate_qps"], "probes": probes}
+
+
 def _slo_controller(torch, ctx) -> tuple[dict, list]:
-    """(c) The controller under overload, then at a tenth of the rate, and
+    """(c) The controller under overload, then at a light rate, and
     (d) the SLO burn gauges and the exemplar ring of the same engine."""
     import dataclasses
     import threading
@@ -4441,17 +4524,19 @@ def _slo_controller(torch, ctx) -> tuple[dict, list]:
     engine = ServeEngine(model, serve_cfg, params, precision=policy,
                          registry=registry, obs_cfg=obs_cfg)
     engine.warmup()
-    controller = ServeController(
-        engine, target_p99_ms=target,
-        interval_s=SLO_CONTROLLER_INTERVAL_S).start()
     ceiling = (serve_cfg.batch_timeout_ms, serve_cfg.max_queue)
     reads: list[tuple] = []
     phases: dict = {}
     sessions = make_sessions(prices, cfg.env.window, SLO_OVERLOAD_SESSIONS,
                              seed=cfg.seed + 22, prefix="ol")
+    light = _light_rate(engine, registry, sessions, 0.2 * ctx["slo_qps"],
+                        SLO_LIGHT_FRAC * 0.5 * target)
+    controller = ServeController(
+        engine, target_p99_ms=target,
+        interval_s=SLO_CONTROLLER_INTERVAL_S).start()
     starts = {}
     for name, rate in (("overload", 2.0 * ctx["slo_qps"]),
-                       ("relaxed", 0.2 * ctx["slo_qps"])):
+                       ("relaxed", light["rate_qps"])):
         since = starts[name] = time.time()
         adjust0 = controller.adjustments
         counters0 = registry.counters()
@@ -4491,6 +4576,7 @@ def _slo_controller(torch, ctx) -> tuple[dict, list]:
         if cur[0] > starts["relaxed"] and (cur[1] > prev[1]
                                            or cur[2] > prev[2]))
     c = {"target_p99_ms": target, "half_of_a_p99_ms": ctx["slo_p99_ms"] / 2,
+         "light_rate_probes": light["probes"],
          "ceiling": list(ceiling),
          "knob_reads": len(reads),
          "max_read": [max(r[0] for r in reads), max(r[1] for r in reads)],
@@ -4518,8 +4604,8 @@ def _slo_controller(torch, ctx) -> tuple[dict, list]:
     if any(t > ceiling[0] or q > ceiling[1] for _ts, t, q in trajectory):
         problems.append(f"(c) a knob gauge above config: {trajectory}")
     if grow_steps < 1:
-        problems.append(f"(c) the controller did not relax at a tenth of "
-                        f"the rate: {c['relaxed']}")
+        problems.append(f"(c) the controller did not relax at the light "
+                        f"rate: {c['relaxed']}")
     # (d) the burn gauges and the exemplars.
     threshold = SLO_BURN["slo_burn_threshold"]
     burns = [w["serve_slo_availability_burn"] for w in over["windows"]
@@ -5336,8 +5422,11 @@ D1024 = ["learner.algo=ppo", "model.kind=transformer",
          "runtime.chunk_steps=512"]
 #: Chunks of each remat pair's run through the chunk program: the eager
 #: warm-up, the capture (and its replay), then plain replays, whose median
-#: wall time is the replay's.
+#: wall time is the replay's. b1024 runs one plain replay (its chunks take
+#: 3.6-4.9 s and remat's price, ~25%, is far outside their spread); d1024
+#: three (its price sits inside one replay's spread).
 REMAT_CHUNKS = 5
+B1024_CHUNKS = 3
 #: (d) The attention kernels at these paths' own grids, bf16 D 128, against
 #: their plain versions and timed: d1024's rollout trunk (1 representative
 #: x 8 heads, hist 600 + window 201 + unroll 512 = 1,313 ticks) and shared
@@ -5473,10 +5562,11 @@ def _remat_state_check(torch, a, b, start) -> dict:
     return out
 
 
-def _remat_pair(torch, name, overrides, knob) -> tuple[dict, list]:
+def _remat_pair(torch, name, overrides, knob,
+                chunks: int = REMAT_CHUNKS) -> tuple[dict, list]:
     """(b), (c) One configuration with ``knob`` on and off from the same
     seeded state, each through a chunk program (``_eager_vs_graph`` in
-    graph mode, ``REMAT_CHUNKS`` chunks: eager, capture, replays): per
+    graph mode, ``chunks`` chunks: eager, capture, replays): per
     chunk the wall ms, the launches against ``_expected_launches`` and the
     peak device memory; agent-steps/s and MFU of the median replay. Then
     the two final states held by ``_remat_state_check``, and remat must
@@ -5506,7 +5596,7 @@ def _remat_pair(torch, name, overrides, knob) -> tuple[dict, list]:
         agent = build_agent(cfg, env, device="cuda")
         states: dict = {}
         try:
-            run = _eager_vs_graph(torch, agent, cfg.seed, REMAT_CHUNKS,
+            run = _eager_vs_graph(torch, agent, cfg.seed, chunks,
                                   modes=("graph",), finals=states)["graph"]
         except torch.cuda.OutOfMemoryError as exc:
             run = {"out_of_memory": str(exc).splitlines()[0][:300]}
@@ -5596,7 +5686,7 @@ def phase_remat_moe(torch) -> dict:
              for name, overrides in MOE_FLAGSHIPS.items()]
     parts += [("ppo_transformer_b1024_bf16",
                lambda: _remat_pair(torch, "ppo_transformer_b1024_bf16",
-                                   B1024, "learner.remat")),
+                                   B1024, "learner.remat", B1024_CHUNKS)),
               ("ppo_tr_episode_large_d1024",
                lambda: _remat_pair(torch, "ppo_tr_episode_large_d1024",
                                    D1024, "model.remat_blocks"))]
@@ -5614,6 +5704,559 @@ def phase_remat_moe(torch) -> dict:
     problems += [f"{r['kernel']}:{r['case']} disagrees with its plain "
                  "version" for r in row["kernels"] if not r["ok"]]
     row["launches"] = totals
+    row["problems"] = problems
+    return row
+
+
+# ---------------------------------------------------------------------------
+# actors: cli learner with its actor pool, the ingest into the chunk graph,
+# the kill test, weight swaps, the flywheel, the drain
+# ---------------------------------------------------------------------------
+
+#: The actors phase: the reference workload (the JAX package's defaults:
+#: q_mlp 203 -> 200 -> 3, 10 agents a process, 200-step chunks, replay
+#: capacity 65,536, the 6,046-tick MSFT history) under DQN with two actors.
+#: The rest paces the run and cuts no width: episodes without end (the
+#: phase ends the run), no cadence checkpoint (a DQN save is ~110 MB), a
+#: greedy eval every 30 chunks (republishes ``tag_best``), a readback every
+#: chunk (the learner ingests every chunk) and quick polls; the actors'
+#: journals rotate at ``cli learner``'s default of 256 records a segment.
+#: An actor retires whole segments once twice ``replay_capacity`` newer
+#: rows cover them, so a learner that falls that far behind loses rows it
+#: has not read; (f) accounts for them tick by tick and reports them.
+ACTORS = [
+    "learner.algo=dqn", "distrib.num_actors=2", "runtime.episodes=100000",
+    "runtime.checkpoint_every_updates=0", "runtime.eval_every_updates=6000",
+    "runtime.metrics_every_chunks=1", "distrib.weight_poll_s=0.5",
+    "distrib.heartbeat_interval_s=0.2", "distrib.supervise_interval_s=0.1",
+    "distrib.actor_backoff_initial_s=0.1", "distrib.actor_backoff_max_s=0.5"]
+#: ``cli fleet --learner``: one engine serving the learner's Q-network, the
+#: learner republishing ``tag_best`` every 10 chunks, the engine polling it
+#: every 0.5 s.
+FLYWHEEL = [
+    "learner.algo=dqn", "fleet.num_engines=1", "runtime.episodes=100000",
+    "runtime.checkpoint_every_updates=0", "runtime.eval_every_updates=2000",
+    "runtime.metrics_every_chunks=1", "serve.swap_poll_s=0.5"]
+FLYWHEEL_SESSIONS = 16
+
+
+def _spawn_cli(argv: list, sets: list, cwd: str):
+    """``python -m sharetrade_tpu_torch.cli <argv> --set ...`` in ``cwd``,
+    its output to files there: ``(proc, out_path, err_path)``."""
+    os.makedirs(cwd, exist_ok=True)
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", *argv]
+    for item in sets:
+        cmd += ["--set", item]
+    out_path = os.path.join(cwd, "out.txt")
+    err_path = os.path.join(cwd, "err.txt")
+    with open(out_path, "wb") as out, open(err_path, "wb") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, cwd=cwd,
+                                env=_cli_env())
+    return proc, out_path, err_path
+
+
+def _event_line(proc, out_path: str, event: str, timeout_s: float) -> dict:
+    found: list = []
+
+    def ready():
+        if proc.poll() is not None:
+            raise RuntimeError(f"chip_smoke: the process exited "
+                               f"(rc {proc.returncode}) before {event}")
+        found[:] = [r for r in _json_lines(out_path)
+                    if r.get("event") == event]
+        return bool(found)
+
+    _wait_for(ready, timeout_s, event)
+    return found[0]
+
+
+def _pid_gone(pid: int) -> bool:
+    """No process ``pid`` (or only its zombie) in ``/proc``."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _ingest_ticks(events_path: str) -> list[dict]:
+    """``cli learner --events``: its ingest ticks, oldest first."""
+    return [e for e in _json_lines(events_path)
+            if e.get("kind") == "actor_feed_ingest"]
+
+
+def _learner_timeline(events_path: str, t0: float) -> dict:
+    """From ``cli learner``'s events: the wall seconds (since ``t0``) at
+    which each episode completed, and its ingest ticks."""
+    events = _json_lines(events_path)
+    rows = [e["rows"] for e in events if e.get("kind") == "actor_feed_ingest"]
+    return {"episodes_completed_at_s": [
+                round(e["ts"] - t0, 2) for e in events
+                if e.get("kind") == "episode_completed"],
+            "ingest_ticks": len(rows),
+            "ingest_rows_median": statistics.median(rows) if rows else 0}
+
+
+def _reconcile_feed(ticks: list[dict], stamps: list[tuple[int, int]],
+                    feed: dict, workers: int) -> tuple[dict, list]:
+    """One actor's rows, tick by tick, against its journal. Every agent is
+    active at every counted env step, so a record stamped s holding r rows
+    covers the stamps (s - r / workers, s]. Each tick must read on from
+    the cursor the previous one left, and read exactly ``workers`` rows a
+    stamp from its first record to the cursor it leaves; where its first
+    record starts past its cursor, the rows between were retired unread
+    (the actor keeps twice ``replay_capacity`` rows of sealed segments),
+    and the journal must hold no record there now. The ticks' sum is the
+    learner's count and their last cursor its cursor."""
+    problems = []
+    cursor = lost = read = 0
+    for i, tick in enumerate(ticks):
+        first_stamp, first_rows = tick["first"]
+        start = first_stamp - first_rows // workers
+        if (tick["cursor"] != cursor or first_rows % workers
+                or start < cursor
+                or tick["rows"] != workers * (tick["high_water"] - start)):
+            problems.append(f"tick {i} {tick} after cursor {cursor}")
+        if start > cursor:
+            if any(cursor < s <= start for s, _ in stamps):
+                problems.append(f"tick {i} skipped surviving records in "
+                                f"({cursor}, {start}]")
+            lost += workers * (start - cursor)
+        read += tick["rows"]
+        cursor = tick["high_water"]
+    if read != feed["rows"] or cursor != feed["cursor"]:
+        problems.append(f"the ticks sum to {read} rows to cursor {cursor}, "
+                        f"the learner counted {feed}")
+    return {**feed, "ticks": len(ticks), "rows_read_by_ticks": read,
+            "retired_unread_rows": lost,
+            "committed_rows_to_cursor": workers * cursor,
+            "journal_high_water": stamps[-1][0] if stamps else None,
+            "journal_oldest": list(stamps[0]) if stamps else None}, problems
+
+
+def _last_row(path: str, stamp: int) -> np.ndarray:
+    """The newest observation of the record stamped ``stamp``."""
+    from sharetrade_tpu_torch.data.transitions import (
+        read_new_transitions, transition_stamps)
+    stamps = [s for s, _ in transition_stamps(path)]
+    before = stamps[stamps.index(stamp) - 1] if stamps.index(stamp) else 0
+    return read_new_transitions(path, before, 1)[0][-1]
+
+
+def _actors_ingest(torch, pool_dir: str, prices, work: str) -> dict:
+    """(b): an in-process DQN learner on the card over the live actors'
+    journals: two chunks (eager, then the capture and a replay), an ingest
+    tick, then one replayed chunk against one eager chunk from a copy of the
+    same state and generator; uniform replay and PER."""
+    from sharetrade_tpu_torch.agents.base import _metric_vector
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.runtime import Orchestrator
+    from sharetrade_tpu_torch.runtime.orchestrator import _clone_state
+    out: dict = {}
+    for priority in ("uniform", "per"):
+        cfg = FrameworkConfig().apply_overrides([
+            "learner.algo=dqn", f"learner.replay_priority={priority}",
+            "distrib.ingest_without_pool=true",
+            f"distrib.actor_dir={pool_dir}",
+            f"runtime.checkpoint_dir={os.path.join(work, priority, 'ck')}",
+            f"data.journal_dir={os.path.join(work, priority, 'j')}"])
+        orch = Orchestrator(cfg, device="cuda")
+        try:
+            orch.send_training_data(prices)
+            for _ in range(2):
+                orch._dispatch(1)
+            size0 = int(orch._ts.extras.replay.size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = orch.ingest_actor_feeds()
+            torch.cuda.synchronize()
+            ticks = [{"rows": rows, "ms": (time.perf_counter() - t0) * 1e3}]
+            replay = orch._ts.extras.replay
+            size1 = int(replay.size)
+            # The last row pushed (the last actor's newest row read) in the
+            # live buffer, the graph's, just behind the write position.
+            last_aid = max(a for a, f in orch.actor_feeds.items() if f["rows"])
+            last = _last_row(os.path.join(pool_dir, last_aid,
+                                          "transitions.journal"),
+                             orch.actor_feeds[last_aid]["cursor"])
+            slot = (int(replay.pos) - 1) % replay.obs.shape[0]
+            landed = (size1 == min(replay.obs.shape[0], size0 + rows)
+                      and bool(torch.equal(replay.obs[slot].cpu(),
+                                           torch.from_numpy(last))))
+            eager = _clone_state(orch._ts)
+            eager, metrics = orch.agent.step(eager,
+                                             draws=orch.agent.draw(eager))
+            stacked = orch._dispatch(1)
+            vector = _metric_vector(metrics, stacked.keys, "cuda")
+            equal = (_bit_equal(torch, orch._ts, eager)
+                     and bool(torch.equal(vector, stacked.values[0])))
+            out[priority] = {
+                "replay_size_before": size0, "replay_size_after": size1,
+                "landed_in_the_live_buffer": landed,
+                "ticks": ticks, "bit_equal": bool(equal),
+                "replays": orch._program.replays,
+                "feeds": orch.actor_feeds}
+        finally:
+            orch.stop()
+    return out
+
+
+def _actors_greedy_swap(torch, prices, work: str, tag_dir: str) -> dict:
+    """(d) in process: a rollout actor on the card from a seeded fresh init,
+    every gate 0 (greedy wherever the ramp allows); while chunk 2 (the
+    capture and the first replay) runs, the learner's ``tag_best`` is
+    staged; chunk 3 replays with it. Each replayed chunk's actions against
+    the argmax of a plain forward of its weights; then five more replays
+    timed by CUDA events and the loop's rows per second."""
+    import threading
+
+    from sharetrade_tpu_torch.agents.qlearn import Draws, q_values
+    from sharetrade_tpu_torch.checkpoint import CheckpointManager
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.data.journal import (
+        iter_framed_records, segment_paths)
+    from sharetrade_tpu_torch.data.transitions import decode_transitions
+    from sharetrade_tpu_torch.distrib.actor import RolloutActor
+    cfg = FrameworkConfig().apply_overrides([
+        "learner.algo=dqn", "distrib.weight_poll_s=0",
+        f"runtime.checkpoint_dir={os.path.join(work, 'own-ck')}",
+        f"distrib.actor_dir={os.path.join(work, 'actors')}"])
+    steps, agents = cfg.runtime.chunk_steps, cfg.parallel.num_workers
+    staged: dict = {}
+
+    def draw(ts):
+        if actor.chunks == 1 and not staged:     # chunk 2 is starting
+            params, meta = CheckpointManager(tag_dir).restore_tagged(
+                actor._template, "best")
+            staged.update(params=params, step=int(meta.get("updates", 0)))
+            actor.swap_params(params, staged["step"])
+        return Draws(torch.zeros((steps, agents), device="cuda"),
+                     torch.randint(0, 3, (steps, agents), device="cuda",
+                                   generator=ts.rng))
+
+    actor = RolloutActor(cfg, prices, actor_id="smoke",
+                         workdir=os.path.join(work, "actors", "smoke"),
+                         device="cuda", draw=draw)
+    fresh = actor.params
+    t0 = time.perf_counter()
+    summary = actor.run(threading.Event(), max_chunks=8)
+    loop_s = time.perf_counter() - t0
+    path = actor.journal_path
+    recs = [decode_transitions(p) for part in (*segment_paths(path), path)
+            for _, p in iter_framed_records(part)]
+    checks = {}
+    for idx, params in ((1, fresh), (2, staged["params"])):
+        obs = torch.tensor(recs[idx][0], device="cuda")
+        greedy = q_values(actor.model, params, obs).argmax(-1).cpu().numpy()
+        other = q_values(actor.model, staged["params"] if idx == 1 else fresh,
+                         obs).argmax(-1).cpu().numpy()
+        checks[f"chunk{idx + 1}"] = {
+            "rows": int(obs.shape[0]),
+            "greedy_equal": bool((recs[idx][1] == greedy).all()),
+            "other_weights_differ": int((greedy != other).sum())}
+    program = actor.program
+    ts = program._live
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ts, _ = program(ts)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"summary": summary, "tag_step": staged.get("step"),
+            "checks": checks, "capture_s": program.capture_seconds,
+            "graph_nodes": program.nodes,
+            "replay_ms": statistics.median(times),
+            "loop_s_8_chunks": loop_s,
+            "rows_per_s_in_loop": summary["rows_journaled"] / loop_s}
+
+
+def _actors_flywheel(fleet, out_path: str, work: str, prices,
+                     problems: list) -> dict:
+    """(e): journaling sessions over the wire until a response names
+    weights newer than the engine booted with (the learner's republished
+    ``tag_best``); then SIGTERM."""
+    import signal
+
+    from sharetrade_tpu_torch.fleet import FleetClient
+    from sharetrade_tpu_torch.fleet.flywheel import (
+        SessionTransitionJournal, make_journaling_sessions)
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    window = FrameworkConfig().env.window
+    ready = _event_line(fleet, out_path, "fleet_ready", 180.0)
+    journal = SessionTransitionJournal(
+        os.path.join(work, "feeds"), "wire0", obs_dim=window + 2,
+        flush_rows=64)
+    sessions = make_journaling_sessions(prices, window, FLYWHEEL_SESSIONS,
+                                        journal=journal, seed=3)
+    boot = [r for r in _json_lines(os.path.join(ready["dir"], "e0.log"))
+            if r.get("event") == "serving_ready"][0]["params_step"]
+    client = FleetClient(ready["host"], ready["port"], timeout_s=60.0)
+    steps: list[int] = []
+    t0 = time.monotonic()
+    try:
+        while time.monotonic() - t0 < 120.0:
+            for s in sessions:
+                reply = client.submit(s.sid, s.observation())
+                s.advance(int(reply["action"]))
+                steps.append(int(reply["params_step"]))
+            journal.flush()
+            if max(steps) > boot and len(steps) >= 20 * FLYWHEEL_SESSIONS:
+                break
+    finally:
+        client.close()
+        journal.close()
+    time.sleep(1.5)                     # a learner tick past the last flush
+    fleet.send_signal(signal.SIGTERM)
+    rc = fleet.wait(90)
+    summary = _json_lines(out_path)[-1]
+    first_new = next((i for i, s in enumerate(steps) if s > boot), None)
+    row = {"ready": ready, "rc": rc, "requests": len(steps),
+           "engine_boot_params_step": boot,
+           "rows_journaled": journal.rows_journaled,
+           "params_steps_seen": sorted(set(steps)),
+           "first_request_on_new_weights": first_new,
+           "seconds_driven": time.monotonic() - t0, "summary": summary}
+    if rc != 75 or not summary.get("preempted"):
+        problems.append(f"cli fleet --learner drained with rc {rc}")
+    if ready.get("learner") is not True or ready.get("engines") != 1:
+        problems.append(f"fleet_ready {ready}")
+    if first_new is None:
+        problems.append("no served response named weights newer than the "
+                        "engine's boot weights")
+    if not 0 < summary.get("rows_ingested", 0) <= journal.rows_journaled:
+        problems.append(f"the flywheel learner ingested "
+                        f"{summary.get('rows_ingested')} of "
+                        f"{journal.rows_journaled} served rows")
+    if summary.get("learner_restarts") != 0:
+        problems.append("the flywheel learner restarted")
+    return row
+
+
+def phase_actors(torch) -> dict:
+    """Actors and the flywheel at the reference workload's width; see the
+    module docstring."""
+    import signal
+
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.data.transitions import transition_stamps
+    from sharetrade_tpu_torch.distrib.pool import read_status
+
+    work = _fresh_dir("actors-")
+    problems: list[str] = []
+    row: dict = {"phase": "actors", "card": _nvidia_smi()}
+    t_phase = time.perf_counter()
+    learner_dir, fleet_dir = (os.path.join(work, "learner"),
+                              os.path.join(work, "fleet"))
+    pool_dir = os.path.join(learner_dir, "actors")
+    ckpt_dir = os.path.join(learner_dir, "ckpt")
+    events_path = os.path.join(learner_dir, "events.jsonl")
+    t_spawn = time.time()
+    learner, l_out, l_err = _spawn_cli(
+        ["learner", "--events", events_path],
+        ACTORS + [f"distrib.actor_dir={pool_dir}",
+                  f"runtime.checkpoint_dir={ckpt_dir}"], learner_dir)
+    fleet, f_out, f_err = _spawn_cli(
+        ["fleet", "--learner"], FLYWHEEL + [
+            f"fleet.dir={os.path.join(fleet_dir, 'fleet')}",
+            f"distrib.actor_dir={os.path.join(fleet_dir, 'feeds')}",
+            f"runtime.checkpoint_dir={os.path.join(fleet_dir, 'ckpt')}"],
+        fleet_dir)
+    prices = _prices(FrameworkConfig().data)
+    seen_pids: set[int] = set()
+
+    def status() -> dict:
+        return read_status(pool_dir) or {}
+
+    def actors() -> dict:
+        got = status().get("actors", {})
+        seen_pids.update(a["pid"] for a in got.values() if a.get("pid"))
+        return got
+
+    try:
+        # (e) the flywheel first: its fleet boots beside the learner, and
+        # the actors come up meanwhile.
+        ready = _event_line(learner, l_out, "learner_ready", 180.0)
+        row["learner_ready_s"] = time.perf_counter() - t_phase
+        row["e"] = _actors_flywheel(fleet, f_out, fleet_dir, prices,
+                                    problems)
+
+        # (a) both actors rolling.
+        _wait_for(lambda: len(actors()) == 2 and all(
+            a["state"] == "alive" and (a.get("rows") or 0) > 0
+            for a in actors().values()), 180.0, "both actors rolling")
+        row["actors_rolling_s"] = time.perf_counter() - t_phase
+        first, t_first = actors(), time.monotonic()
+        time.sleep(2.0)
+        second, t_second = actors(), time.monotonic()
+        rates = {aid: (second[aid]["rows"] - first[aid]["rows"])
+                 / (t_second - t_first) for aid in first}
+        row["a"] = {"ready": ready, "rows_per_s": rates}
+        if not all(r > 0 for r in rates.values()):
+            problems.append(f"actor rows not growing: {rates}")
+
+        # (c) the kill test; (b) runs while the pool respawns a0.
+        victim = actors()["a0"]
+        journal_a0 = os.path.join(pool_dir, "a0", "transitions.journal")
+        high_water = max(s for s, _ in transition_stamps(journal_a0))
+        os.kill(victim["pid"], signal.SIGKILL)
+        injected = 1
+        t_kill = time.monotonic()
+
+        # (b) the ingest lands in the chunk graph.
+        _reset_launch_counts()
+        row["b"] = _actors_ingest(torch, pool_dir, prices,
+                                  os.path.join(work, "ingest"))
+        in_process = _all_launch_counts()
+        for name, part in row["b"].items():
+            if not part["bit_equal"]:
+                problems.append(f"{name}: the replay after an ingest is not "
+                                "bit-equal to the eager chunk")
+            if part["ticks"][0]["rows"] <= 0:
+                problems.append(f"{name}: the ingest tick read no rows")
+            if not part["landed_in_the_live_buffer"]:
+                problems.append(
+                    f"{name}: the ingest did not land in the live replay "
+                    f"buffer: size {part['replay_size_before']} -> "
+                    f"{part['replay_size_after']}")
+
+        _wait_for(lambda: (actors()["a0"]["pid"] not in (None, victim["pid"])
+                           and actors()["a0"]["state"] == "alive"
+                           and (actors()["a0"].get("rows") or 0) > 0),
+                  120.0, "a0 respawned and rolling")
+        respawn_s = time.monotonic() - t_kill
+        # The respawn's first records reach the disk at its journal's next
+        # group commit (0.5 s at most between appends).
+        stamps: list[int] = []
+
+        def past_high_water():
+            stamps[:] = [s for s, _ in transition_stamps(journal_a0)]
+            return stamps[-1] > high_water
+
+        _wait_for(past_high_water, 30.0, "a0's stamps past its high-water")
+        st = status()
+        row["c"] = {"killed_pid": victim["pid"],
+                    "respawned_pid": st["actors"]["a0"]["pid"],
+                    "respawn_s": respawn_s,
+                    "restarts_total": st["restarts_total"],
+                    "high_water_before": high_water,
+                    "high_water_after": stamps[-1],
+                    "learner_pid": ready["pid"], "status_pid": st["pid"]}
+        if st["restarts_total"] != injected:
+            problems.append(f"restarts_total {st['restarts_total']} != "
+                            f"{injected} injected")
+        if learner.poll() is not None or st["pid"] != ready["pid"]:
+            problems.append("the learner did not survive the actor's kill")
+        if stamps != sorted(set(stamps)) or stamps[-1] <= high_water:
+            problems.append("a0's stamps did not continue past its "
+                            "high-water")
+
+        # (d) weight swaps: every actor's params_step past its boot
+        # weights, and the greedy check in process.
+        _wait_for(lambda: all((a.get("params_step") or 0) > 0
+                              for a in actors().values()
+                              if a["state"] == "alive"),
+                  120.0, "the actors swapping in tag_best")
+        row["d"] = {"params_steps": {aid: a["params_step"]
+                                     for aid, a in actors().items()},
+                    "swap_seen_s": time.perf_counter() - t_phase,
+                    **_actors_greedy_swap(torch, prices,
+                                          os.path.join(work, "greedy"),
+                                          ckpt_dir)}
+        for name, check in row["d"]["checks"].items():
+            if not check["greedy_equal"] or not check["other_weights_differ"]:
+                problems.append(f"(d) {name}: {check}")
+
+        # (f) a1 retired by the scale file, the learner's last ticks
+        # over its drained journal, then SIGTERM drains the rest.
+        with open(os.path.join(pool_dir, "scale"), "w") as f:
+            f.write("1")
+        _wait_for(lambda: actors()["a1"]["state"] == "retired", 60.0,
+                  "a1 retired")
+        # The final ingest: a learner's tick whose cursor reaches the last
+        # stamp of a1's drained journal.
+        a1_last = transition_stamps(os.path.join(
+            pool_dir, "a1", "transitions.journal"))[-1][0]
+        row["f_catch_up_s"] = _wait_for(
+            lambda: any(t["feeds"].get("a1", {}).get("high_water") == a1_last
+                        for t in _ingest_ticks(events_path)),
+            90.0, "the learner's ingest reaching a1's drained high-water")
+        learner.send_signal(signal.SIGTERM)
+        rc = learner.wait(120)
+        summary = _json_lines(l_out)[-1]
+        final = status()
+        row["f"] = {"rc": rc, "summary": summary,
+                    "states": {aid: a["state"]
+                               for aid, a in final["actors"].items()},
+                    "learner_events": _learner_timeline(events_path,
+                                                        t_spawn)}
+        if rc != 75 or not summary.get("preempted"):
+            problems.append(f"cli learner drained with rc {rc}")
+        if (summary.get("learner_restarts") != 0
+                or summary.get("actor_restarts") != injected
+                or summary.get("actors_retired") != 2
+                or summary.get("actors_alive") != 0
+                or summary.get("rows_ingested", 0) <= 0):
+            problems.append(f"cli learner's summary {summary}")
+        # Tick by tick, every row each actor's journal committed up to the
+        # learner's cursor: read once, or retired before the learner read
+        # it (reported).
+        workers = FrameworkConfig().parallel.num_workers
+        ticks = _ingest_ticks(events_path)
+        reconcile = {}
+        for aid, feed in summary.get("actor_feeds", {}).items():
+            reconcile[aid], bad = _reconcile_feed(
+                [t["feeds"][aid] for t in ticks if aid in t["feeds"]],
+                transition_stamps(os.path.join(pool_dir, aid,
+                                               "transitions.journal")),
+                feed, workers)
+            problems += [f"(f) {aid}: {b}" for b in bad]
+        row["f"]["reconcile"] = reconcile
+        if set(reconcile) != {"a0", "a1"}:
+            problems.append(f"(f) the learner's feeds: {sorted(reconcile)}")
+        if reconcile.get("a1", {}).get("cursor") != \
+                reconcile.get("a1", {}).get("journal_high_water"):
+            problems.append("the last ingest did not reach a1's drained "
+                            "high-water")
+        time.sleep(0.5)
+        row["f"]["actor_pids"] = sorted(seen_pids)
+        survivors = [p for p in seen_pids if not _pid_gone(p)]
+        if survivors:
+            problems.append(f"actor pids survived the drain: {survivors}")
+        learner_launches = summary.get("kernel_launches", {})
+        fleet_launches = row["e"]["summary"].get("kernel_launches", {})
+        # The main paths' launches: the two CLI learners' own counts.
+        row["launches"] = {"fused_update": (
+            learner_launches.get("fused_update", 0)
+            + fleet_launches.get("fused_update", 0))}
+        row["launches_by_part"] = {"learner": learner_launches,
+                                   "fleet_learner": fleet_launches,
+                                   "in_process_ingest": in_process}
+        if not learner_launches.get("fused_update"):
+            problems.append("cli learner launched no fused_update")
+    except Exception as exc:    # noqa: BLE001 — reported, fails the phase
+        problems.append(f"{type(exc).__name__}: {exc}")
+        for name, path in (("learner", l_err), ("fleet", f_err)):
+            try:
+                with open(path, errors="replace") as f:
+                    row[f"{name}_stderr_tail"] = f.read()[-3000:]
+            except OSError:
+                pass
+    finally:
+        for proc in (learner, fleet):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        for pid in seen_pids:
+            if not _pid_gone(pid):
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+    row.setdefault("launches", {})
+    row["seconds"] = time.perf_counter() - t_phase
     row["problems"] = problems
     return row
 
@@ -5771,13 +6414,20 @@ def _run_phases(torch, phases: list[str]) -> int:
             print(f"chip_smoke: the episode MoE / remat paths failed: "
                   f"{results['remat_moe']['problems']}", file=sys.stderr)
             return 1
+    if "actors" in phases:
+        results["actors"] = _timed("actors", phase_actors, torch)
+        _print(results["actors"])
+        if results["actors"]["problems"]:
+            print(f"chip_smoke: actors and the flywheel failed: "
+                  f"{results['actors']['problems']}", file=sys.stderr)
+            return 1
     if "profile" in phases:
         _print(phase_profile(torch))
     _print({"phase_seconds": seconds})
     if "kernels" in phases and {"serve", "serve_tiers", "serve_slo", "train",
                                 "resilience", "reference", "pipeline",
                                 "journal", "families", "fleet",
-                                "remat_moe"} & set(phases):
+                                "remat_moe", "actors"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

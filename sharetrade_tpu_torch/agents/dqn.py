@@ -15,6 +15,10 @@ one minibatch sample, the TD loss against the target network, and the
 update, gated on the device until the replay holds a minibatch
 (``fused_update``'s ``gate``). The target sync is a device-side select.
 
+The step's rollout half, one epsilon-greedy env step of the agent batch, is
+:func:`explore_step`, which the rollout actors (``distrib/actor.py``) run
+without the update.
+
 Random draws (``Draws``): the epsilon-greedy gates and random actions as in
 ``agents/qlearn.py``, and per step either the uniform sample's indices or
 the PER strata's uniforms. From ``ts.rng`` for the whole chunk up front
@@ -188,7 +192,6 @@ def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
     optimizer = build_optimizer(cfg)
     precision = precision or FP32
     apply_update = make_update_fn(optimizer, precision)
-    horizon = env.num_steps
     device = model.device
     batch = cfg.replay_batch
 
@@ -248,18 +251,9 @@ def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
         taken: list[tuple] = []       # per step (obs, action, reward, next, valid)
         for i in range(steps_per_chunk):
             with torch.no_grad():
-                obs_raw = env.observe(env_state)
-                healthy = quarantine_mask(obs_raw, env_state)
-                active = (env_state.t < horizon) & healthy
-                obs = torch.where(healthy[:, None], obs_raw, zero)
-                actions = epsilon_greedy(
-                    q_values(model, compute, obs), draws.gate[i],
-                    draws.random_action[i].to(torch.int64), env_steps, cfg)
-                stepped, rewards = env.step(env_state, actions)
-                env_state = select_rows(active, stepped, env_state)
-                rewards = torch.where(active, rewards, zero)
-                next_obs = torch.where(healthy[:, None],
-                                       env.observe(env_state), zero)
+                env_state, obs, actions, rewards, next_obs, active = (
+                    explore_step(model, env, compute, env_state, env_steps,
+                                 draws.gate[i], draws.random_action[i], cfg))
                 replay, push_idx, push_write = replay.push_with_plan(
                     obs, actions, rewards, next_obs, active)
                 if collect_transitions:
@@ -324,6 +318,29 @@ def make_dqn_agent(model: Model, env: TradingEnv, cfg: LearnerConfig, *,
 
     return Agent(name="dqn", init=init, step=step, num_agents=num_agents,
                  steps_per_chunk=steps_per_chunk, model=model, draw=draw)
+
+
+def explore_step(model: Model, env: TradingEnv, compute, env_state,
+                 env_steps: torch.Tensor, gate: torch.Tensor,
+                 random_action: torch.Tensor, cfg: LearnerConfig):
+    """One epsilon-greedy env step of the agent batch: DQN's rollout half,
+    which a rollout actor (``distrib/actor.py``) runs without the update.
+    The quarantine mask zeroes a non-finite row's observations and freezes
+    it, as do rows past the horizon; the (B,) ``gate`` uniforms and
+    ``random_action`` draws pick between the greedy and the random action
+    at the exploit probability of the cumulative ``env_steps``. Returns
+    ``(env_state, obs, actions, rewards, next_obs, active)``."""
+    obs_raw = env.observe(env_state)
+    healthy = quarantine_mask(obs_raw, env_state)
+    active = (env_state.t < env.num_steps) & healthy
+    obs = torch.where(healthy[:, None], obs_raw, 0.0)
+    actions = epsilon_greedy(q_values(model, compute, obs), gate,
+                             random_action.to(torch.int64), env_steps, cfg)
+    stepped, rewards = env.step(env_state, actions)
+    env_state = select_rows(active, stepped, env_state)
+    rewards = torch.where(active, rewards, 0.0)
+    next_obs = torch.where(healthy[:, None], env.observe(env_state), 0.0)
+    return env_state, obs, actions, rewards, next_obs, active
 
 
 #: The fields of a chunk's transitions, in the journal's order, and ``valid``.

@@ -11,6 +11,13 @@
     python -m sharetrade_tpu_torch.cli fleet [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
         [--engines N] [--autoscale] [--duration S] [--device cuda|cpu]
+        [--learner [--resume]]
+    python -m sharetrade_tpu_torch.cli learner [--config cfg.json]
+        [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
+        [--device cuda|cpu] [--resume]
+    python -m sharetrade_tpu_torch.cli actor --actor-id ID [--config cfg.json]
+        [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
+        [--device cuda|cpu] [--max-chunks N]
     python -m sharetrade_tpu_torch.cli query [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
 
@@ -94,11 +101,48 @@ prints ``fleet_ready`` (``port``, ``engines``, ``proto_backend``) once the
 engines listen, serves for ``--duration`` seconds (0: until a signal), and
 on SIGTERM drains the front-end and every engine, prints its summary
 (``requests``, ``completed``, ``refused``, ``migrations``,
-``engine_restarts``, ``engines_*``) and exits 75. Refused with exit code 2:
-``--learner`` (the flywheel, ROADMAP item 11) and ``obs.enabled`` (fleet
-tracing, item 13).
+``engine_restarts``, ``engines_*``) and exits 75. With ``--learner`` (the
+flywheel; ``learner.algo=dqn``) a DQN learner trains in the fleet's process
+(``distrib.ingest_without_pool``): it ingests the transition journals that
+served sessions write under ``distrib.actor_dir`` (``fleet/flywheel.py``)
+and republishes ``tag_best``, which the engines' swap watchers take;
+``fleet_ready`` says ``"learner": true``, and the summary adds
+``learner_updates``, ``rows_ingested``, ``learner_restarts`` and the
+learner's ``kernel_launches``. Refused with exit code 2: ``obs.enabled``
+(fleet tracing, ROADMAP item 13).
 
-``train`` and ``serve`` resolve ``tuning.profile`` (a tuned profile from
+``learner`` is the disaggregated topology's learner (``distrib.num_actors``
+>= 1, ``learner.algo=dqn``): it supervises ``distrib.num_actors`` ``cli
+actor`` processes on its device (``distrib/pool.py``: backoff respawns,
+terminal failure, heartbeats, the ``scale`` file, ``status.json`` under
+``distrib.actor_dir``) and trains on its main thread, ingesting every
+actor's journal every ``distrib.ingest_every_updates`` updates and
+republishing ``tag_best`` at each better greedy eval
+(``runtime.eval_every_updates``) for the actors to swap in. It defaults
+``data.journal_segment_records`` to 256 (bounded actor journals), prints
+``learner_ready`` (``pid``, ``actors``, ``pool_dir``), and ends with one
+summary line: ``env_steps``, ``updates``, ``elapsed_s``,
+``learner_restarts``, ``actor_restarts``, ``rows_ingested``,
+``actors_alive/backoff/failed/retired``, and the port's ``actor_feeds``
+(rows ingested and cursor per actor) and ``kernel_launches``. ``--events
+PATH`` appends its run events as JSON lines, each ingest tick's
+``actor_feed_ingest`` with, per actor, the cursor read from, the one left
+(``high_water``), the rows and the first record read (stamp, rows). An
+actor's death never restarts the learner. SIGTERM drains both tiers (the
+pool stops respawning, the learner writes ``tag_preempt``, every actor
+drains its journal and retires) and exits 75; a second signal, or the grace
+(``runtime.preempt_grace_s`` + 5 s) running out, kills every actor and
+exits 75 at once.
+
+``actor`` is one rollout actor (``distrib/actor.py``), normally spawned by
+``learner``: weights from ``tag_best`` (then the newest step, then a seeded
+init), epsilon-greedy chunks journaled to
+``<distrib.actor_dir>/<actor-id>/transitions.journal``, a heartbeat beside
+it. It prints ``actor_ready`` (``params_step``, ``journal``), then on a stop
+(SIGTERM, or ``--max-chunks``) one summary line; SIGTERM drains and exits
+75.
+
+``train``, ``serve``, ``learner`` and ``actor`` resolve ``tuning.profile`` (a tuned profile from
 ``tools/torch_autotune.py``) as the JAX package does: registered knobs
 still at their defaults take the profile's values, explicit ones win.
 
@@ -107,8 +151,7 @@ foreign profile is a ``ProfileError``) exits 2 with its message.
 
 The device is ``cuda`` unless ``--device`` says otherwise; without a GPU
 and without ``--device cpu`` the command fails with a message saying so.
-Not yet ported: ``actor``, ``learner``, ``obs``, ``--mesh`` and ``fleet
---learner``.
+Not yet ported: ``obs`` and ``--mesh``.
 """
 
 from __future__ import annotations
@@ -564,23 +607,234 @@ def _listen(cfg, engine, registry, address: str, step: int):
     return frontend
 
 
+def _share_host_cores(device, processes: int) -> None:
+    """On the CPU a learner and its actors compute on the same cores: each
+    of the ``processes`` takes an equal share of torch's intra-op threads.
+    torch's default, a thread per core in every process, oversubscribes the
+    host (a full-width DQN chunk took 0.6-1.3 s alone and more than 35 s
+    beside two actors on 8 cores)."""
+    if device.type == "cpu":
+        import torch
+        cores = len(os.sched_getaffinity(0))
+        torch.set_num_threads(max(1, cores // max(1, processes)))
+
+
+def cmd_actor(args) -> int:
+    from sharetrade_tpu_torch.data.service import PriceDataService
+    from sharetrade_tpu_torch.device import resolve_device
+    from sharetrade_tpu_torch.distrib.actor import RolloutActor
+    from sharetrade_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    cfg = _load_config(args)
+    if not args.actor_id:
+        log.error("--actor-id is required")
+        return 1
+    _share_host_cores(device, cfg.distrib.num_actors + 1)
+    workdir = os.path.join(cfg.distrib.actor_dir, args.actor_id)
+    # The actor's data layer lives in ITS directory: sharing the learner's
+    # journal_dir would contend for the price journal's writer lock.
+    cfg.data.journal_dir = workdir
+    # Telemetry stays with the learner; actor health flows through the
+    # heartbeats to the pool's gauges.
+    cfg.obs.enabled = False
+
+    stop_evt = threading.Event()
+    preempted: list[float] = []
+
+    def _on_signal(signum, frame):
+        if not preempted:
+            log.warning("actor %s received %s; draining", args.actor_id,
+                        signal.Signals(signum).name)
+            preempted.append(time.monotonic())
+            stop_evt.set()
+        else:
+            os._exit(EXIT_PREEMPTED)
+
+    prev_handlers = {s: signal.signal(s, _on_signal)
+                     for s in (signal.SIGTERM, signal.SIGINT)}
+    service = None
+    try:
+        service = PriceDataService(config=cfg.data)
+        prices = service.request(args.symbol.split(",")[0].strip(),
+                                 args.start, args.end).series.prices
+        actor = RolloutActor(cfg, prices, actor_id=args.actor_id,
+                             workdir=workdir, device=device)
+        print(json.dumps({"event": "actor_ready", "actor_id": args.actor_id,
+                          "pid": os.getpid(),
+                          "params_step": actor.params_step,
+                          "journal": actor.journal_path,
+                          "device": str(device)}), flush=True)
+        summary = actor.run(stop_evt, max_chunks=args.max_chunks)
+        print(json.dumps(summary), flush=True)
+        return EXIT_PREEMPTED if preempted else 0
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+        if service is not None:
+            service.close()
+
+
+def cmd_learner(args) -> int:
+    from sharetrade_tpu_torch.data.service import PriceDataService
+    from sharetrade_tpu_torch.device import resolve_device
+    from sharetrade_tpu_torch.distrib.pool import ActorPool
+    from sharetrade_tpu_torch.ops import attention, fused_update
+    from sharetrade_tpu_torch.runtime.lifecycle import ReplyState
+    from sharetrade_tpu_torch.runtime.orchestrator import Orchestrator
+    from sharetrade_tpu_torch.utils.logging import EventLog, get_logger
+
+    log = get_logger("cli")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    cfg = _load_config(args)
+    if cfg.distrib.num_actors < 1:
+        log.error("cli learner needs distrib.num_actors >= 1 (got %d); use "
+                  "cli train for the single-process loop",
+                  cfg.distrib.num_actors)
+        return 1
+    if cfg.learner.algo != "dqn" and cfg.distrib.ingest_every_updates > 0:
+        log.error("actor-feed ingest requires learner.algo=dqn (replay "
+                  "buffer); got %r", cfg.learner.algo)
+        return 1
+    _share_host_cores(device, cfg.distrib.num_actors + 1)
+    if cfg.data.journal_segment_records <= 0:
+        # Single-file actor journals would grow without bound (retirement
+        # needs rotation) and every ingest tick would re-decode the whole
+        # history; the saved config carries this to the actors.
+        cfg.data.journal_segment_records = 256
+        log.info("distrib: defaulting data.journal_segment_records=256 "
+                 "(rotation bounds the actor journals and the ingest reads)")
+    orch = pool = service = None
+    events = EventLog(args.events)
+    preempt_at: list[float] = []
+    grace = cfg.runtime.preempt_grace_s
+
+    def _hard_exit():
+        # os._exit skips every finally: an actor not killed now would roll
+        # out forever with no supervisor.
+        if pool is not None:
+            pool.kill_all()
+        os._exit(EXIT_PREEMPTED)
+
+    def _grace_expired():
+        log.error("preemption grace (%.1fs) expired before the drain "
+                  "finished; hard exit", grace)
+        _hard_exit()
+
+    def _on_signal(signum, frame):
+        if not preempt_at:
+            log.warning("received %s; draining learner + actor pool",
+                        signal.Signals(signum).name)
+            preempt_at.append(time.monotonic())
+            watchdog = threading.Timer(grace + 5.0, _grace_expired)
+            watchdog.daemon = True
+            watchdog.start()
+        else:
+            log.warning("received %s during the drain; hard exit",
+                        signal.Signals(signum).name)
+            _hard_exit()
+        if pool is not None:
+            # A group-wide TERM reaches the actors too: their graceful
+            # exits are a drain, not crashes to respawn.
+            pool.quiesce()
+        if orch is not None:
+            orch.request_preempt()
+
+    prev_handlers = {s: signal.signal(s, _on_signal)
+                     for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        service = PriceDataService(config=cfg.data)
+        prices = service.request(args.symbol.split(",")[0].strip(),
+                                 args.start, args.end).series.prices
+        orch = Orchestrator(cfg, device=device, event_log=events)
+        if preempt_at:
+            orch.request_preempt()
+        pool = ActorPool(cfg, registry=orch.metrics, symbol=args.symbol,
+                         start=args.start, end=args.end,
+                         device=str(device)).start()
+        if preempt_at:
+            pool.quiesce()
+        print(json.dumps({"event": "learner_ready", "pid": os.getpid(),
+                          "actors": cfg.distrib.num_actors,
+                          "pool_dir": pool.dir, "device": str(device)}),
+              flush=True)
+        t0 = time.perf_counter()
+        try:
+            orch.send_training_data(prices, resume=args.resume)
+        except FileNotFoundError as exc:
+            log.error("--resume: %s (train without --resume first)", exc)
+            return 1
+        # The loop on this, the main thread, as cli train runs it (the
+        # chunk's capture runs slower on a second thread).
+        orch.start_training(background=False)
+        elapsed = time.perf_counter() - t0
+        done = orch.is_everything_done()
+        pool.stop(grace_s=grace)
+        snap = orch.snapshot()
+        summary = {
+            "env_steps": snap.get("env_steps"),
+            "updates": snap.get("updates"),
+            "elapsed_s": elapsed,
+            "learner_restarts": orch.restarts,
+            "actor_restarts": pool.restarts_total,
+            "rows_ingested": int(orch.metrics.counters().get(
+                "distrib_rows_ingested_total", 0)),
+            **{f"actors_{k}": v for k, v in pool.counts().items()},
+            "actor_feeds": orch.actor_feeds,
+            "kernel_launches": {**attention.launch_counts,
+                                **fused_update.launch_counts},
+        }
+        if orch.preempted or (preempt_at
+                              and done.state is not ReplyState.COMPLETED):
+            summary["preempted"] = True
+            print(json.dumps(summary), flush=True)
+            return EXIT_PREEMPTED
+        if done.state is not ReplyState.COMPLETED:
+            log.error("learner did not complete: %s (last error: %r)",
+                      done, orch.last_error)
+            print(json.dumps(summary), flush=True)
+            return 1
+        avg, std = orch.get_avg(), orch.get_std()
+        if avg.ok:
+            summary["avg_portfolio"] = avg.value
+            summary["std_portfolio"] = std.value
+        print(json.dumps(summary), flush=True)
+        return 0
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+        if pool is not None:
+            pool.stop(grace_s=10.0)
+        if orch is not None:
+            orch.stop()
+        if service is not None:
+            service.close()
+        events.close()
+
+
 def cmd_fleet(args) -> int:
-    from sharetrade_tpu_torch.config import ConfigError
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.device import resolve_device
     from sharetrade_tpu_torch.fleet import (
         EnginePool, FleetRouter, ServeFrontend, proto)
     from sharetrade_tpu_torch.fleet.autoscale import EngineAutoscaler
+    from sharetrade_tpu_torch.ops import attention, fused_update
     from sharetrade_tpu_torch.runtime.orchestrator import (
-        SERVE_REFUSED, check_ported)
+        SERVE_REFUSED, Orchestrator, check_ported)
     from sharetrade_tpu_torch.utils.logging import get_logger
     from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
 
     log = get_logger("cli")
-    if args.learner:
-        raise ConfigError(
-            "cli fleet --learner (the flywheel: served sessions' journals "
-            "ingested by a live learner) is not yet ported to "
-            "sharetrade_tpu_torch (ROADMAP item 11)")
     try:
         device = resolve_device(args.device)
     except RuntimeError as exc:
@@ -592,13 +846,26 @@ def cmd_fleet(args) -> int:
     if args.autoscale:
         cfg.fleet.autoscale = True
     check_ported(cfg, SERVE_REFUSED, mesh=False)
+    learner_cfg = None
+    if args.learner:
+        # The flywheel's learner half: ingest the served sessions' journals
+        # with no actor pool in this process.
+        if cfg.learner.algo != "dqn":
+            log.error("--learner requires learner.algo=dqn (replay "
+                      "ingest); got %r", cfg.learner.algo)
+            return 1
+        if cfg.data.journal_segment_records <= 0:
+            cfg.data.journal_segment_records = 256
+        learner_cfg = FrameworkConfig.from_dict(cfg.to_dict())
+        learner_cfg.distrib.ingest_without_pool = True
+        check_ported(learner_cfg)
     if device.type == "cuda":
         # Once, before any worker starts: each worker would otherwise spend
         # its own compile inside fleet.startup_timeout_s.
         from sharetrade_tpu_torch.ops import cuda_build
         cuda_build.build_all()
 
-    pool = router = frontend = autoscaler = None
+    pool = router = frontend = autoscaler = orch = service = None
     stop_evt = threading.Event()
     preempted: list[float] = []
 
@@ -610,6 +877,8 @@ def cmd_fleet(args) -> int:
             stop_evt.set()
             if pool is not None:
                 pool.quiesce()
+            if orch is not None:
+                orch.request_preempt()
         else:
             log.warning("received %s during the drain; hard exit",
                         signal.Signals(signum).name)
@@ -638,6 +907,15 @@ def cmd_fleet(args) -> int:
             autoscaler = EngineAutoscaler(pool, cfg.fleet,
                                           workdir=cfg.fleet.dir,
                                           registry=registry).start()
+        if learner_cfg is not None:
+            service = PriceDataService(config=cfg.data)
+            prices = service.request(args.symbol.split(",")[0].strip(),
+                                     args.start, args.end).series.prices
+            orch = Orchestrator(learner_cfg, device=device)
+            if preempted:
+                orch.request_preempt()
+            orch.send_training_data(prices, resume=args.resume)
+            orch.start_training(background=True)
         # Readiness: every engine reported its port (or hit its bring-up
         # budget: say what came up either way).
         deadline = time.monotonic() + cfg.fleet.startup_timeout_s + 10.0
@@ -652,6 +930,7 @@ def cmd_fleet(args) -> int:
                           "dir": cfg.fleet.dir, "device": str(device),
                           "wire_backend": cfg.fleet.wire_backend,
                           "proto_backend": proto.proto_backend,
+                          "learner": bool(args.learner),
                           "pid": os.getpid()}), flush=True)
         run_deadline = (time.monotonic() + args.duration
                         if args.duration > 0 else None)
@@ -667,6 +946,8 @@ def cmd_fleet(args) -> int:
         frontend.stop()
         router.stop()
         pool.stop(grace_s=grace)
+        if orch is not None:
+            orch.stop()
         counters = registry.counters()
         summary = {
             "requests": int(counters.get("fleet_requests_total", 0)),
@@ -683,6 +964,14 @@ def cmd_fleet(args) -> int:
                 counters.get("fleet_autoscale_up_total", 0))
             summary["autoscale_down"] = int(
                 counters.get("fleet_autoscale_down_total", 0))
+        if orch is not None:
+            snap = orch.snapshot() or {}
+            summary["learner_updates"] = snap.get("updates")
+            summary["rows_ingested"] = int(orch.metrics.counters().get(
+                "distrib_rows_ingested_total", 0))
+            summary["learner_restarts"] = orch.restarts
+            summary["kernel_launches"] = {**attention.launch_counts,
+                                          **fused_update.launch_counts}
         if preempted:
             summary["preempted"] = True
         print(json.dumps(summary), flush=True)
@@ -698,6 +987,10 @@ def cmd_fleet(args) -> int:
             router.stop()
         if pool is not None:
             pool.stop(grace_s=10.0)
+        if orch is not None:
+            orch.stop()
+        if service is not None:
+            service.close()
 
 
 def cmd_query(args) -> int:
@@ -782,9 +1075,32 @@ def main(argv=None) -> int:
                    help="drive the pool's size from the router's telemetry "
                         "history (fleet/autoscale.py; sets fleet.autoscale)")
     p.add_argument("--learner", action="store_true",
-                   help="the flywheel's in-process learner: not yet ported "
-                        "(refused, exit 2)")
+                   help="run the flywheel's live learner in-process "
+                        "(ingest the served sessions' journals under "
+                        "distrib.actor_dir, republish tag_best)")
+    p.add_argument("--resume", action="store_true",
+                   help="the learner resumes the latest checkpoint")
     p.set_defaults(fn=cmd_fleet)
+    p = sub.add_parser("actor", help="one rollout actor: epsilon-greedy "
+                                     "chunks journaled for a learner")
+    _common(p)
+    p.add_argument("--actor-id", default=None,
+                   help="this actor's id (its directory under "
+                        "distrib.actor_dir)")
+    p.add_argument("--max-chunks", type=int, default=0,
+                   help="stop after this many rollout chunks (0: until "
+                        "SIGTERM)")
+    p.set_defaults(fn=cmd_actor)
+    p = sub.add_parser("learner", help="the DQN learner and its supervised "
+                                       "pool of distrib.num_actors actors")
+    _common(p)
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest intact checkpoint in "
+                        "runtime.checkpoint_dir (or tag_preempt)")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="append the learner's run events as JSON lines "
+                        "(each actor_feed_ingest tick with its cursors)")
+    p.set_defaults(fn=cmd_learner)
     p = sub.add_parser("query", help="one symbol's price rows through the "
                                      "data service (journaled)")
     p.add_argument("--config", default=None, help="JSON config file")

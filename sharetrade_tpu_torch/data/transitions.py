@@ -18,9 +18,12 @@ from __future__ import annotations
 
 import os
 import struct
+import zlib
+from typing import NamedTuple
 
 import numpy as np
 
+from sharetrade_tpu_torch.data.journal import _HEADER as _FRAME
 from sharetrade_tpu_torch.data.journal import iter_framed_records
 
 MAGIC = b"STR1"
@@ -52,8 +55,8 @@ def peek_transitions_header(payload: bytes):
     """``(batch, obs_dim, env_steps)`` from a transition payload WITHOUT
     materializing the arrays — same well-formedness checks as
     :func:`decode_transitions` (a record the peek accepts, decode
-    accepts). The ingest reader's steady no-new-rows tick rides this:
-    stamping out old records must not cost a full array decode."""
+    accepts) — the check :func:`record_heads` makes from a file's
+    headers."""
     if len(payload) < _HEAD.size or payload[:4] != MAGIC:
         return None
     _magic, batch, obs_dim, env_steps = _HEAD.unpack_from(payload)
@@ -198,7 +201,8 @@ def _read_tail_paths(paths, max_rows, cutoff):
     return obs, action, reward, next_obs, high_water
 
 
-def read_new_transitions(path: str, floor_env_steps: int, max_rows: int):
+def read_new_transitions(path: str, floor_env_steps: int, max_rows: int, *,
+                         records: list | None = None):
     """The learner-side INGEST read (actor/learner disaggregation): the
     records with ``env_steps`` stamps STRICTLY ABOVE ``floor_env_steps`` —
     the complement of :func:`read_tail_transitions`'s resume cutoff. The
@@ -217,7 +221,16 @@ def read_new_transitions(path: str, floor_env_steps: int, max_rows: int):
     capped), so advancing the cursor to it never skips a committed row —
     capped-out newer rows are simply next tick's read. Returns
     ``(obs, action, reward, next_obs, high_water)`` or ``None`` when no
-    transition records exist.
+    transition records exist. ``records`` (optional) receives
+    ``(env_steps, rows)`` of each kept record, oldest first.
+
+    The walk reads the frame and record headers only (:func:`record_heads`)
+    and then the payloads it keeps, each CRC-checked as it is read; a
+    corrupt one ends its file there, as the JAX reader's full walk does.
+    Records at or below the floor, ingested and checked on an earlier
+    tick, are neither read nor re-checked, and records past the cap are
+    read on the tick that keeps them: a tick costs the rows it returns,
+    not the size of the files it visits.
 
     The segment snapshot must hold STILL across the walk: the actor
     rotating between the listing and the active-file read seals a
@@ -229,9 +242,12 @@ def read_new_transitions(path: str, floor_env_steps: int, max_rows: int):
     from sharetrade_tpu_torch.data.journal import segment_paths
     seals = segment_paths(path)
     for _ in range(6):
-        out = _read_new_paths([*seals, path], floor_env_steps, max_rows)
+        out, kept = _read_new_paths([*seals, path], floor_env_steps,
+                                    max_rows)
         reseals = segment_paths(path)
         if reseals == seals:
+            if records is not None and out is not None:
+                records.extend((h.env_steps, h.batch) for h in kept)
             return out
         seals = reseals
     if out is None:
@@ -242,59 +258,143 @@ def read_new_transitions(path: str, floor_env_steps: int, max_rows: int):
             np.zeros((0, obs_dim), np.float32), floor_env_steps)
 
 
+class RecordHead(NamedTuple):
+    """One transition record of a journal file, from its headers."""
+    offset: int          # of the payload in the file
+    length: int
+    crc: int
+    batch: int
+    obs_dim: int
+    env_steps: int
+
+
+def record_heads(path: str) -> list[RecordHead]:
+    """Every transition record of one journal file, from the journal's
+    frame header and the record's own header alone: each payload is
+    skipped unread and its CRC unchecked. A frame that runs past the end
+    of the file (a tail being written, or torn) ends the walk; a frame
+    that is not a well-formed transition record is skipped, as
+    :func:`peek_transitions_header` skips it. Raises ``FileNotFoundError``
+    for a missing file."""
+    heads = []
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        pos = 0
+        while pos + _FRAME.size <= size:
+            length, crc = _FRAME.unpack(f.read(_FRAME.size))
+            start = pos + _FRAME.size
+            if start + length > size:
+                break
+            if length >= _HEAD.size:
+                magic, batch, obs_dim, env_steps = _HEAD.unpack(
+                    f.read(_HEAD.size))
+                if (magic == MAGIC
+                        and length == _HEAD.size + (obs_dim * 8 + 8) * batch):
+                    heads.append(RecordHead(start, length, crc, batch,
+                                            obs_dim, env_steps))
+            pos = start + length
+            f.seek(pos)
+    return heads
+
+
+def transition_stamps(path: str) -> list[tuple[int, int]]:
+    """``(env_steps, rows)`` of every transition record of a segmented
+    journal, its sealed segments first, from the headers alone
+    (:func:`record_heads`); a segment retired since the listing is
+    skipped."""
+    from sharetrade_tpu_torch.data.journal import segment_paths
+    out = []
+    for part in (*segment_paths(path), path):
+        try:
+            out += [(h.env_steps, h.batch) for h in record_heads(part)]
+        except FileNotFoundError:
+            continue
+    return out
+
+
 def _read_new_paths(paths, floor_env_steps, max_rows):
-    kept, rows, obs_dim, high_water = [], 0, None, 0
+    """One walk of :func:`read_new_transitions` over a fixed file list:
+    ``(out, kept heads)``."""
+    scanned = {}                          # path -> heads, newest file first
+    decoded = {}                          # (path, index) -> record
+    while True:
+        picked, obs_dim, high_water, seen_any = _pick_new(
+            paths, scanned, floor_env_steps, max_rows)
+        if not seen_any:
+            return None, []
+        kept, bad = [], None
+        for p, i, head in picked:
+            if (p, i) not in decoded:
+                try:
+                    payload = _read_payload(p, head)
+                except FileNotFoundError:
+                    payload = None
+                if payload is None:
+                    bad = (p, i)
+                    break
+                decoded[p, i] = decode_transitions(payload)
+            kept.append((head, decoded[p, i]))
+        if bad is None:
+            break
+        # A corrupt payload ends its file at that record (the full walk's
+        # stop); pick again without it and the records after it.
+        p, i = bad
+        scanned[p] = scanned[p][:i]
+    if not kept:
+        return (np.zeros((0, obs_dim), np.float32),
+                np.zeros((0,), np.int32), np.zeros((0,), np.float32),
+                np.zeros((0, obs_dim), np.float32), high_water), []
+    recs = [rec for _head, rec in kept]
+    obs = np.concatenate([r[0] for r in recs])
+    action = np.concatenate([r[1] for r in recs])
+    reward = np.concatenate([r[2] for r in recs])
+    next_obs = np.concatenate([r[3] for r in recs])
+    return (obs, action, reward, next_obs, high_water), [h for h, _ in kept]
+
+
+def _pick_new(paths, scanned, floor_env_steps, max_rows):
+    """The records :func:`read_new_transitions` keeps, from the headers:
+    ``([(path, index in its file, head)] oldest first, obs_dim,
+    high_water, seen_any)``. ``scanned`` caches each file's heads."""
+    picked, rows, obs_dim, high_water = [], 0, None, 0
     seen_any = False
     for p in reversed(paths):             # newest file first
-        # Header-only scan first: in the steady no-new-rows case (idle,
-        # caught-up, or dead actor) every record stamps at or below the
-        # floor, and a full array decode per record per ingest tick
-        # would be pure waste — stamps live in the record header.
-        heads = []
-        try:
-            for _offset, payload in iter_framed_records(p):
-                head = peek_transitions_header(payload)
-                if head is not None:
-                    heads.append((head, payload))
-        except FileNotFoundError:
-            # Rotation race on a LIVE writer's journal: the active file
-            # is renamed aside and re-created between our existence check
-            # and the open. The caller's stable-snapshot retry re-walks
-            # with the sealed segment included.
+        if p not in scanned:
+            try:
+                scanned[p] = record_heads(p)
+            except FileNotFoundError:
+                # Rotation race on a LIVE writer's journal: the active file
+                # is renamed aside and re-created between our existence
+                # check and the open. The caller's stable-snapshot retry
+                # re-walks with the sealed segment included.
+                scanned[p] = None
+        heads = scanned[p]
+        if heads is None:
             continue
         if heads:
             seen_any = True
-            high_water = max(high_water,
-                             max(h[2] for h, _payload in heads))
+            high_water = max(high_water, max(h.env_steps for h in heads))
             if obs_dim is None:
-                obs_dim = heads[-1][0][1]
+                obs_dim = heads[-1].obs_dim
         satisfied = not heads and seen_any
-        for (batch, rec_dim, stamp), payload in reversed(heads):
-            if stamp <= floor_env_steps:
+        for i in range(len(heads) - 1, -1, -1):
+            head = heads[i]
+            if head.env_steps <= floor_env_steps:
                 # Monotone stamps: everything at or before this record —
                 # in this file and in every older file — is already
                 # ingested; the descent stops here.
                 satisfied = True
                 break
-            if rec_dim != obs_dim:
+            if head.obs_dim != obs_dim:
                 continue
-            rec = decode_transitions(payload)
-            if rec is None:               # peek-accepted implies decodes
-                continue
-            kept.append(rec)
-            rows += batch
+            picked.append((p, i, head))
+            rows += head.batch
         if satisfied:
             # NOTE: a max_rows cap must NOT stop the descent — the
             # unscanned records are the OLDEST above-floor ones, exactly
             # the rows the cap keeps (see below).
             break
-    if not seen_any:
-        return None
-    if not kept:
-        return (np.zeros((0, obs_dim), np.float32),
-                np.zeros((0,), np.int32), np.zeros((0,), np.float32),
-                np.zeros((0, obs_dim), np.float32), high_water)
-    kept.reverse()                        # oldest-first
+    picked.reverse()                      # oldest-first
     if max_rows and rows > max_rows:
         # Over-cap backlog: keep the OLDEST records up to the cap (whole
         # records — a stamp is per-record, so splitting one would make
@@ -303,29 +403,35 @@ def _read_new_paths(paths, floor_env_steps, max_rows):
         # past the dropped older rows and skip them FOREVER; this way
         # the next tick resumes exactly where this one stopped.
         capped, capped_rows = [], 0
-        for rec in kept:
-            if capped and capped_rows + rec[0].shape[0] > max_rows:
+        for item in picked:
+            if capped and capped_rows + item[2].batch > max_rows:
                 break
-            capped.append(rec)
-            capped_rows += rec[0].shape[0]
-        kept = capped
-        high_water = max(r[4] for r in kept)
-    obs = np.concatenate([r[0] for r in kept])
-    action = np.concatenate([r[1] for r in kept])
-    reward = np.concatenate([r[2] for r in kept])
-    next_obs = np.concatenate([r[3] for r in kept])
-    return obs, action, reward, next_obs, high_water
+            capped.append(item)
+            capped_rows += item[2].batch
+        picked = capped
+        high_water = max(item[2].env_steps for item in picked)
+    return picked, obs_dim, high_water, seen_any
+
+
+def _read_payload(path: str, head: RecordHead) -> bytes | None:
+    """One record's payload, or ``None`` when it is short or fails its
+    CRC."""
+    with open(path, "rb") as f:
+        f.seek(head.offset)
+        payload = f.read(head.length)
+    if len(payload) < head.length or zlib.crc32(payload) != head.crc:
+        return None
+    return payload
 
 
 def count_transition_rows(path: str) -> int:
-    """Transition rows in one journal file — header-only decode (magic +
-    batch count), no array copies."""
-    rows = 0
-    for _offset, payload in iter_framed_records(path):
-        if len(payload) >= _HEAD.size and payload[:4] == MAGIC:
-            _magic, batch, _obs_dim, _steps = _HEAD.unpack_from(payload)
-            rows += batch
-    return rows
+    """Transition rows in one journal file, from its headers alone
+    (:func:`record_heads`; 0 for a missing file): an actor's retirement
+    check counts its active segment every ``replay_capacity`` rows."""
+    try:
+        return sum(h.batch for h in record_heads(path))
+    except FileNotFoundError:
+        return 0
 
 
 def retire_transition_segments(journal, keep_rows: int) -> tuple[int, int]:

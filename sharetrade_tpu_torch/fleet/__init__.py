@@ -21,9 +21,11 @@ engines of the other.
   telemetry history, and the wire adapter that lets serve/driver.py's
   harnesses drive a fleet.
 
-``cli fleet`` boots the whole tier. Not ported: the flywheel
-(``fleet/flywheel.py``, ROADMAP item 11), trace spans and the native wire
-rung (item 13).
+- **flywheel.py** — served sessions that journal their transitions for
+  the learner's feed ingest (``cli fleet --learner``).
+
+``cli fleet`` boots the whole tier. Not ported: trace spans and the native
+wire rung (ROADMAP item 13).
 """
 
 from sharetrade_tpu_torch.fleet.evloop import EvloopFrontend

@@ -86,13 +86,26 @@ explicit ones win (idempotent, so a config ``cli train`` resolved already
 passes through unchanged); a missing, torn or foreign profile raises
 ``ProfileError``, a ``ConfigError``.
 
-Not yet ported: roofline/obs, the tracer (``runtime.profile_dir``) and
-actor feeds; a non-default value of such a knob raises ``ConfigError``
+Actor feeds (``distrib/``): with ``distrib.num_actors`` > 0 (``cli
+learner``'s actor pool) or ``distrib.ingest_without_pool`` (``cli fleet
+--learner``, served sessions' journals), a DQN learner tails every journal
+under ``distrib.actor_dir`` every ``distrib.ingest_every_updates`` updates
+(:meth:`Orchestrator.ingest_actor_feeds`): at a drained boundary, under the
+step lock, the rows stamped past each writer's cursor are pushed into the
+live replay buffer (on the card, the chunk graph's own buffers) and PER's
+tree is reseeded. ``tuning.adaptive_ingest`` backs the cadence off on dry
+feeds and tightens it on a backlog, as in the JAX package (its flight
+event is an ``ingest_cadence_adjust`` event here).
+
+Not yet ported: roofline/obs and the tracer (``runtime.profile_dir``); a
+non-default value of such a knob raises ``ConfigError``
 (:func:`check_ported`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import glob
 import os
 import random
 import threading
@@ -117,11 +130,11 @@ from sharetrade_tpu_torch.config import ConfigError, FrameworkConfig
 from sharetrade_tpu_torch.data.journal import segment_paths
 from sharetrade_tpu_torch.data.service import _open_journal
 from sharetrade_tpu_torch.data.transitions import (
-    append_transitions, compact_transitions, read_tail_transitions,
-    retire_transition_segments)
+    append_transitions, compact_transitions, read_new_transitions,
+    read_tail_transitions, retire_transition_segments)
 from sharetrade_tpu_torch.device import resolve_device
-from sharetrade_tpu_torch.env.portfolio import make_portfolio_env
-from sharetrade_tpu_torch.env.trading import make_trading_env
+from sharetrade_tpu_torch.distrib.actor import TRANSITIONS_FILE
+from sharetrade_tpu_torch.env import make_env
 from sharetrade_tpu_torch.models.core import tree_leaves, tree_map
 from sharetrade_tpu_torch.precision import policy_from_config
 from sharetrade_tpu_torch.runtime.lifecycle import (
@@ -152,12 +165,11 @@ DEFAULT_ERROR_POLICY: dict[type, str] = {
 _REFUSED = {
     "runtime.profile_dir": (None, 13),
     "obs.enabled": (False, 13),
-    "distrib.num_actors": (0, 11),
 }
 #: The knobs of ``_REFUSED`` each command refuses. ``cli serve`` lets
-#: ``runtime.profile_dir`` and ``distrib.num_actors`` through, as the JAX
-#: package's ``cli serve`` ignores them.
-TRAIN_REFUSED = ("runtime.profile_dir", "obs.enabled", "distrib.num_actors")
+#: ``runtime.profile_dir`` through, as the JAX package's ``cli serve``
+#: ignores it.
+TRAIN_REFUSED = ("runtime.profile_dir", "obs.enabled")
 SERVE_REFUSED = ("obs.enabled",)
 
 
@@ -289,6 +301,29 @@ class Orchestrator:
         self._journal_rows_since_compact = 0
         if cfg.learner.algo == "dqn" and cfg.learner.journal_replay:
             self._transitions_journal = self._open_transitions_journal()
+        # Actor feeds: per-writer cursors (the last stamp ingested; stamps
+        # are monotone per journal, so a restarted actor resumes past
+        # them). DQN only: the other learners have no replay to feed. With
+        # no pool the cadence stays off (no drain boundaries to glob an
+        # empty dir), unless ingest_without_pool: served sessions write the
+        # journals then (fleet/flywheel.py).
+        self._actor_cursors: dict[str, int] = {}
+        self._last_ingest_updates = 0
+        self._ingest_enabled = ((cfg.distrib.num_actors > 0
+                                 or cfg.distrib.ingest_without_pool)
+                                and cfg.distrib.ingest_every_updates > 0
+                                and cfg.learner.algo == "dqn")
+        # The LIVE cadence the boundary checks read (tuning.adaptive_ingest
+        # moves it between base/4 and 8 x base; the configured value is the
+        # base).
+        self._ingest_every = max(1, cfg.distrib.ingest_every_updates)
+        self._ingest_base = self._ingest_every
+        self._adaptive_ingest = (self._ingest_enabled
+                                 and cfg.tuning.adaptive_ingest)
+        self._ingest_dry_streak = 0
+        if self._ingest_enabled:
+            self.metrics.record("ingest_every_updates_current",
+                                float(self._ingest_every))
 
     def _open_transitions_journal(self):
         """``<data.journal_dir>/transitions.journal``, segmented when
@@ -329,18 +364,7 @@ class Orchestrator:
         place of its weights (the optimizer state started fresh; DQN's
         target network a copy of them), or a seeded init. Every state but
         ``resume``'s starts a fresh transitions journal."""
-        prices = np.asarray(prices)
-        env_cfg = self.cfg.env
-        if prices.ndim == 2 and prices.shape[0] > 1:
-            self.env = make_portfolio_env(
-                prices, window=env_cfg.window,
-                initial_budget=env_cfg.initial_budget,
-                initial_shares=env_cfg.initial_shares, device=self.device)
-        else:
-            self.env = make_trading_env(
-                prices.reshape(-1), window=env_cfg.window,
-                initial_budget=env_cfg.initial_budget,
-                initial_shares=env_cfg.initial_shares, device=self.device)
+        self.env = make_env(self.cfg.env, prices, self.device)
         self.agent = build_agent(self.cfg, self.env, device=self.device)
         self._program = (None if self._step_override is not None
                          else ChunkProgram(self.agent))
@@ -788,6 +812,12 @@ class Orchestrator:
         for every in (rt.eval_every_updates, rt.checkpoint_every_updates):
             if every > 0 and updates // every > last // every:
                 return True
+        if self._ingest_enabled:
+            # The live cadence (a benign race with the dispatcher's
+            # adjustments: over-triggering only drains and re-checks).
+            every = self._ingest_every
+            if updates // every > self._last_ingest_updates // every:
+                return True
         return (int(row.get("env_steps", 0))
                 >= self.env.num_steps * (self.episode + 1))
 
@@ -817,6 +847,17 @@ class Orchestrator:
                                "(shared state poisoned)")
 
         updates = int(metrics.get("updates", 0))
+        if (self._ingest_enabled
+                and updates // self._ingest_every
+                > self._last_ingest_updates // self._ingest_every):
+            # A torn actor journal or a transient read error is an ingest
+            # miss, not a training fault: the next tick retries from the
+            # same cursors.
+            try:
+                self.ingest_actor_feeds()
+            except Exception:
+                log.exception("actor-feed ingest failed; training continues")
+            self._last_ingest_updates = updates
         if (rt.eval_every_updates > 0
                 and updates // rt.eval_every_updates
                 > self._last_ckpt_updates // rt.eval_every_updates):
@@ -1156,6 +1197,143 @@ class Orchestrator:
         return state.replace(extras=reseed_per_priorities(type(extras)(
             target_params=extras.target_params, replay=warm,
             per=extras.per)))
+
+    # ---- actor feeds (distrib/) -------------------------------------------
+
+    def ingest_actor_feeds(self) -> int:
+        """Tail every journal under ``distrib.actor_dir`` for rows stamped
+        past its writer's cursor, push them into the live replay buffer
+        (oldest first, the ``_warm_start_replay`` fill), and reseed PER's
+        priorities at the stored max once per tick. The journal set is
+        re-discovered from the filesystem every call: a writer that joins
+        is ingested from its first committed record, a dead one stops
+        producing. Runs at a drained boundary; the state changes under the
+        step lock and go through the ``_ts`` setter, so on the card they
+        land in the chunk graph's buffers. Returns the rows ingested."""
+        if not self._ingest_enabled or self._ts is None:
+            return 0
+        root = self.cfg.distrib.actor_dir
+        max_rows = (self.cfg.distrib.ingest_max_rows
+                    or self.cfg.learner.replay_capacity)
+        total = 0
+        backlog = False
+        per_actor: dict[str, int] = {}
+        feeds: dict[str, dict] = {}
+        for path in sorted(glob.glob(os.path.join(root, "*",
+                                                  TRANSITIONS_FILE))):
+            actor_id = os.path.basename(os.path.dirname(path))
+            cursor = self._actor_cursors.get(actor_id, 0)
+            records: list[tuple[int, int]] = []
+            try:
+                out = read_new_transitions(path, cursor, max_rows,
+                                           records=records)
+            except OSError:
+                log.exception("actor feed %s unreadable; skipping this "
+                              "ingest tick", path)
+                continue
+            if out is None:
+                continue
+            obs, action, reward, next_obs, high_water = out
+            rows = int(obs.shape[0])
+            if rows >= max_rows:
+                # A full window: the reader truncated, the actor is ahead
+                # (the backlog signal the adaptive cadence tightens on).
+                backlog = True
+            if rows:
+                if obs.shape[1] != self.env.obs_dim:
+                    log.error(
+                        "actor feed %s obs_dim %d != learner obs_dim %d; "
+                        "refusing the rows (actor running a different env "
+                        "config?)", path, obs.shape[1], self.env.obs_dim)
+                    self._actor_cursors[actor_id] = max(cursor, high_water)
+                    continue
+                with self._step_lock:
+                    extras = self._ts.extras
+                    replay = fill_replay_from_arrays(
+                        extras.replay, obs, action, reward, next_obs)
+                    self._ts = self._ts.replace(
+                        extras=dataclasses.replace(extras, replay=replay))
+                total += rows
+                per_actor[actor_id] = rows
+                self.metrics.inc(
+                    f"actor_rows_ingested_total_{actor_id}", rows)
+                # The tick's accounting: the cursor it read from, the one
+                # it leaves, and the first record it read.
+                feeds[actor_id] = {"cursor": cursor,
+                                   "high_water": max(cursor, high_water),
+                                   "rows": rows, "first": list(records[0])}
+            # Past the scanned high-water even when no row was kept: stamps
+            # are monotone, so nothing committed is skipped.
+            self._actor_cursors[actor_id] = max(cursor, high_water)
+        if total:
+            with self._step_lock:
+                # One tree rebuild per tick (uniform extras pass through).
+                self._ts = self._ts.replace(
+                    extras=reseed_per_priorities(self._ts.extras))
+            self.metrics.inc("distrib_rows_ingested_total", total)
+            self.metrics.record("distrib_actor_feeds", len(per_actor))
+            self.events.emit("actor_feed_ingest", rows=total,
+                             actors=sorted(per_actor), feeds=feeds)
+            log.info("ingested %d actor transition rows (%s)", total,
+                     ", ".join(f"{k}:{v}"
+                               for k, v in sorted(per_actor.items())))
+        self._adapt_ingest_cadence(total, backlog)
+        return total
+
+    @property
+    def actor_feeds(self) -> dict[str, dict[str, int]]:
+        """Per writer: the rows ingested so far and the cursor (the last
+        stamp ingested)."""
+        counters = self.metrics.counters()
+        return {aid: {"rows": int(counters.get(
+                    f"actor_rows_ingested_total_{aid}", 0)), "cursor": c}
+                for aid, c in sorted(self._actor_cursors.items())}
+
+    #: Adaptive-cadence bounds, as factors of the configured base cadence:
+    #: backoff doubles up to base*8 (dry feeds), tightening halves down to
+    #: max(1, base/4) (backlog).
+    INGEST_BACKOFF_MAX_FACTOR = 8
+    INGEST_TIGHTEN_DIV = 4
+    #: Consecutive all-dry ticks before the first backoff step.
+    INGEST_DRY_TICKS = 3
+
+    def _adapt_ingest_cadence(self, rows: int, backlog: bool) -> None:
+        """One bounded step of the live ingest cadence: after
+        ``INGEST_DRY_TICKS`` all-dry ticks it doubles (up to 8 x base), a
+        tick that read a full window halves it (down to base/4), and rows
+        after a dry backoff snap it back to base. Runs on the dispatcher
+        thread right after an ingest tick, the only writer."""
+        if not self._adaptive_ingest:
+            return
+        base = self._ingest_base
+        every = self._ingest_every
+        new = every
+        reason = None
+        if rows == 0:
+            self._ingest_dry_streak += 1
+            if (self._ingest_dry_streak >= self.INGEST_DRY_TICKS
+                    and every < base * self.INGEST_BACKOFF_MAX_FACTOR):
+                new = min(base * self.INGEST_BACKOFF_MAX_FACTOR, every * 2)
+                reason = "feeds_dry"
+        else:
+            self._ingest_dry_streak = 0
+            if backlog:
+                floor = max(1, base // self.INGEST_TIGHTEN_DIV)
+                if every > floor:
+                    new = max(floor, every // 2)
+                    reason = "backlog"
+            elif every > base:
+                new = base
+                reason = "recovered"
+        if new == every:
+            return
+        self._ingest_every = new
+        self.metrics.inc("ingest_adjustments_total")
+        self.metrics.record("ingest_every_updates_current", float(new))
+        self.events.emit("ingest_cadence_adjust", reason=reason, every=new,
+                         base=base, rows=rows, backlog=backlog)
+        log.info("adaptive ingest cadence: every %d -> %d updates (%s)",
+                 every, new, reason)
 
     # ---- queries ----------------------------------------------------------
 

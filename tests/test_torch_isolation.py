@@ -5,14 +5,16 @@
 - A source scan of the package (its ``checkpoint/``, ``obs/``,
   ``tuning.py``, ``serve/controller.py`` and ``utils/flops.py`` included),
   ``chip_smoke.py`` and ``tools/torch_*.py`` finds no import of ``jax``, ``flax``, ``optax`` or
-  ``msgpack`` (the machine with the card has none of them) and no reference
-  to the JAX package's modules.
+  ``msgpack`` (the machine with the card has none of them), no reference
+  to the JAX package's modules, and no ``-m sharetrade_tpu.<module>``
+  string a child process would run (an actor or engine pool spawning the
+  JAX package's CLI).
 - Without a GPU and without ``--device cpu``, ``cli serve``, ``cli train``
   and ``cli fleet`` fail with a message that says so instead of running on
   the CPU.
 - What the fleet does not port is refused with exit code 2 and a message
-  naming its ROADMAP item: ``cli fleet --learner`` (item 11), and
-  ``obs.enabled`` with ``cli serve --listen`` or ``cli fleet`` (item 13).
+  naming its ROADMAP item: ``obs.enabled`` with ``cli serve --listen``,
+  ``cli fleet`` or ``cli fleet --learner`` (item 13).
 - The repo's network, spawn and native-wire lints
   (``tools/lint_hot_loop.py`` checks 12, 14, 15 and 18) find nothing in the
   port but lines carrying the JAX package's own markers.
@@ -34,6 +36,10 @@ _JAX_IMPORT = re.compile(r"^\s*(import\s+(jax|jaxlib|flax|optax|msgpack)\b|"
                          r"from\s+(jax|jaxlib|flax|optax|msgpack)\b)", re.M)
 _JAX_PACKAGE = re.compile(r"sharetrade_tpu\.|from\s+sharetrade_tpu\s|"
                           r"import\s+sharetrade_tpu\b(?!_)")
+#: A child's module argument naming the JAX package: ``-m sharetrade_tpu.x``
+#: on a command line, or ``"-m", "sharetrade_tpu.x"`` in an argv list.
+_JAX_MODULE_ARG = re.compile(
+    r"""-m["']?\s*,?\s*["']?sharetrade_tpu(\.|["'\s]|$)""")
 
 
 def _env(**extra):
@@ -54,7 +60,7 @@ def _sources():
                  REPO / "tools" / "torch_train_ab.py",
                  REPO / "tools" / "torch_autotune.py"):
         assert path in files, path
-    for rel in FLEET_MODULES:
+    for rel in FLEET_MODULES + ACTOR_MODULES:
         assert PACKAGE / rel in files, rel
     return files
 
@@ -67,6 +73,8 @@ FLEET_MODULES = (
     "fleet/wire.py", "fleet/frontend.py", "fleet/evloop.py",
     "fleet/router.py", "fleet/pool.py", "fleet/loadgen.py",
     "fleet/autoscale.py")
+#: The actor slice's modules.
+ACTOR_MODULES = ("distrib/actor.py", "distrib/pool.py", "fleet/flywheel.py")
 
 
 def test_import_leaves_jax_and_the_jax_package_out(tmp_path):
@@ -85,8 +93,9 @@ def test_import_leaves_jax_and_the_jax_package_out(tmp_path):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("pattern", [_JAX_IMPORT, _JAX_PACKAGE],
-                         ids=["jax-import", "jax-package"])
+@pytest.mark.parametrize("pattern", [_JAX_IMPORT, _JAX_PACKAGE,
+                                     _JAX_MODULE_ARG],
+                         ids=["jax-import", "jax-package", "jax-module-arg"])
 def test_sources_reference_no_jax(pattern):
     hits = []
     for path in _sources():
@@ -128,7 +137,8 @@ def test_cli_fleet_without_gpu_refuses_instead_of_running_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["fleet", "--learner", "--device", "cpu"], "ROADMAP item 11"),
+    (["fleet", "--learner", "--device", "cpu", "--set", "learner.algo=dqn",
+      "--set", "obs.enabled=true"], "ROADMAP item 13"),
     (["fleet", "--device", "cpu", "--set", "obs.enabled=true"],
      "ROADMAP item 13"),
     (["serve", "--listen", "127.0.0.1:0", "--device", "cpu", "--set",
@@ -199,7 +209,19 @@ def test_the_policy_family_modules_are_scanned_and_imported(module):
     assert path in sorted(PACKAGE.rglob("*.py"))
 
 
-@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_the_module_arg_pattern_catches_a_jax_child():
+    """The scan's pattern flags a JAX child command in either spelling and
+    passes the port's own."""
+    for line in ('cmd = [sys.executable, "-m", "sharetrade_tpu.cli", "actor"]',
+                 "python -m sharetrade_tpu.cli learner",
+                 "cmd = ['-m', 'sharetrade_tpu']"):
+        assert _JAX_MODULE_ARG.search(line), line
+    for line in ('cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli"]',
+                 "python -m sharetrade_tpu_torch.cli actor"):
+        assert not _JAX_MODULE_ARG.search(line), line
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES + ACTOR_MODULES)
 def test_the_fleet_modules_are_scanned_and_imported(module):
     """The fleet slice's modules are among the files the source scan reads
     and the modules the import check imports (both walk the package)."""

@@ -4,7 +4,7 @@ sweeps over the knob registry, writing a per-host ``tuned_profile.json``.
 
 The port's counterpart of ``tools/autotune.py``, built from the port alone
 (``sharetrade_tpu_torch``; it imports nothing of the JAX package and no
-other tool). Two workload specs, each sweeping the registered knobs
+other tool). Three workload specs, each sweeping the registered knobs
 (``sharetrade_tpu_torch/tuning.py`` ``KNOBS``) of one tier with a short
 measured window per trial and an early-stopping search:
 
@@ -18,8 +18,13 @@ measured window per trial and an early-stopping search:
   ``ServeEngine`` and ``run_closed_loop``; objective: closed-loop QPS at
   twice the batch in flight, the p99 at that load kept per trial.
 
-The ``distrib`` spec of ``tools/autotune.py`` needs the actor feeds, which
-the port does not have yet.
+- **distrib**: ``distrib.ingest_every_updates`` x ``distrib.ingest_max_rows``
+  against a feeder thread appending transition rows to an actor journal at
+  a fixed rate while a DQN learner (``distrib.num_actors=1``, no pool, the
+  adaptive cadence off) trains fixed episodes through the port's
+  ``Orchestrator`` and ingests at the arm's cadence; objective: the
+  geometric mean of updates/s and ingested rows/s, the two the cadence
+  trades against each other.
 
 Search: **successive halving**: every arm runs at the smallest window, the
 top ``1/eta`` survive to a doubled window, until one arm stands. Per-arm
@@ -41,7 +46,7 @@ Usage:
     python3 tools/torch_autotune.py                    # train + serve
     python3 tools/torch_autotune.py --quick --spec serve --out p.json
     python3 tools/torch_autotune.py --spec serve --exhaustive --seed 7
-    python3 tools/torch_autotune.py --quick --device cpu
+    python3 tools/torch_autotune.py --quick --spec distrib --device cpu
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import math
 import os
 import sys
 import tempfile
+import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -84,6 +90,14 @@ def serve_grid(quick: bool) -> list[dict]:
     return [{"serve.max_batch": b, "serve.batch_timeout_ms": t,
              "serve.max_queue": q}
             for b in batches for t in timeouts for q in queues]
+
+
+def distrib_grid(quick: bool) -> list[dict]:
+    everies = (4, 16) if quick else (2, 8, 32)
+    rows = (4096,) if quick else (1024, 8192)
+    return [{"distrib.ingest_every_updates": e,
+             "distrib.ingest_max_rows": r}
+            for e in everies for r in rows]
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +227,133 @@ class ServeMeasurer:
         self._engines.clear()
 
 
+class DistribMeasurer:
+    """The learner's ingest cadence against a live feed: a feeder thread
+    appends ``FEED_BATCH``-row records to a synthetic actor journal
+    ``FEED_HZ`` times a second while a DQN learner trains fixed episodes
+    and ingests at the arm's cadence. The adaptive cadence is off, so each
+    arm measures its own. Per-arm orchestrators are cached across rungs;
+    the feed's env-step stamps continue across windows, so the learner's
+    cursor keeps advancing over one growing journal. Updates/s counts one
+    DQN update per env step (``tools/autotune.py`` counts one per chunk, a
+    constant factor that ranks the arms alike)."""
+
+    CHUNKS = 24
+    CHUNK_STEPS = 10
+    FEED_HZ = 40                # records per second
+    FEED_BATCH = 64             # rows per record
+
+    def __init__(self, *, seed: int, workdir: str, device: str):
+        self.seed = seed
+        self.workdir = workdir
+        self.device = device
+        #: arm key -> (orchestrator, journal path, obs_dim, rng, [stamp]).
+        self._arms: dict[tuple, tuple] = {}
+
+    def _arm_state(self, arm: dict):
+        import numpy as np
+
+        from sharetrade_tpu_torch.data.synthetic import synthetic_price_series
+        from sharetrade_tpu_torch.distrib.actor import TRANSITIONS_FILE
+        from sharetrade_tpu_torch.runtime.orchestrator import Orchestrator
+        key = tuple(sorted(arm.items()))
+        state = self._arms.get(key)
+        if state is not None:
+            return state
+        root = os.path.join(self.workdir, f"arm-{len(self._arms)}")
+        actor_dir = os.path.join(root, "actors")
+        os.makedirs(os.path.join(actor_dir, "a0"), exist_ok=True)
+        cfg = FrameworkConfig()
+        cfg.seed = self.seed
+        cfg.learner.algo = "dqn"
+        cfg.parallel.num_workers = 10
+        cfg.env.window = 8
+        cfg.model.hidden_dim = 8
+        cfg.learner.replay_capacity = 16384
+        cfg.runtime.chunk_steps = self.CHUNK_STEPS
+        cfg.runtime.checkpoint_every_updates = 0
+        cfg.runtime.keep_best_eval = False
+        cfg.runtime.checkpoint_dir = os.path.join(root, "ck")
+        cfg.data.journal_dir = os.path.join(root, "journal")
+        cfg.distrib.num_actors = 1          # enables ingest; no pool here
+        cfg.distrib.actor_dir = actor_dir
+        cfg.tuning.adaptive_ingest = False  # measure the arm's cadence
+        for path, value in arm.items():
+            tuning.set_knob(cfg, path, value)
+        series = synthetic_price_series(
+            length=cfg.env.window + self.CHUNKS * self.CHUNK_STEPS + 8,
+            seed=self.seed)
+        orch = Orchestrator(cfg, device=self.device)
+        orch.send_training_data(series.prices)
+        orch.start_training(background=False)       # build, capture, warm
+        state = (orch, os.path.join(actor_dir, "a0", TRANSITIONS_FILE),
+                 cfg.env.window + 2, np.random.default_rng(self.seed), [0])
+        self._arms[key] = state
+        return state
+
+    def measure(self, arm: dict, window: float) -> dict:
+        import numpy as np
+
+        from sharetrade_tpu_torch.data.journal import Journal
+        from sharetrade_tpu_torch.data.transitions import append_transitions
+
+        orch, journal_path, obs_dim, rng, stamp = self._arm_state(arm)
+        episodes = max(1, int(round(window)))
+        stop = threading.Event()
+        fed = [0]
+
+        def feeder():
+            # The arm's journal reopened in this process (the writer lock
+            # is per process); stamps continue monotone across windows.
+            journal = Journal(journal_path, segment_records=256)
+            try:
+                while not stop.is_set():
+                    stamp[0] += self.FEED_BATCH
+                    obs = rng.standard_normal(
+                        (self.FEED_BATCH, obs_dim)).astype(np.float32)
+                    append_transitions(
+                        journal, obs,
+                        rng.integers(0, 3, self.FEED_BATCH, dtype=np.int32),
+                        rng.standard_normal(self.FEED_BATCH).astype(
+                            np.float32),
+                        obs, env_steps=stamp[0])
+                    journal.flush()
+                    fed[0] += self.FEED_BATCH
+                    stop.wait(1.0 / self.FEED_HZ)
+            finally:
+                journal.close()
+
+        thread = threading.Thread(target=feeder, daemon=True)
+        rows0 = orch.metrics.counters().get("distrib_rows_ingested_total",
+                                            0.0)
+        thread.start()
+        try:
+            t0 = time.perf_counter()
+            for _ in range(episodes):
+                orch.start_training(background=False)
+            elapsed = time.perf_counter() - t0
+            rows = orch.metrics.counters().get(
+                "distrib_rows_ingested_total", 0.0) - rows0
+        finally:
+            stop.set()
+            thread.join(5.0)
+        updates_ps = episodes * self.CHUNKS * self.CHUNK_STEPS / elapsed
+        rows_ps = rows / elapsed
+        return {
+            "objective": math.sqrt(max(updates_ps, 1e-9)
+                                   * max(rows_ps, 1e-9)),
+            "updates_per_sec": round(updates_ps, 2),
+            "rows_ingested_per_sec": round(rows_ps, 1),
+            "rows_fed": fed[0],
+            "elapsed_s": round(elapsed, 4),
+        }
+
+    def close(self) -> None:
+        for orch, *_ in self._arms.values():
+            orch.stop()
+        self._arms.clear()
+
+
 # ---------------------------------------------------------------------------
 # the search
 # ---------------------------------------------------------------------------
@@ -265,9 +406,12 @@ def run_spec(spec: str, *, quick: bool, seed: int, workdir: str,
         grid = serve_grid(quick)
         measurer = ServeMeasurer(seed=seed, device=device)
         rung0 = 0.3 if quick else 0.5       # seconds
+    elif spec == "distrib":
+        grid = distrib_grid(quick)
+        measurer = DistribMeasurer(seed=seed, workdir=workdir, device=device)
+        rung0 = 1.0                         # episodes
     else:
-        raise ValueError(f"unknown spec {spec!r} (train | serve; distrib "
-                         "needs the actor feeds, not yet ported)")
+        raise ValueError(f"unknown spec {spec!r} (train | serve | distrib)")
     say(f"[{spec}] sweeping {len(grid)} arms (quick={quick})")
     try:
         result = successive_halving(
@@ -371,7 +515,7 @@ def run_autotune(specs=("train", "serve"), *, quick: bool = False,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--spec", default="train,serve",
-                        help="comma list of train,serve")
+                        help="comma list of train,serve,distrib")
     parser.add_argument("--quick", action="store_true",
                         help="tiny grid, seconds-scale windows")
     parser.add_argument("--out", default="tuned_profile.json",
