@@ -246,7 +246,16 @@ Phases, in order (any failure exits non-zero before the final line):
                survivor adopts warm (``serve_adopt_warm_total``) and every
                answer before and after stays within the bf16 tolerances of
                an in-process engine. The fleet's ``flash_fwd`` launches are
-               the workers' own counts (each worker's summary).
+               the workers' own counts (each worker's summary). Telemetry
+               (d): (a) runs with ``obs.enabled`` (the router journals as
+               ``fleet``, the workers as ``engine-<id>``): ``cli obs
+               --trace list`` is non-empty, every trace that spans the
+               router and a worker stitches with no error (one rendered by
+               ``cli obs --trace <id> --out``), and ``cli obs --dir <fleet
+               dir> --history`` reads the router's rows; (c) journals its
+               spans (``obs.span_dir``, obs otherwise off): after the
+               SIGKILL ``migrated_traces`` finds at least the migrated
+               requests, each stitched with no error.
 15. remat_moe — the episode transformer's mixture of experts and
                rematerialisation, counts reset before each part and read
                before its comparisons: (a) the flagship with an 8-expert
@@ -328,6 +337,36 @@ Phases, in order (any failure exits non-zero before the final line):
                launches are the two CLI learners' own counts (each process
                counts from 0).
 
+17. obs      — telemetry on the card, counts reset once just before and
+               read just after (``cli train``'s from its summary): (a) ``cli
+               train`` with ``obs.enabled`` on the flagship (``OBS_TRAIN``:
+               every chunk read back) over ``OBS_CHUNKS`` chunks: every
+               chunk's ``dispatch``, ``readback`` and ``host_process``
+               spans, ``manifest.json`` naming the card and the config's
+               hash, ``metrics.prom`` parsing with ``train_chunk_seconds``
+               counting the chunks, ``cli obs --dir`` printing the
+               manifest, trace and metrics sections, and the kernels'
+               launches per chunk those of the obs-off runs of (b); (b) in
+               this process, from one seeded state, obs off, on, on, off
+               (``OBS_TURNS``): an episode of ``OBS_TURN_CHUNKS`` chunks
+               (the eager first chunk and the capture), then an episode of
+               replays under ``torch.profiler`` with each dispatch between
+               CUDA events: the final parameters bit-equal, the same
+               device syncs and device-to-host copies per chunk
+               (``_SYNC_CALLS``, ``Memcpy DtoH``), the same launches per
+               chunk and graph nodes; each turn's replayed chunk ms and
+               agent-steps/s are reported, with no limit; (c) the flagship
+               served with obs off, on, on, off at 192 sessions in closed
+               loop (qps, p50, p99 of each), then an open-loop overload of
+               ``OBS_OVERLOAD_SESSIONS`` sessions on the obs engine: every
+               terminal outcome traced (``serve_request`` spans = requests,
+               the sheds among them), every completed request's four stage
+               spans inside its envelope, the decomposition counter 0,
+               ``serve_exemplars.json`` written; (e) a fault at chunk
+               ``OBS_FAULT_CHUNK`` of the reference workload through the
+               fault hook: one restart and ``flight_recorder.json`` with
+               reason ``supervision`` and that chunk.
+
 Every price read journals into a fresh scratch directory, and every CLI
 run works in a fresh scratch directory (the checkout on ``PYTHONPATH``):
 nothing is written into the checkout's ``journal/``, and no run recovers a
@@ -361,7 +400,7 @@ PHASES = ("build", "kernels", "train", "serve", "serve_tiers", "serve_slo",
           "cli",
           "cli_train",
           "resilience", "reference", "pipeline", "journal", "cli_defaults",
-          "families", "fleet", "remat_moe", "actors")
+          "families", "fleet", "remat_moe", "actors", "obs")
 #: Opt-in phases (name them in --phases): a device-time breakdown of one
 #: cold and one warm serving tick.
 EXTRA_PHASES = ("profile",)
@@ -1264,7 +1303,7 @@ def kernels_line(results: dict) -> dict:
                    for path in ("train", "serve", "serve_tiers", "serve_slo",
                                 "resilience", "reference", "pipeline",
                                 "journal", "families", "fleet", "remat_moe",
-                                "actors")
+                                "actors", "obs")
                    if path in results}
         # The same kernel at the families' shapes (families (d)) and at
         # the remat / MoE paths' (remat_moe (d)).
@@ -5086,10 +5125,12 @@ def _fleet_cli(torch, engine, problems: list) -> dict:
     window = _flagship_cfg().env.window
     work = _fresh_dir("fleet-cli-")
     fleet_dir = os.path.join(work, "fleet")
+    obs_dir = os.path.join(work, "obs")
     ckpts = tempfile.mkdtemp(prefix="ckpt-", dir=work)   # empty: seeded init
     cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "fleet"]
     for item in FLEET + [f"runtime.checkpoint_dir={ckpts}",
-                         f"fleet.dir={fleet_dir}"]:
+                         f"fleet.dir={fleet_dir}", "obs.enabled=true",
+                         f"obs.dir={obs_dir}"]:
         cmd += ["--set", item]
     out_path = os.path.join(work, "fleet.out")
     err_path = os.path.join(work, "fleet.err")
@@ -5210,6 +5251,65 @@ def _fleet_cli(torch, engine, problems: list) -> dict:
         problems.append("fleet_ready names no live proto_backend")
     if row.get("rc") != 75:
         row["stderr_tail"] = open(err_path, errors="replace").read()[-2000:]
+    row["obs"] = _fleet_cli_traces(obs_dir, fleet_dir, work, problems)
+    return row
+
+
+def _cli_obs(args: list, work: str):
+    """``cli obs`` with ``args`` (no device): (returncode, parsed stdout)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "sharetrade_tpu_torch.cli", "obs", *args],
+        capture_output=True, text=True, timeout=300, cwd=work,
+        env={**_cli_env(), "CUDA_VISIBLE_DEVICES": ""})
+    try:
+        return out.returncode, json.loads(out.stdout)
+    except ValueError:
+        return out.returncode, None
+
+
+def _stitch_all(spans: list) -> list[dict]:
+    """Every trace of ``spans`` stitched: grouped by trace id in one pass,
+    each group stitched on its own (``stitch`` scans what it is given)."""
+    from sharetrade_tpu_torch.obs import collect
+    groups: dict = {}
+    for s in spans:
+        groups.setdefault(s["trace"], []).append(s)
+    return [collect.stitch(group, tid) for tid, group in groups.items()]
+
+
+def _fleet_cli_traces(obs_dir: str, fleet_dir: str, work: str,
+                      problems: list) -> dict:
+    """(d) on ``cli fleet``'s run: ``cli obs --trace list``, every trace
+    that spans the router and a worker stitched, one through ``cli obs
+    --trace <id> --out``, and ``cli obs --dir <fleet dir> --history``."""
+    from sharetrade_tpu_torch.obs import collect
+    rc, listed = _cli_obs(["--dir", obs_dir, "--trace", "list"], work)
+    traces = (listed or {}).get("traces", {})
+    stitched = _stitch_all(collect.read_span_dir(
+        os.path.join(obs_dir, "spans")))
+    both = [t for t in stitched if "fleet" in t["procs"]
+            and any(p.startswith("engine-") for p in t["procs"])]
+    row = {"list_rc": rc, "traces": len(traces),
+           "router_and_worker": len(both),
+           "with_errors": sum(1 for t in both if t["errors"]),
+           "errors_sample": [t["errors"][:2] for t in both
+                             if t["errors"]][:3]}
+    if both:
+        tid = both[0]["trace_id"]
+        rc_one, view = _cli_obs(["--dir", obs_dir, "--trace", tid, "--out",
+                                 os.path.join(work, "trace.json")], work)
+        row["one"] = {"rc": rc_one, "trace_id": tid,
+                      "procs": (view or {}).get("procs"),
+                      "spans": len((view or {}).get("spans", []))}
+    rc_hist, history = _cli_obs(["--dir", fleet_dir, "--history", "0"], work)
+    row["history"] = {"rc": rc_hist, "rows": (history or {}).get("rows")}
+    if rc != 0 or not traces:
+        problems.append("(d) cli obs --trace list found no trace")
+    if not both or row["with_errors"] or row["one"]["rc"] != 0:
+        problems.append("(d) no trace spanning the router and a worker "
+                        "stitched without errors")
+    if rc_hist != 0 or not row["history"]["rows"]:
+        problems.append("(d) cli obs --history read no row")
     return row
 
 
@@ -5230,11 +5330,16 @@ def _fleet_pool(torch, engine_factory, problems: list) -> dict:
     from sharetrade_tpu_torch.serve.driver import make_sessions, run_closed_loop
     from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
 
+    from sharetrade_tpu_torch.fleet.wire import WireTracer
+    from sharetrade_tpu_torch.obs import build_obs, collect
+
     work = _fresh_dir("fleet-pool-")
+    spans_dir = os.path.join(work, "spans")
     cfg = FrameworkConfig().apply_overrides(FLEET + FLEET_TIERS + [
         f"runtime.checkpoint_dir={tempfile.mkdtemp(dir=work)}",
         f"fleet.dir={os.path.join(work, 'fleet')}",
-        f"data.journal_dir={os.path.join(work, 'journal')}"])
+        f"data.journal_dir={os.path.join(work, 'journal')}",
+        f"obs.span_dir={spans_dir}", "obs.span_proc=fleet"])
     prices = _prices(cfg.data)
     window = cfg.env.window
     registry = MetricsRegistry()
@@ -5244,9 +5349,15 @@ def _fleet_pool(torch, engine_factory, problems: list) -> dict:
     saved_path = os.environ.get("PYTHONPATH")
     os.environ["PYTHONPATH"] = _cli_env()["PYTHONPATH"]
     t0 = time.perf_counter()
+    # Obs off but the span journal on: the router's relay and the
+    # workers' (obs.span_dir handed on by the pool) spans stitch across
+    # the SIGKILL below.
+    obs = build_obs(cfg, registry, device="cuda")
     pool = EnginePool(cfg, registry=registry, device="cuda").start()
-    router = FleetRouter(pool, cfg.fleet, registry, obs_cfg=cfg.obs).start()
-    frontend = ServeFrontend(router, registry).start()
+    router = FleetRouter(pool, cfg.fleet, registry, obs_cfg=cfg.obs,
+                         obs=obs).start()
+    frontend = ServeFrontend(router, registry,
+                             tracer=WireTracer(obs.spans, mint=True)).start()
 
     def engine(engine_id: str) -> dict:
         return pool.status()["engines"][engine_id]
@@ -5346,10 +5457,25 @@ def _fleet_pool(torch, engine_factory, problems: list) -> dict:
         frontend.stop()
         router.stop()
         pool.stop(grace_s=30.0)
+        obs.close()
         if saved_path is None:
             os.environ.pop("PYTHONPATH", None)
         else:
             os.environ["PYTHONPATH"] = saved_path
+    t0 = time.perf_counter()
+    spans = collect.read_span_dir(spans_dir)
+    migrated = collect.migrated_traces(spans)
+    row["traces"] = {
+        "spans": len(spans), "migrated": len(migrated),
+        "migrated_with_errors": sum(1 for t in migrated if t["errors"]),
+        "migrated_through_the_victim": sum(
+            1 for t in migrated if "engine-e0" in t["engines"]),
+        "collect_s": time.perf_counter() - t0}
+    if (not migrated or row["traces"]["migrated_with_errors"]
+            or len(migrated) < row["kill"]["router"][
+                "fleet_migrations_total"]):
+        problems.append("(c) migrated_traces missed a migrated request or "
+                        "one did not stitch cleanly")
     row["workers"] = _worker_summaries(os.path.join(work, "fleet"))
     row["flash_fwd_launches"] = sum(
         s.get("flash_fwd_launches", 0) for w in row["workers"].values()
@@ -6261,6 +6387,425 @@ def phase_actors(torch) -> dict:
     return row
 
 
+#: The obs phase. (a) ``cli train`` with ``obs.enabled`` on the flagship
+#: (``OBS_TRAIN``: every chunk read back, no cadence checkpoint) over a
+#: series of ``OBS_CHUNKS`` chunks; (b) the same config in this process from
+#: one seeded state, obs off, on, on, off (``OBS_TURNS``), each run an
+#: episode of ``OBS_TURN_CHUNKS`` chunks (the eager first chunk and the
+#: capture) and then a second episode of replays only, the first off and
+#: the first on turn's under ``torch.profiler`` (its parse of a graph's
+#: ~74,000 kernels a replay takes seconds, so the later turns run
+#: unprofiled and give the replay times); (c) the
+#: flagship served with obs on and off in turns at ``SLO_SESSIONS``, then an
+#: open-loop overload (``OBS_OVERLOAD``); (e) a supervised restart of the
+#: reference workload with obs on.
+OBS_CHUNKS = 4
+OBS_TURN_CHUNKS = 2
+OBS_TURNS = (False, True, True, False)
+OBS_TRAIN = FLAGSHIP_TRAIN + ["runtime.metrics_every_chunks=1",
+                              "runtime.checkpoint_every_updates=0"]
+OBS_SERVE = {"max_queue": 256, "shed_policy": "oldest",
+             "stats_interval_s": 0.5}
+OBS_LOOP_S = 2.0
+OBS_OVERLOAD_SESSIONS = 320
+OBS_OVERLOAD_QUEUE = 64
+OBS_OVERLOAD_S = 1.0
+OBS_FAULT_CHUNK = 1
+#: CUDA runtime calls that wait for the device, counted from
+#: ``torch.profiler``'s CUDA API events; device-to-host copies are its
+#: ``Memcpy DtoH`` device events.
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+               "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def _obs_series(chunks: int) -> str:
+    return f"data.synthetic_length={chunks * 1024 + 201}"
+
+
+def _trace_events(run_dir: str) -> list[dict]:
+    from sharetrade_tpu_torch.obs import read_trace
+    return read_trace(os.path.join(run_dir, "trace.jsonl"))
+
+
+def _obs_cli_train(torch, problems: list) -> dict:
+    """(a): ``cli train`` with obs on, and ``cli obs --dir`` on its run."""
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.obs import parse_prom_text
+    from sharetrade_tpu_torch.obs.manifest import config_hash
+
+    work = _fresh_dir("obs-train-")
+    obs_dir = os.path.join(work, "obs")
+    sets = OBS_TRAIN + [_obs_series(OBS_CHUNKS), "obs.enabled=true",
+                        f"obs.dir={obs_dir}",
+                        f"runtime.checkpoint_dir={os.path.join(work, 'ck')}"]
+    cmd = [sys.executable, "-m", "sharetrade_tpu_torch.cli", "train"]
+    for item in sets:
+        cmd += ["--set", item]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=work, env=_cli_env())
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    summary = json.loads(lines[-1]) if lines else {}
+    row = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+           "summary": summary}
+    if proc.returncode != 0 or summary.get("env_steps") != OBS_CHUNKS * 1024:
+        problems.append("(a) cli train with obs did not complete its "
+                        f"{OBS_CHUNKS} chunks")
+        row["stderr_tail"] = proc.stderr[-2000:]
+        return row
+    events = _trace_events(obs_dir)
+    chunks = {name: sorted(e["args"]["chunk"] for e in events
+                           if e["name"] == name and e["ph"] == "X")
+              for name in ("dispatch", "readback", "host_process")}
+    row["span_chunks"] = chunks
+    if any(c != list(range(OBS_CHUNKS)) for c in chunks.values()):
+        problems.append("(a) a chunk lacks its dispatch / readback / "
+                        "host_process span")
+    with open(os.path.join(obs_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    want_hash = config_hash(FrameworkConfig().apply_overrides(sets))
+    row["manifest"] = {k: manifest.get(k) for k in (
+        "config_hash", "backend", "device_count", "device_name",
+        "torch_version")}
+    if (manifest.get("device_name") != torch.cuda.get_device_name(0)
+            or manifest.get("backend") != "cuda"
+            or manifest.get("config_hash") != want_hash):
+        problems.append("(a) manifest.json does not name the card and the "
+                        "config's hash")
+    with open(os.path.join(obs_dir, "metrics.prom")) as f:
+        prom = parse_prom_text(f.read())
+    seconds = prom["histograms"].get("sharetrade_train_chunk_seconds", {})
+    row["train_chunk_seconds_count"] = seconds.get("count")
+    if seconds.get("count") != OBS_CHUNKS:
+        problems.append("(a) train_chunk_seconds does not count the chunks")
+    shown = subprocess.run(
+        [sys.executable, "-m", "sharetrade_tpu_torch.cli", "obs", "--dir",
+         obs_dir], capture_output=True, text=True, timeout=120, cwd=work,
+        env={**_cli_env(), "CUDA_VISIBLE_DEVICES": ""})
+    sections = (sorted(json.loads(shown.stdout)) if shown.returncode == 0
+                else [])
+    row["cli_obs_sections"] = sections
+    if not {"manifest", "trace", "metrics"} <= set(sections):
+        problems.append("(a) cli obs --dir lacks the manifest, trace or "
+                        "metrics section")
+    launches = summary.get("kernel_launches", {})
+    row["launches_per_chunk"] = {k: launches.get(k, 0) / OBS_CHUNKS
+                                 for k in KERNELS}
+    return row
+
+
+def _profile_counts(prof) -> dict:
+    syncs = d2h = 0
+    for ev in prof.key_averages():
+        if ev.key in _SYNC_CALLS:
+            syncs += ev.count
+        elif ev.key.startswith("Memcpy DtoH"):
+            d2h += ev.count
+    return {"syncs": syncs, "d2h_copies": d2h}
+
+
+def _obs_turn(torch, obs_on: bool, profiled: bool, prices,
+              work: str) -> dict:
+    """One turn of (b): an episode from the seeded state (eager first
+    chunk, capture, replays), then an episode of replays, each dispatch
+    bracketed by CUDA events, under ``torch.profiler`` when
+    ``profiled``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.models.core import tree_leaves
+    from sharetrade_tpu_torch.runtime import Orchestrator
+
+    import tempfile
+    turn_dir = tempfile.mkdtemp(prefix="turn-", dir=work)
+    sets = OBS_TRAIN + [_obs_series(OBS_TURN_CHUNKS),
+                        f"runtime.checkpoint_dir={turn_dir}/ck"]
+    if obs_on:
+        sets += ["obs.enabled=true", f"obs.dir={turn_dir}/obs"]
+    cfg = FrameworkConfig().apply_overrides(sets)
+    orch = Orchestrator(cfg, device="cuda")
+    try:
+        orch.send_training_data(prices)
+        orch.start_training(background=False)
+        marks: list = []
+        dispatch = orch._dispatch
+
+        def timed(k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = dispatch(k)
+            end.record()
+            marks.append((start, end))
+            return out
+
+        orch._dispatch = timed
+        torch.cuda.synchronize()
+        before = _all_launch_counts()
+        t_prof = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            orch.start_training(background=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = _all_launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        done = orch.is_everything_done().state.name
+        counts = _profile_counts(prof) if profiled else None
+        profiler_s = time.perf_counter() - t_prof - wall
+        chunk_ms = [a.elapsed_time(b) for a, b in marks]
+        params = [t.detach().clone() for t in tree_leaves(
+            orch.train_state.params)]
+        nodes = orch._program.nodes
+    finally:
+        orch.stop()
+    chunks = len(marks)
+    return {"obs": obs_on, "profiled": profiled, "done": done,
+            "replays": chunks, "replay_chunk_ms": chunk_ms,
+            "agent_steps_per_s": (cfg.parallel.num_workers
+                                  * cfg.runtime.chunk_steps * chunks / wall),
+            "episode_wall_s": wall, "profiler_s": profiler_s,
+            "graph_nodes": nodes,
+            "launches_per_chunk": {k: v / max(chunks, 1)
+                                   for k, v in launches.items()},
+            "per_chunk": ({k: v / max(chunks, 1) for k, v in counts.items()}
+                          if counts else None),
+            "counts": counts, "_params": params}
+
+
+def _obs_turns(torch, problems: list) -> dict:
+    """(b): obs off, on, on, off from one seeded state."""
+    from sharetrade_tpu_torch.config import FrameworkConfig
+
+    work = _fresh_dir("obs-turns-")
+    prices = _prices(FrameworkConfig().apply_overrides(
+        OBS_TRAIN + [_obs_series(OBS_TURN_CHUNKS)]).data)
+    turns = [_obs_turn(torch, on, i < 2, prices, work)
+             for i, on in enumerate(OBS_TURNS)]
+    torch.cuda.empty_cache()
+    ref = turns[0]["_params"]
+    for t in turns:
+        params = t.pop("_params")
+        t["params_bit_equal_to_first_off"] = all(
+            torch.equal(a, b) for a, b in zip(params, ref))
+    off = [t for t in turns if not t["obs"]]
+    on = [t for t in turns if t["obs"]]
+    profiled = [t for t in turns if t["profiled"]]
+    row = {"turns": turns}
+    if not all(t["done"] == "COMPLETED" and t["replays"] == OBS_TURN_CHUNKS
+               for t in turns):
+        problems.append("(b) a turn did not replay its episode")
+    if not all(t["params_bit_equal_to_first_off"] for t in turns):
+        problems.append("(b) final parameters differ between obs on and off")
+    if (sorted(t["obs"] for t in profiled) != [False, True]
+            or len({json.dumps(t["per_chunk"], sort_keys=True)
+                    for t in profiled}) != 1):
+        problems.append("(b) device syncs or device-to-host copies per chunk "
+                        "differ with obs on")
+    if off[0]["counts"]["syncs"] <= 0 or off[0]["counts"]["d2h_copies"] <= 0:
+        problems.append("(b) the profiler saw no sync or no device-to-host "
+                        "copy (the count would prove nothing)")
+    if len({json.dumps(t["launches_per_chunk"], sort_keys=True)
+            for t in turns}) != 1 or len({t["graph_nodes"]
+                                          for t in turns}) != 1:
+        problems.append("(b) kernel launches per chunk or graph nodes "
+                        "differ with obs on")
+    # The unprofiled turns' replays: what the chunk costs with obs on / off.
+    row["median_replay_ms"] = {
+        "off": statistics.median(ms for t in off if not t["profiled"]
+                                 for ms in t["replay_chunk_ms"]),
+        "on": statistics.median(ms for t in on if not t["profiled"]
+                                for ms in t["replay_chunk_ms"])}
+    row["agent_steps_per_s"] = {
+        "off": [t["agent_steps_per_s"] for t in off],
+        "on": [t["agent_steps_per_s"] for t in on]}
+    return row
+
+
+def _obs_serve(torch, problems: list) -> dict:
+    """(c): the flagship served with obs off, on, on, off at 192 sessions
+    in closed loop, then an open-loop overload on the obs-on engine."""
+    import dataclasses
+
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.env.trading import obs_dim
+    from sharetrade_tpu_torch.models import build_model
+    from sharetrade_tpu_torch.obs import build_obs
+    from sharetrade_tpu_torch.precision import policy_from_config
+    from sharetrade_tpu_torch.serve import ServeEngine
+    from sharetrade_tpu_torch.serve.driver import (
+        make_sessions, run_closed_loop, run_open_loop)
+    from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+    work = _fresh_dir("obs-serve-")
+    cfg = FrameworkConfig().apply_overrides(FLAGSHIP + [
+        "obs.enabled=true", f"obs.dir={work}/obs",
+        "obs.export_interval_s=1.0"])
+    serve_cfg = dataclasses.replace(cfg.serve, **OBS_SERVE)
+    model = build_model(cfg.model, obs_dim(cfg.env.window), device="cuda")
+    params = model.init(torch.Generator().manual_seed(cfg.seed))
+    policy = policy_from_config(cfg.precision)
+    prices = _prices(cfg.data)
+    engines = {}
+    for on in (False, True):
+        registry = MetricsRegistry()
+        obs = build_obs(cfg, registry, device="cuda") if on else None
+        engine = ServeEngine(model, serve_cfg, params, precision=policy,
+                             registry=registry, obs=obs, obs_cfg=cfg.obs)
+        engine.warmup()
+        engines[on] = (engine, registry, obs)
+    loops = []
+    try:
+        for i, on in enumerate(OBS_TURNS):
+            engine = engines[on][0]
+            stats = run_closed_loop(engine, make_sessions(
+                prices, cfg.env.window, SLO_SESSIONS, seed=10 + i,
+                prefix=f"t{i}-"), concurrency=SLO_SESSIONS,
+                duration_s=OBS_LOOP_S)
+            loops.append({"obs": on, **{k: stats.get(k) for k in (
+                "qps", "p50_ms", "p99_ms", "completed", "failed")}})
+        engine, registry, obs = engines[True]
+        # 320 sessions in flight over a live bound of 64 (set_knobs lowers
+        # it below config): the oldest are shed.
+        engine.set_knobs(max_queue=OBS_OVERLOAD_QUEUE)
+        overload = run_open_loop(engine, make_sessions(
+            prices, cfg.env.window, OBS_OVERLOAD_SESSIONS, seed=20,
+            prefix="ov-"), rate_qps=4.0 * max(lp["qps"] for lp in loops),
+            duration_s=OBS_OVERLOAD_S)
+    finally:
+        for engine, _, _ in engines.values():
+            engine.stop(timeout_s=30.0)
+    obs.close()
+    counters = registry.counters()
+    events = _trace_events(obs.run_dir)
+    envelopes: dict = {}
+    children: dict = {}
+    for e in events:
+        rid = e.get("args", {}).get("request")
+        if rid is None:
+            continue
+        if e["name"] == "serve_request":
+            envelopes[rid] = e
+        else:
+            children.setdefault(rid, []).append(e)
+    outcomes: dict = {}
+    for e in envelopes.values():
+        outcome = e["args"]["outcome"]
+        outcomes[outcome] = outcomes.get(outcome, 0) + 1
+    escaped = sum(
+        1 for rid, kids in children.items() for c in kids
+        if rid not in envelopes or c["ts"] < envelopes[rid]["ts"] - 0.002
+        or c["ts"] + c["dur"] > envelopes[rid]["ts"] + envelopes[rid]["dur"]
+        + 0.002)
+    nested = sum(1 for e in envelopes.values()
+                 if e["args"]["outcome"] == "completed"
+                 and len(children.get(e["args"]["request"], [])) == 4)
+    row = {"loops": loops, "overload": overload,
+           "requests": engine.counters["requests"],
+           "traced_requests": len(envelopes), "outcomes": outcomes,
+           "completed_with_four_stages": nested,
+           "children_outside_envelope": escaped,
+           "decomposition_errors": counters.get(
+               "serve_trace_decomposition_error_total", 0),
+           "shed": counters.get("serve_shed_total", 0),
+           "exemplars_file": os.path.isfile(
+               os.path.join(obs.run_dir, "serve_exemplars.json"))}
+    on = [lp for lp in loops if lp["obs"]]
+    off = [lp for lp in loops if not lp["obs"]]
+    row["qps"] = {"off": [lp["qps"] for lp in off],
+                  "on": [lp["qps"] for lp in on]}
+    row["p99_ms"] = {"off": [lp["p99_ms"] for lp in off],
+                     "on": [lp["p99_ms"] for lp in on]}
+    if not row["exemplars_file"]:
+        problems.append("(c) serve_exemplars.json was not written")
+    if row["decomposition_errors"] != 0:
+        problems.append("(c) serve_trace_decomposition_error_total != 0")
+    if (row["traced_requests"] != row["requests"]
+            or outcomes.get("shed_oldest", 0) != row["shed"]
+            or row["shed"] <= 0):
+        problems.append("(c) not every terminal outcome was traced (or the "
+                        "overload shed nothing)")
+    if escaped or nested != outcomes.get("completed", -1):
+        problems.append("(c) serve_request spans do not nest their stages")
+    return row
+
+
+def _obs_fault(torch, problems: list) -> dict:
+    """(e): a fault at chunk ``OBS_FAULT_CHUNK`` through the fault hook of
+    an obs run of the reference workload: one supervised restart, and the
+    flight bundle names the supervision and the failing chunk."""
+    from sharetrade_tpu_torch.config import FrameworkConfig
+    from sharetrade_tpu_torch.runtime import Orchestrator
+
+    work = _fresh_dir("obs-fault-")
+    cfg = FrameworkConfig().apply_overrides([
+        "data.synthetic_length=803", "obs.enabled=true",
+        f"obs.dir={work}/obs", f"runtime.checkpoint_dir={work}/ck",
+        "runtime.backoff_initial_s=0.01", "runtime.backoff_max_s=0.02"])
+    fired: list = []
+
+    def hook(chunk_idx, row):
+        if chunk_idx == OBS_FAULT_CHUNK and not fired:
+            fired.append(chunk_idx)
+            raise RuntimeError("chip_smoke: injected fault")
+
+    orch = Orchestrator(cfg, device="cuda", fault_hook=hook)
+    try:
+        orch.send_training_data(_prices(cfg.data))
+        orch.start_training(background=False)
+        done = orch.is_everything_done().state.name
+        restarts = orch.restarts
+    finally:
+        orch.stop()
+    with open(os.path.join(work, "obs", "flight_recorder.json")) as f:
+        bundle = json.load(f)
+    row = {"done": done, "restarts": restarts,
+           "reason": bundle.get("reason"),
+           "failing_chunk": bundle.get("failing_chunk"),
+           "events": len(bundle.get("events", []))}
+    if (row["reason"] != "supervision"
+            or row["failing_chunk"] != OBS_FAULT_CHUNK or restarts != 1
+            or done != "COMPLETED"):
+        problems.append("(e) the supervision fault left no bundle naming "
+                        "the supervision and the failing chunk")
+    return row
+
+
+def phase_obs(torch) -> dict:
+    """Telemetry on the card; see the module docstring."""
+    problems: list = []
+    row: dict = {"phase": "obs", "config": OBS_TRAIN}
+    t_phase = time.perf_counter()
+    # The counted window: counts reset just before, read just after; `cli
+    # train` counts in its own process (its summary's counts are added).
+    _reset_launch_counts()
+    by_part: dict = {}
+    for name, part in (("train_cli", _obs_cli_train), ("turns", _obs_turns),
+                       ("serve", _obs_serve), ("fault", _obs_fault)):
+        before = _all_launch_counts()
+        t0 = time.perf_counter()
+        part_row = part(torch, problems)
+        part_row["seconds"] = time.perf_counter() - t0
+        after = _all_launch_counts()
+        by_part[name] = {k: after[k] - before[k] for k in KERNELS}
+        row[name] = part_row
+    by_part["train_cli"] = {k: row["train_cli"].get("summary", {}).get(
+        "kernel_launches", {}).get(k, 0) for k in KERNELS}
+    row["launches_by_part"] = by_part
+    row["launches"] = {k: sum(p[k] for p in by_part.values())
+                       for k in KERNELS}
+    per_chunk = row["train_cli"].get("launches_per_chunk")
+    first_off = row["turns"]["turns"][0]["launches_per_chunk"]
+    if per_chunk != {k: first_off.get(k, 0) for k in KERNELS}:
+        problems.append("(a) cli train's launches per chunk with obs differ "
+                        "from the obs-off run's")
+    row["seconds"] = time.perf_counter() - t_phase
+    row["problems"] = problems
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -6421,13 +6966,20 @@ def _run_phases(torch, phases: list[str]) -> int:
             print(f"chip_smoke: actors and the flywheel failed: "
                   f"{results['actors']['problems']}", file=sys.stderr)
             return 1
+    if "obs" in phases:
+        results["obs"] = _timed("obs", phase_obs, torch)
+        _print(results["obs"])
+        if results["obs"]["problems"]:
+            print(f"chip_smoke: telemetry failed: "
+                  f"{results['obs']['problems']}", file=sys.stderr)
+            return 1
     if "profile" in phases:
         _print(phase_profile(torch))
     _print({"phase_seconds": seconds})
     if "kernels" in phases and {"serve", "serve_tiers", "serve_slo", "train",
                                 "resilience", "reference", "pipeline",
                                 "journal", "families", "fleet",
-                                "remat_moe", "actors"} & set(phases):
+                                "remat_moe", "actors", "obs"} & set(phases):
         _print(kernels_line(results))
     _print({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,7 @@ the writer's time (``writer_ms``) and the payload's bytes.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import io
 import json
@@ -268,7 +269,7 @@ def _torch_dtype(a: np.ndarray, stored: str | None) -> torch.dtype:
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3, fsync: bool = True,
-                 precision_mode: str | None = None):
+                 precision_mode: str | None = None, tracer: Any = None):
         self.directory = directory
         self.keep = keep
         #: Precision contract of the run, stamped into every save's
@@ -289,7 +290,23 @@ class CheckpointManager:
         self._inflight = 0
         self._cv = threading.Condition()
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
+        #: Optional obs ``SpanTracer`` (settable post-construction): save,
+        #: snapshot and restore phases land in the host trace, including
+        #: writes on the writer thread (the tracer is thread-safe).
+        self.tracer = tracer
         self._sweep_stale_tmp()
+
+    def _span(self, name: str, **args: Any):
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, **args)
+
+    def _instant(self, name: str, **args: Any) -> None:
+        if self.tracer is not None:
+            try:
+                self.tracer.instant(name, **args)
+            except Exception:
+                pass        # observability never outranks the checkpoint
 
     # ---- crashed writers ----
 
@@ -405,8 +422,10 @@ class CheckpointManager:
     def save(self, step: int, train_state: Any,
              metadata: dict[str, Any] | None = None) -> str:
         """Write a step checkpoint now, on the caller's thread."""
-        arrays, dtypes = encode_train_state(train_state_leaves(train_state))
-        return self._write_step(step, arrays, dtypes, metadata, {})
+        with self._span("checkpoint_save", step=int(step)):
+            arrays, dtypes = encode_train_state(
+                train_state_leaves(train_state))
+            return self._write_step(step, arrays, dtypes, metadata, {})
 
     def save_tagged(self, tag: str, train_state: Any,
                     metadata: dict[str, Any] | None = None) -> str:
@@ -473,7 +492,8 @@ class CheckpointManager:
         encoding, hashing and disk IO run on a writer thread. Call
         :meth:`wait_pending` before reading the directory."""
         t0 = time.perf_counter()
-        host, events = self._to_host(train_state_leaves(train_state))
+        with self._span("checkpoint_snapshot", step=int(step)):
+            host, events = self._to_host(train_state_leaves(train_state))
         stats = {"loop_ms": (time.perf_counter() - t0) * 1e3}
         if self._worker is None:
             self._queue = queue.Queue()
@@ -502,12 +522,13 @@ class CheckpointManager:
     def _write_job(self, step: int, host: dict[str, Any], events,
                    metadata: dict[str, Any] | None,
                    stats: dict[str, Any]) -> None:
-        if events is not None:
-            start, done = events
-            done.synchronize()
-            stats["d2h_ms"] = start.elapsed_time(done)
-        arrays, dtypes = encode_train_state(host)
-        self._write_step(step, arrays, dtypes, metadata, stats)
+        with self._span("checkpoint_save", step=int(step)):
+            if events is not None:
+                start, done = events
+                done.synchronize()
+                stats["d2h_ms"] = start.elapsed_time(done)
+            arrays, dtypes = encode_train_state(host)
+            self._write_step(step, arrays, dtypes, metadata, stats)
 
     def wait_pending(self, timeout: float | None = None) -> bool:
         """Block until every queued or mid-write async save is on disk."""
@@ -623,6 +644,7 @@ class CheckpointManager:
             log.exception("failed to quarantine corrupt checkpoint %s", path)
             return
         self.counters["ckpt_quarantined_total"] += 1
+        self._instant("ckpt_quarantined", label=str(label), reason=reason)
         log.error("quarantined corrupt checkpoint %s -> %s (%s)",
                   os.path.basename(path), os.path.basename(dest), reason)
 
@@ -679,17 +701,18 @@ class CheckpointManager:
                                         f"{self.directory}")
             _refuse_foreign(path)
             t0 = time.perf_counter()
-            try:
-                state, meta = self._load_verified(path, template)
-            except CheckpointIntegrityError as exc:
-                self._quarantine(path, f"{s:010d}", exc.reason)
-                skipped.append((s, exc.reason))
-                if explicit:
-                    raise CheckpointCorruptError(
-                        f"checkpoint step={s} failed verification "
-                        f"({exc.reason}); quarantined") from exc
-                self.counters["ckpt_restore_fallbacks_total"] += 1
-                continue
+            with self._span("checkpoint_restore", step=int(s)):
+                try:
+                    state, meta = self._load_verified(path, template)
+                except CheckpointIntegrityError as exc:
+                    self._quarantine(path, f"{s:010d}", exc.reason)
+                    skipped.append((s, exc.reason))
+                    if explicit:
+                        raise CheckpointCorruptError(
+                            f"checkpoint step={s} failed verification "
+                            f"({exc.reason}); quarantined") from exc
+                    self.counters["ckpt_restore_fallbacks_total"] += 1
+                    continue
             self.last_restore_report = {
                 "step": int(s), "skipped": skipped, "meta": meta,
                 "seconds": time.perf_counter() - t0}

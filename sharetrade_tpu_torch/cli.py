@@ -20,6 +20,8 @@
         [--device cuda|cpu] [--max-chunks N]
     python -m sharetrade_tpu_torch.cli query [--config cfg.json]
         [--set section.key=value ...] [--symbol MSFT] [--start D] [--end D]
+    python -m sharetrade_tpu_torch.cli obs [--dir obs] [--trace list|ID
+        [--out trace.json]] [--history N]
 
 Every command reads its prices through the event-sourced data service
 (``data/service.py``): fetches are journaled to
@@ -81,7 +83,7 @@ carries the JAX summary's telemetry keys: ``controller_adjustments``, the
 per-stage p99s of the engine's histograms (``stage_p99_ms``), the three
 slowest requests with their stage split (``slowest``) and, with
 ``obs.slo_*`` set, the last burn rates (``slo_availability_burn``,
-``slo_latency_burn``). ``obs.enabled`` is refused.
+``slo_latency_burn``).
 
 ``serve --listen HOST:PORT`` is the fleet's worker mode (fleet/frontend.py):
 instead of synthetic load the engine serves the fleet wire protocol
@@ -108,8 +110,7 @@ served sessions write under ``distrib.actor_dir`` (``fleet/flywheel.py``)
 and republishes ``tag_best``, which the engines' swap watchers take;
 ``fleet_ready`` says ``"learner": true``, and the summary adds
 ``learner_updates``, ``rows_ingested``, ``learner_restarts`` and the
-learner's ``kernel_launches``. Refused with exit code 2: ``obs.enabled``
-(fleet tracing, ROADMAP item 13).
+learner's ``kernel_launches``.
 
 ``learner`` is the disaggregated topology's learner (``distrib.num_actors``
 >= 1, ``learner.algo=dqn``): it supervises ``distrib.num_actors`` ``cli
@@ -146,12 +147,28 @@ it. It prints ``actor_ready`` (``params_step``, ``journal``), then on a stop
 ``tools/torch_autotune.py``) as the JAX package does: registered knobs
 still at their defaults take the profile's values, explicit ones win.
 
+Telemetry (``--set obs.enabled=true``, ``obs.dir``; the JAX package's run
+directory format): ``train`` and ``learner`` write through the
+orchestrator (``manifest.json``, ``trace.jsonl``, ``metrics.jsonl``,
+``metrics.prom``, ``flight_recorder.json`` on a supervision fault or a
+preemption); ``serve`` (``--listen`` too) through the engine (request
+spans, ``serve_exemplars.json``, its flight events); ``fleet`` writes the
+router's run directory, defaults ``obs.span_dir`` to ``<obs.dir>/spans``
+(``obs.span_proc`` ``fleet``; the workers journal there as
+``engine-<id>`` with obs otherwise off), and its ``--learner`` writes to
+``<obs.dir>/learner``. ``actor`` keeps obs off. ``obs`` summarises a run
+directory written by either package (``--dir``), stitches a cross-process
+trace from ``<dir>/spans`` (``--trace list`` or ``--trace ID``, ``--out``
+for a Perfetto file) or summarises the fleet's telemetry history
+(``--history N``, ``--dir`` the fleet's workdir); it touches no device.
+
 A ``ConfigError`` (a refused knob, an impossible value; a missing, torn or
 foreign profile is a ``ProfileError``) exits 2 with its message.
+``obs.roofline`` and ``runtime.profile_dir`` are refused (ROADMAP item 13b).
 
 The device is ``cuda`` unless ``--device`` says otherwise; without a GPU
 and without ``--device cpu`` the command fails with a message saying so.
-Not yet ported: ``obs`` and ``--mesh``.
+Not yet ported: ``--mesh``.
 """
 
 from __future__ import annotations
@@ -433,6 +450,7 @@ def cmd_serve(args) -> int:
     from sharetrade_tpu_torch.data.service import PriceDataService
     from sharetrade_tpu_torch.device import resolve_device
     from sharetrade_tpu_torch.env.trading import make_trading_env
+    from sharetrade_tpu_torch.obs import build_obs
     from sharetrade_tpu_torch.precision import policy_from_config
     from sharetrade_tpu_torch.runtime.orchestrator import (
         SERVE_REFUSED, check_ported)
@@ -468,7 +486,7 @@ def cmd_serve(args) -> int:
 
     prev_handlers = {s: signal.signal(s, _on_signal)
                      for s in (signal.SIGTERM, signal.SIGINT)}
-    engine = service = watcher = controller = frontend = None
+    engine = service = watcher = controller = frontend = obs = None
     try:
         service = PriceDataService(config=cfg.data)
         prices = service.request(args.symbol.split(",")[0].strip(),
@@ -491,17 +509,20 @@ def cmd_serve(args) -> int:
         else:
             params, step, boot_meta = _serve_boot_params(cfg, template,
                                                          manager)
-        registry = MetricsRegistry()
+        registry = MetricsRegistry(
+            max_points=cfg.obs.max_metric_points or None)
+        obs = build_obs(cfg, registry, device=device)
         engine = ServeEngine(model, cfg.serve, params, params_step=step,
                              precision=policy_from_config(cfg.precision),
-                             registry=registry, obs_cfg=cfg.obs)
+                             registry=registry, obs=obs, obs_cfg=cfg.obs)
         engine.warmup()
         if cfg.tuning.serve_controller:
             # Hold tuning.target_p99_ms by moving batch_timeout_ms and
             # max_queue below their configured values.
             controller = ServeController(
                 engine, target_p99_ms=cfg.tuning.target_p99_ms,
-                interval_s=cfg.tuning.controller_interval_s).start()
+                interval_s=cfg.tuning.controller_interval_s,
+                obs=obs).start()
         if cfg.serve.swap_poll_s > 0:
             watcher = WeightSwapWatcher(
                 engine, manager or (lambda: _checkpoints(cfg)), template,
@@ -518,7 +539,8 @@ def cmd_serve(args) -> int:
                           "swap_watcher": watcher is not None}), flush=True)
 
         if args.listen:
-            frontend = _listen(cfg, engine, registry, args.listen, step)
+            frontend = _listen(cfg, engine, registry, args.listen, step,
+                               obs.spans)
             deadline = (time.monotonic() + args.duration
                         if args.duration > 0 else None)
             while not stop_evt.is_set():
@@ -561,6 +583,7 @@ def cmd_serve(args) -> int:
             except Exception:   # noqa: BLE001
                 log.exception("drain page-out failed; this engine's "
                               "sessions will restart cold elsewhere")
+        obs.flush()
         summary = _serve_summary(engine, registry, stats, device=device,
                                  drained=drained,
                                  stopped_clean=stopped_clean,
@@ -582,24 +605,32 @@ def cmd_serve(args) -> int:
             watcher.stop()
         if engine is not None:
             engine.stop(drain=False, timeout_s=5.0)
+        if obs is not None:
+            obs.close()
         if service is not None:
             service.close()
 
 
-def _listen(cfg, engine, registry, address: str, step: int):
+def _listen(cfg, engine, registry, address: str, step: int, spans):
     """Serve ``engine`` on the fleet wire at ``address`` (``HOST:PORT``)
-    and print the ``engine_listening`` line the engine pool waits for."""
+    and print the ``engine_listening`` line the engine pool waits for.
+    ``spans`` (the run's span sink, ``obs.span_dir``): the engine's spans
+    of traced requests are journaled there, parented under the router's
+    attempt span from the wire headers (a sink-less tracer parses them)."""
     from sharetrade_tpu_torch.fleet import EngineBackend, ServeFrontend
     from sharetrade_tpu_torch.fleet import proto
+    from sharetrade_tpu_torch.fleet.wire import WireTracer
 
     # The parse/render rung before the front-end starts ("native" falls
     # back to "py" with one loud line: the port has no native rung).
     proto.set_backend(cfg.fleet.proto_backend)
     host, _, port = address.rpartition(":")
     frontend = ServeFrontend(
-        EngineBackend(engine, request_timeout_s=cfg.fleet.request_timeout_s),
+        EngineBackend(engine, request_timeout_s=cfg.fleet.request_timeout_s,
+                      spans=spans),
         registry, host=host or "127.0.0.1", port=int(port or 0),
-        wire_backend=cfg.fleet.wire_backend).start()
+        wire_backend=cfg.fleet.wire_backend,
+        tracer=WireTracer() if spans is not None else None).start()
     print(json.dumps({"event": "engine_listening", "host": frontend.host,
                       "port": frontend.port, "pid": os.getpid(),
                       "proto_backend": proto.proto_backend,
@@ -828,6 +859,8 @@ def cmd_fleet(args) -> int:
     from sharetrade_tpu_torch.fleet import (
         EnginePool, FleetRouter, ServeFrontend, proto)
     from sharetrade_tpu_torch.fleet.autoscale import EngineAutoscaler
+    from sharetrade_tpu_torch.fleet.wire import WireTracer
+    from sharetrade_tpu_torch.obs import build_obs
     from sharetrade_tpu_torch.ops import attention, fused_update
     from sharetrade_tpu_torch.runtime.orchestrator import (
         SERVE_REFUSED, Orchestrator, check_ported)
@@ -858,6 +891,10 @@ def cmd_fleet(args) -> int:
             cfg.data.journal_segment_records = 256
         learner_cfg = FrameworkConfig.from_dict(cfg.to_dict())
         learner_cfg.distrib.ingest_without_pool = True
+        if learner_cfg.obs.enabled:
+            # The learner's own run directory beside the fleet's: two
+            # exporters never share one manifest or metrics file.
+            learner_cfg.obs.dir = os.path.join(cfg.obs.dir, "learner")
         check_ported(learner_cfg)
     if device.type == "cuda":
         # Once, before any worker starts: each worker would otherwise spend
@@ -865,7 +902,7 @@ def cmd_fleet(args) -> int:
         from sharetrade_tpu_torch.ops import cuda_build
         cuda_build.build_all()
 
-    pool = router = frontend = autoscaler = orch = service = None
+    pool = router = frontend = autoscaler = orch = service = obs = None
     stop_evt = threading.Event()
     preempted: list[float] = []
 
@@ -889,7 +926,15 @@ def cmd_fleet(args) -> int:
     prev_handlers = {s: signal.signal(s, _on_signal)
                      for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        registry = MetricsRegistry()
+        registry = MetricsRegistry(
+            max_points=cfg.obs.max_metric_points or None)
+        if cfg.obs.enabled and cfg.obs.trace and not cfg.obs.span_dir:
+            # Fleet-wide tracing: one shared spans dir; this process
+            # journals as "fleet", each worker as "engine-<id>" (the pool
+            # hands the workers the same dir).
+            cfg.obs.span_dir = os.path.join(cfg.obs.dir, "spans")
+            cfg.obs.span_proc = cfg.obs.span_proc or "fleet"
+        obs = build_obs(cfg, registry, device=device)
         # The router's own front-end and relay legs frame through the same
         # rung the workers pick from this config.
         proto.set_backend(cfg.fleet.proto_backend)
@@ -899,14 +944,18 @@ def cmd_fleet(args) -> int:
         if preempted:
             pool.quiesce()
         router = FleetRouter(pool, cfg.fleet, registry,
-                             workdir=cfg.fleet.dir, obs_cfg=cfg.obs).start()
-        frontend = ServeFrontend(router, registry, host=cfg.fleet.host,
-                                 port=cfg.fleet.port,
-                                 wire_backend=cfg.fleet.wire_backend).start()
+                             workdir=cfg.fleet.dir, obs_cfg=cfg.obs,
+                             obs=obs).start()
+        frontend = ServeFrontend(
+            router, registry, host=cfg.fleet.host, port=cfg.fleet.port,
+            wire_backend=cfg.fleet.wire_backend,
+            tracer=(WireTracer(obs.spans, mint=True)
+                    if obs.spans is not None else None)).start()
         if cfg.fleet.autoscale:
             autoscaler = EngineAutoscaler(pool, cfg.fleet,
                                           workdir=cfg.fleet.dir,
-                                          registry=registry).start()
+                                          registry=registry,
+                                          obs=obs).start()
         if learner_cfg is not None:
             service = PriceDataService(config=cfg.data)
             prices = service.request(args.symbol.split(",")[0].strip(),
@@ -948,6 +997,7 @@ def cmd_fleet(args) -> int:
         pool.stop(grace_s=grace)
         if orch is not None:
             orch.stop()
+        obs.flush()
         counters = registry.counters()
         summary = {
             "requests": int(counters.get("fleet_requests_total", 0)),
@@ -989,8 +1039,76 @@ def cmd_fleet(args) -> int:
             pool.stop(grace_s=10.0)
         if orch is not None:
             orch.stop()
+        if obs is not None:
+            obs.close()
         if service is not None:
             service.close()
+
+
+def cmd_obs(args) -> int:
+    """Summarise a telemetry run directory of either package: the manifest,
+    the span aggregates of the Chrome trace, the metrics tail and the
+    flight bundle's verdict. ``--trace ID`` (``--trace list``) stitches one
+    cross-process trace from the span journals under ``<dir>/spans``
+    (``--out`` renders it for Perfetto); ``--history N`` summarises the
+    fleet router's last N telemetry rows (``fleet_history.jsonl`` under
+    ``--dir``, the fleet's workdir for this flag)."""
+    from sharetrade_tpu_torch.obs import summarize_run_dir
+    from sharetrade_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    if args.trace:
+        from sharetrade_tpu_torch.obs import collect
+        spans_dir = os.path.join(args.dir, "spans")
+        if not os.path.isdir(spans_dir):
+            log.error("no span journals under %s (run `cli fleet` with "
+                      "obs.enabled=true)", spans_dir)
+            return 1
+        if args.trace == "list":
+            ids = collect.trace_ids(collect.read_span_dir(spans_dir))
+            print(json.dumps({"spans_dir": spans_dir, "traces": ids},
+                             indent=2))
+            return 0
+        stitched = collect.collect_trace(spans_dir, args.trace,
+                                         out=args.out)
+        if not stitched["spans"]:
+            log.error("trace %s not found under %s (try --trace list)",
+                      args.trace, spans_dir)
+            return 1
+        view = {"trace_id": stitched["trace_id"],
+                "procs": stitched["procs"],
+                "errors": stitched["errors"],
+                "spans": [{k: s.get(k) for k in
+                           ("name", "proc", "span", "parent", "ts_us",
+                            "dur_us", "note") if k in s}
+                          for s in stitched["spans"]]}
+        if "perfetto" in stitched:
+            view["perfetto"] = stitched["perfetto"]
+        print(json.dumps(view, indent=2))
+        return 0 if not stitched["errors"] else 1
+    if args.history is not None:
+        from sharetrade_tpu_torch.obs.tsdb import (
+            FLEET_HISTORY_FILE, read_history, summarize_history)
+        path = os.path.join(args.dir, FLEET_HISTORY_FILE)
+        rows = read_history(path, last_n=max(0, args.history))
+        if not rows:
+            log.error("no telemetry history at %s (the fleet router "
+                      "writes it next to fleet_status.json)", path)
+            return 1
+        print(json.dumps({"path": path, **summarize_history(rows)},
+                         indent=2))
+        return 0
+    if not os.path.isdir(args.dir):
+        log.error("no run dir at %s (train with --set obs.enabled=true "
+                  "--set obs.dir=%s first)", args.dir, args.dir)
+        return 1
+    summary = summarize_run_dir(args.dir)
+    if len(summary) <= 1:   # only {"run_dir": ...}: nothing telemetric
+        log.error("%s contains no telemetry artifacts "
+                  "(manifest.json/trace.jsonl/metrics.jsonl)", args.dir)
+        return 1
+    print(json.dumps(summary, indent=2))
+    return 0
 
 
 def cmd_query(args) -> int:
@@ -1110,6 +1228,21 @@ def main(argv=None) -> int:
     p.add_argument("--start", default=None)
     p.add_argument("--end", default=None)
     p.set_defaults(fn=cmd_query)
+    p = sub.add_parser("obs", help="summarise a telemetry run directory")
+    p.add_argument("--dir", default="obs",
+                   help="run dir written with obs.enabled (for --history: "
+                        "the fleet workdir holding fleet_history.jsonl)")
+    p.add_argument("--trace", default=None, metavar="TRACE_ID",
+                   help="stitch one cross-process trace from the span "
+                        "journals under <dir>/spans ('list' enumerates "
+                        "trace ids)")
+    p.add_argument("--out", default=None,
+                   help="with --trace: write the stitched trace as "
+                        "Perfetto/Chrome trace-event JSON here")
+    p.add_argument("--history", type=int, default=None, metavar="N",
+                   help="summarise the newest N fleet telemetry-history "
+                        "rows (0 = all retained)")
+    p.set_defaults(fn=cmd_obs)
     args = parser.parse_args(argv)
     from sharetrade_tpu_torch.config import ConfigError
     from sharetrade_tpu_torch.utils.logging import configure

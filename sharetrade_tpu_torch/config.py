@@ -14,8 +14,7 @@ schema, kept whole so that every config file and ``--set`` key valid there is
 valid here too. On the ported path, a knob set to a behaviour the port does
 not implement yet is refused by the code that reads it
 (``models.build_model``, ``serve.engine.ServeEngine``,
-``runtime.orchestrator.check_ported``); sections of subsystems not ported
-yet (fleet, distrib, ...) are read by nothing.
+``runtime.orchestrator.check_ported``).
 """
 
 from __future__ import annotations

@@ -24,8 +24,9 @@ engines of the other.
 - **flywheel.py** — served sessions that journal their transitions for
   the learner's feed ingest (``cli fleet --learner``).
 
-``cli fleet`` boots the whole tier. Not ported: trace spans and the native
-wire rung (ROADMAP item 13).
+``cli fleet`` boots the whole tier; its processes journal their trace spans
+(``obs.span_dir``) for ``obs/collect.py`` to stitch. Not ported: the native
+wire rung (ROADMAP item 13c).
 """
 
 from sharetrade_tpu_torch.fleet.evloop import EvloopFrontend

@@ -1,11 +1,11 @@
 """Fleet autoscaler: the telemetry loop closed into fleet MEMBERSHIP.
 
-A copy of the JAX package's ``fleet/autoscale.py`` (without its flight-ring
-events, which wait for ``obs.enabled``). The router appends its gauge row
-(fleet SLO availability burn, aggregate queue depth, overload, live-engine
-count) to the bounded on-disk history ring every poll (obs/tsdb.py,
-``fleet_history.jsonl``). This module is the actuator: a controller thread
-that reads that ring and drives :meth:`EnginePool.scale`:
+A copy of the JAX package's ``fleet/autoscale.py``. The router appends its
+gauge row (fleet SLO availability burn, aggregate queue depth, overload,
+live-engine count) to the bounded on-disk history ring every poll
+(obs/tsdb.py, ``fleet_history.jsonl``). This module is the actuator: a
+controller thread that reads that ring and drives
+:meth:`EnginePool.scale`:
 
 - **signals, windowed**: the last ``fleet.autoscale_window`` history
   rows. Scale-up wants SUSTAINED pressure — mean availability burn at
@@ -38,9 +38,10 @@ overload key as quiet, and a missing file or short ring as "not enough
 evidence: hold".
 
 Every decision is visible: ``fleet_autoscale_target`` gauge,
-``fleet_autoscale_up_total`` / ``fleet_autoscale_down_total`` counters and
-an atomically rewritten ``fleet_autoscale.json`` (target, actual, last
-decision + reason).
+``fleet_autoscale_up_total`` / ``fleet_autoscale_down_total`` counters, an
+atomically rewritten ``fleet_autoscale.json`` (target, actual, last
+decision + reason; the ``cli obs`` "sessions" section), and a flight-ring
+event per applied scaling when obs is attached.
 
 Deterministic by construction: :meth:`step` takes a fake ``now``,
 :meth:`decide` is a pure function of (rows, current target), and tests
@@ -68,7 +69,7 @@ AUTOSCALE_STATE_FILE = "fleet_autoscale.json"
 
 class ScaleDecision(NamedTuple):
     """One applied membership change (the :meth:`EngineAutoscaler.step`
-    return value)."""
+    return value and the flight-ring payload)."""
 
     action: str                 # "up" | "down"
     target: int
@@ -82,7 +83,7 @@ class EngineAutoscaler:
 
     def __init__(self, pool: Any, cfg: FleetConfig, *,
                  workdir: str | None = None, registry: Any = None,
-                 clock=time.monotonic):
+                 obs: Any = None, clock=time.monotonic):
         if cfg.min_engines < 1:
             raise ConfigError(
                 f"fleet.min_engines must be >= 1, got {cfg.min_engines}")
@@ -115,6 +116,7 @@ class EngineAutoscaler:
         self.ceiling = int(ceiling)
         self.dir = workdir or cfg.dir
         self.registry = registry
+        self._obs = obs
         self._clock = clock
         self._last_step = clock()
         #: Monotonic stamp of the last APPLIED scaling (the cooldown
@@ -251,6 +253,10 @@ class EngineAutoscaler:
                          action, current, target, reason)
                 if self.registry is not None:
                     self.registry.inc(f"fleet_autoscale_{action}_total")
+                if self._obs is not None:
+                    self._obs.record("fleet_autoscale", action=action,
+                                     engines_from=current,
+                                     engines_to=target, reason=reason)
                 current = target
         if self.registry is not None:
             self.registry.record_many({
@@ -260,7 +266,8 @@ class EngineAutoscaler:
         return applied
 
     def _write_state(self, target: int, actual: int) -> None:
-        """Atomically rewrite the autoscaler state file."""
+        """Atomically rewrite the autoscaler state file (cli obs's
+        source for the autoscaler half of the "sessions" section)."""
         if not self.dir:
             return
         path = os.path.join(self.dir, AUTOSCALE_STATE_FILE)

@@ -3,9 +3,9 @@
 One thread, one ``selectors`` loop (epoll/kqueue via DefaultSelector),
 thousands of keep-alive connections, ZERO threads per in-flight request
 — no GIL convoy of blocking wire threads as in the threaded front-end. A
-copy of the JAX package's ``fleet/evloop.py`` without its trace spans
-(they wait for ``obs.enabled``). All HTTP framing lives in the sans-IO fleet/proto.py;
-this module owns only the I/O mechanics:
+copy of the JAX package's ``fleet/evloop.py``, trace spans included. All
+HTTP framing lives in the sans-IO fleet/proto.py; this module owns only
+the I/O mechanics:
 
 - :class:`EventLoop` — a minimal reactor: non-blocking sockets under a
   DefaultSelector, a socketpair waker for cross-thread ``post()``, and
@@ -334,6 +334,7 @@ class _ServerConn(_Conn):
         self.busy = False
         self.tracked = False        # current request counts in-flight
         self.cur_keep_alive = True
+        self.cur_tctx = None        # current request's trace context
         self._pumping = False
 
     def on_bytes(self, data: bytes) -> None:
@@ -385,7 +386,8 @@ class _EngineCall:
     """One request parked on the local engine's completion callback —
     the evloop replacement for a handler thread's ``handle.wait``."""
 
-    __slots__ = ("fe", "conn", "handle", "timer", "timeout_s", "done")
+    __slots__ = ("fe", "conn", "handle", "timer", "timeout_s", "tctx",
+                 "done")
 
     def __init__(self, fe: "EvloopFrontend", conn: _ServerConn,
                  timeout_s: float) -> None:
@@ -394,6 +396,7 @@ class _EngineCall:
         self.handle = None
         self.timer = None
         self.timeout_s = timeout_s
+        self.tctx = None
         self.done = False
 
     def signal(self) -> None:
@@ -407,6 +410,10 @@ class _EngineCall:
         self.done = True
         if self.timer is not None:
             self.timer.cancel()
+        if self.tctx is not None:
+            # The async twin of serve_request's completion spans — on
+            # the loop thread, but a bounded tuple append.
+            self.fe.backend.trace_complete(self.tctx, self.handle)
         result = self.handle.result
         if result is None:
             error = self.handle.error
@@ -436,9 +443,12 @@ class EvloopFrontend:
     (module docstring) with no thread per connection or request."""
 
     def __init__(self, backend, registry, *, host: str = "127.0.0.1",
-                 port: int = 0) -> None:
+                 port: int = 0, tracer=None) -> None:
         self.backend = backend
         self.registry = registry
+        #: Optional :class:`~sharetrade_tpu_torch.fleet.wire.WireTracer` —
+        #: None (the default) means zero trace parsing and zero spans.
+        self.tracer = tracer
         self.draining = False
         self.loop = EventLoop()
         # fleet-net-ok: the fleet's one listener, evloop flavor.
@@ -594,18 +604,21 @@ class EvloopFrontend:
                         "detail": "front-end is draining"})
             return
         self.request_begin(conn)
+        tctx = (self.tracer.begin(request.headers)
+                if self.tracer is not None else None)
+        conn.cur_tctx = tctx
         deadline_raw = request.headers.get("x-deadline-ms")
         clock_raw = request.headers.get("x-session-clock")
         if self._relay is not None:
             # The relay re-derives the clock from the router's own
             # affinity table per hop — an inbound header is not trusted.
-            self._relay.start(conn, request.body, deadline_raw)
+            self._relay.start(conn, request.body, deadline_raw, tctx)
         elif getattr(self.backend, "submit_async", None) is not None:
             self._dispatch_engine(conn, request.body, deadline_raw,
-                                  clock_raw)
+                                  clock_raw, tctx)
         else:
             self._dispatch_inline(conn, request.body, deadline_raw,
-                                  clock_raw)
+                                  clock_raw, tctx)
 
     def _do_get(self, conn: _ServerConn, request: proto.Request) -> None:
         if request.target == wire.HEALTH_PATH:
@@ -662,7 +675,7 @@ class EvloopFrontend:
 
     def _dispatch_engine(self, conn: _ServerConn, raw: bytes,
                          deadline_raw: str | None,
-                         clock_raw: str | None = None) -> None:
+                         clock_raw: str | None = None, tctx=None) -> None:
         parsed = self._parse_submit(conn, raw, deadline_raw, clock_raw)
         if parsed is None:
             return
@@ -670,11 +683,17 @@ class EvloopFrontend:
         self.registry.inc("frontend_requests_total")
         timeout_s = (max(float(deadline_ms) / 1e3 * 4, 5.0)
                      if deadline_ms else self.backend.request_timeout_s)
+        traced = (tctx is not None
+                  and getattr(self.backend, "wire_traced", False))
         call = _EngineCall(self, conn, timeout_s)
+        call.tctx = tctx if traced else None
         kwargs = {"clock": clock} if clock is not None else {}
         try:
-            call.handle = self.backend.submit_async(
-                session, obs, deadline_ms, call.signal, **kwargs)
+            call.handle = (self.backend.submit_async(
+                session, obs, deadline_ms, call.signal, tctx=tctx,
+                **kwargs)
+                if traced else self.backend.submit_async(
+                    session, obs, deadline_ms, call.signal, **kwargs))
         except Exception as exc:    # noqa: BLE001 — every serving
             # outcome maps to a wire status; the loop never dies.
             self.reply_error(conn, exc)
@@ -683,16 +702,22 @@ class EvloopFrontend:
 
     def _dispatch_inline(self, conn: _ServerConn, raw: bytes,
                          deadline_raw: str | None,
-                         clock_raw: str | None = None) -> None:
+                         clock_raw: str | None = None, tctx=None) -> None:
         parsed = self._parse_submit(conn, raw, deadline_raw, clock_raw)
         if parsed is None:
             return
         session, obs, deadline_ms, clock = parsed
         self.registry.inc("frontend_requests_total")
+        traced = (tctx is not None
+                  and getattr(self.backend, "wire_traced", False))
         kwargs = {"clock": clock} if clock is not None else {}
         try:
-            result = self.backend.serve_request(session, obs, deadline_ms,
-                                                **kwargs)
+            result = (self.backend.serve_request(session, obs,
+                                                 deadline_ms, tctx=tctx,
+                                                 **kwargs)
+                      if traced else
+                      self.backend.serve_request(session, obs,
+                                                 deadline_ms, **kwargs))
         except Exception as exc:    # noqa: BLE001
             self.reply_error(conn, exc)
             return
@@ -702,6 +727,11 @@ class EvloopFrontend:
 
     def reply(self, conn: _ServerConn, status: int, body,
               content_type: str = "application/json") -> None:
+        tctx, conn.cur_tctx = conn.cur_tctx, None
+        if tctx is not None:
+            # The hop span closes when the reply is handed to the conn
+            # buffer — a bounded tuple append, never a dump.
+            self.tracer.finish(tctx, "frontend", note=str(status))
         if conn.tracked:
             conn.tracked = False
             self.request_done()
@@ -801,16 +831,26 @@ class _RelayCall:
     """One client request traversing the relay: hop to a routed engine,
     ONE fresh-connection retry on a torn keep-alive (the FleetClient
     contract — a failure on a fresh connection is the peer's true
-    state), then migration to a survivor on engine loss or 503."""
+    state), then migration to a survivor on engine loss or 503.
+
+    Trace spans (when the request carries context and the router has a
+    span sink): one ``relay`` envelope for the whole traversal, plus one
+    ``relay_attempt`` child PER upstream attempt — its note names why
+    the attempt was made (``first`` / ``retry:<why>`` /
+    ``migrate:<why>``) and its span id rides to the engine as
+    ``X-Parent-Span``, so a SIGKILLed engine's eagerly-flushed
+    ``engine_recv`` still parents under a span the surviving router
+    journals. All emission is bounded tuple appends."""
 
     __slots__ = ("relay", "router", "conn", "session", "body",
                  "deadline_raw", "timeout_s", "tried", "migrated",
                  "engine_id", "endpoint", "up", "timer", "reused",
-                 "fresh_retry_used", "done")
+                 "fresh_retry_used", "done", "tctx", "relay_span", "t0",
+                 "attempt_span", "attempt_t0", "next_note")
 
     def __init__(self, relay: "_RelayEngine", conn: _ServerConn,
                  session: str, body: bytes,
-                 deadline_raw: str | None) -> None:
+                 deadline_raw: str | None, tctx=None) -> None:
         self.relay = relay
         self.router = relay.router
         self.conn = conn
@@ -826,6 +866,35 @@ class _RelayCall:
         self.reused = False
         self.fresh_retry_used = False
         self.done = False
+        spans = getattr(relay.router, "spans", None)
+        self.tctx = tctx if spans is not None else None
+        if self.tctx is not None:
+            self.relay_span = spans.new_span_id()
+            self.t0 = time.perf_counter()
+        else:
+            self.relay_span = ""
+            self.t0 = 0.0
+        self.attempt_span = ""
+        self.attempt_t0 = 0.0
+        self.next_note = "first"
+
+    # -- trace spans ---------------------------------------------------
+
+    def _begin_attempt(self) -> None:
+        if self.tctx is None:
+            return
+        self.attempt_span = self.router.spans.new_span_id()
+        self.attempt_t0 = time.perf_counter()
+
+    def _end_attempt(self, outcome: str = "") -> None:
+        if self.tctx is None or not self.attempt_span:
+            return
+        note = (f"{self.next_note} {outcome}".strip()
+                if outcome else self.next_note)
+        self.router.spans.span(
+            self.tctx[0], self.attempt_span, self.relay_span,
+            "relay_attempt", self.attempt_t0, time.perf_counter(), note)
+        self.attempt_span = ""
 
     # -- hop lifecycle -------------------------------------------------
 
@@ -841,6 +910,7 @@ class _RelayCall:
         self.router.note_sent(self.engine_id)
         self.reused = False
         self.fresh_retry_used = False
+        self._begin_attempt()
         self._attempt()
 
     def _attempt(self) -> None:
@@ -864,6 +934,11 @@ class _RelayCall:
             # adopting engine can validate a spill record's step stamp
             # (the same header the blocking proxy path sends).
             headers[wire.CLOCK_HEADER] = str(clock)
+        if self.attempt_span:
+            # This attempt's span id is the downstream parent — each
+            # retry/migration hands the engine a fresh parent.
+            headers[proto.TRACE_HEADER] = self.tctx[0]
+            headers[proto.PARENT_HEADER] = self.attempt_span
         up.write(proto.render_request(
             "POST", wire.SUBMIT_PATH,
             f"{self.endpoint[0]}:{self.endpoint[1]}", self.body,
@@ -889,24 +964,22 @@ class _RelayCall:
             return
         self._send(up)
 
-    def _fresh_retry(self) -> bool:
-        """ONE retry on a fresh connection to the SAME engine after a
-        failure on a reused keep-alive (the engine restarted, an idle
-        timeout); False when that retry is spent or the conn was fresh."""
-        if not self.reused or self.fresh_retry_used:
-            return False
-        self.fresh_retry_used = True
-        self.reused = False
-        self._arm_timer()
-        self.up = self.relay.connect(self.endpoint, self)
-        return True
-
     def on_conn_failed(self, up, why: str) -> None:
         if self.done or up is not self.up:
             return              # a stale attempt's verdict, not ours
         self.up = None
-        if not self._fresh_retry():
-            self._engine_gone(why)
+        self._end_attempt(why)
+        if self.reused and not self.fresh_retry_used:
+            # Torn keep-alive (the engine restarted, an idle timeout):
+            # ONE retry on a fresh connection to the SAME engine.
+            self.fresh_retry_used = True
+            self.reused = False
+            self.next_note = f"retry:{why}"
+            self._begin_attempt()
+            self._arm_timer()
+            self.up = self.relay.connect(self.endpoint, self)
+            return
+        self._engine_gone(why)
 
     def on_timeout(self) -> None:
         if self.done:
@@ -916,21 +989,39 @@ class _RelayCall:
         if up is not None:
             up.call = None
             up.close()
+        why = f"timeout after {self.timeout_s:.1f}s"
+        self._end_attempt(why)
         # Mirror the blocking path: a per-attempt timeout is a
         # transport error — fresh retry if the conn was reused, else
         # this engine is gone.
-        if not self._fresh_retry():
-            self._engine_gone(f"timeout after {self.timeout_s:.1f}s")
+        if self.reused and not self.fresh_retry_used:
+            self.fresh_retry_used = True
+            self.reused = False
+            self.next_note = f"retry:{why}"
+            self._begin_attempt()
+            self._arm_timer()
+            self.up = self.relay.connect(self.endpoint, self)
+            return
+        self._engine_gone(why)
 
     def on_response(self, response: proto.Response) -> None:
         if self.done:
             return
         self.up = None
-        self._disarm_timer()
-        if response.status == wire.STATUS_UNAVAILABLE:
-            self._engine_gone(f"status {response.status}")
-            return
         self.router.note_done(self.engine_id)
+        if response.status == wire.STATUS_UNAVAILABLE:
+            self._disarm_timer()
+            self._end_attempt(f"status {response.status}")
+            self.tried.add(self.engine_id)
+            self.migrated = True
+            self.next_note = f"migrate:status {response.status}"
+            self.router.note_engine_gone(
+                self.session, self.engine_id,
+                f"status {response.status}")
+            self.next_hop()
+            return
+        self._disarm_timer()
+        self._end_attempt(f"status {response.status}")
         status, reply = self.router.finish_relay(
             self.session, self.engine_id, self.migrated,
             response.status, response.body)
@@ -941,12 +1032,20 @@ class _RelayCall:
         self.router.note_done(self.engine_id)
         self.tried.add(self.engine_id)
         self.migrated = True
+        self.next_note = f"migrate:{why}"
         self.router.note_engine_gone(self.session, self.engine_id, why)
         self.next_hop()
 
     def finish(self, status: int, reply: bytes) -> None:
         self.done = True
         self._disarm_timer()
+        self._end_attempt(f"status {status}")
+        if self.tctx is not None:
+            tctx = self.tctx
+            self.router.spans.span(
+                tctx[0], self.relay_span, tctx[2] or tctx[1], "relay",
+                self.t0, time.perf_counter(),
+                "migrated" if self.migrated else "")
         self.relay.fe.reply(self.conn, status, reply)
 
 
@@ -959,14 +1058,15 @@ class _RelayEngine:
         self._pools: dict = {}      # endpoint -> deque of idle conns
 
     def start(self, conn: _ServerConn, body: bytes,
-              deadline_raw: str | None) -> None:
+              deadline_raw: str | None, tctx=None) -> None:
         self.router.registry.inc("fleet_requests_total")
         try:
             session = wire.extract_session(body)
         except ValueError as exc:
             self.fe.reply_error(conn, exc, counted=False)
             return
-        _RelayCall(self, conn, session, body, deadline_raw).next_hop()
+        _RelayCall(self, conn, session, body, deadline_raw,
+                   tctx).next_hop()
 
     # -- connection pool -----------------------------------------------
 

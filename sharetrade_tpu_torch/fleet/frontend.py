@@ -8,9 +8,8 @@ wire.py) over any BACKEND object with the two-method surface
 - ``health() -> dict`` — the ``/healthz`` snapshot;
 
 plus ``/metrics`` rendered live from a :class:`~sharetrade_tpu_torch.utils.
-metrics.MetricsRegistry`. A copy of the JAX package's ``fleet/frontend.py``
-without its trace spans (they wait for ``obs.enabled``). Two backends
-exist: :class:`EngineBackend`
+metrics.MetricsRegistry`. A copy of the JAX package's ``fleet/frontend.py``,
+trace spans included. Two backends exist: :class:`EngineBackend`
 (this module — a local engine, what ``cli serve --listen`` runs) and the
 router's proxy (fleet/router.py) — the fleet's public port is literally
 this same server over a different backend.
@@ -63,17 +62,32 @@ class EngineBackend:
     """The local-engine backend: one blocking wire request ↔ one
     ``engine.submit`` + ``handle.wait`` (threaded backend), or one
     ``submit_async`` parked on the engine's completion callback
-    (evloop backend) — identical validation and result payloads."""
+    (evloop backend) — identical validation and result payloads.
 
+    When a span sink is wired (``spans=``), a traced request leaves two
+    kinds of evidence in THIS process's span journal, both parented
+    directly under the router's relay-attempt span from the wire headers
+    (never under an engine-local span — obs/collect.py's SIGKILL-orphan
+    rule): an ``engine_recv`` instant flushed EAGERLY at arrival (the
+    page cache survives a SIGKILL, so a killed engine still proves the
+    request reached it) and, at completion, an ``engine_request``
+    envelope with stage children cut from the request's lifecycle
+    stamps (queue_wait/batch_wait/device/readback)."""
+
+    #: Frontends pass the parsed wire trace context (``tctx``) only to
+    #: backends that declare it — test stubs never see the kwarg.
+    wire_traced = True
     #: Frontends pass the parsed ``X-Session-Clock`` header (the
     #: router-observed completed-response count) only to backends that
     #: declare it — the engine validates a spill record's step stamp
     #: against it before adopting the carry.
     wire_clocked = True
 
-    def __init__(self, engine, *, request_timeout_s: float = 30.0):
+    def __init__(self, engine, *, request_timeout_s: float = 30.0,
+                 spans=None):
         self.engine = engine
         self.request_timeout_s = float(request_timeout_s)
+        self.spans = spans
 
     @staticmethod
     def validate_obs(obs) -> np.ndarray:
@@ -98,17 +112,59 @@ class EngineBackend:
             "stages": result.stages,
         }
 
-    def _submit(self, session: str, obs, deadline_ms, callback=None,
+    def trace_recv(self, tctx) -> None:
+        """Journal the eager ``engine_recv`` instant (class docstring);
+        a no-op without a sink or trace context."""
+        if tctx is None or self.spans is None:
+            return
+        trace_id, parent, own, _t0 = tctx
+        self.spans.instant(trace_id, self.spans.new_span_id(),
+                           own or parent, "engine_recv", flush=True)
+
+    def trace_complete(self, tctx, handle) -> None:
+        """Journal the ``engine_request`` envelope + stage children from
+        the handle's lifecycle stamps. The threaded path calls this from
+        :meth:`serve_request`; the evloop front-end calls it from its
+        completion handler (the async path has no blocking wait to hang
+        it on)."""
+        if tctx is None or self.spans is None:
+            return
+        trace_id, parent, own, _t0 = tctx
+        tr = handle            # the port's request holds its own stamps
+        # One read of t_done: the engine's consumer stamps it after the
+        # completion callback, so it may land while this runs, and a second
+        # read would give a readback child that outlasts its envelope.
+        t_done = tr.t_done
+        t_end = t_done or tr.t_device or time.perf_counter()
+        env = self.spans.new_span_id()
+        self.spans.span(trace_id, env, own or parent, "engine_request",
+                        tr.t_enq, t_end, note=tr.outcome or "")
+        for name, a, b in (("queue_wait", tr.t_enq, tr.t_collected),
+                           ("batch_wait", tr.t_collected, tr.t_dispatched),
+                           ("device", tr.t_dispatched, tr.t_device),
+                           ("readback", tr.t_device, t_done)):
+            if a is not None and b is not None:
+                self.spans.span(trace_id, self.spans.new_span_id(), env,
+                                name, a, b)
+
+    def _submit(self, session: str, obs, deadline_ms, tctx, callback=None,
                 clock=None):
-        return self.engine.submit(session, obs, callback=callback,
-                                  deadline_ms=deadline_ms or 0.0,
-                                  session_clock=clock)
+        """Shared enqueue: recv span, submit, thread the trace identity
+        into the request (the stitch key the engine's own chrome-trace
+        spans carry)."""
+        self.trace_recv(tctx)
+        handle = self.engine.submit(session, obs, callback=callback,
+                                    deadline_ms=deadline_ms or 0.0,
+                                    session_clock=clock)
+        if tctx is not None:
+            handle.trace_id = tctx[0]
+        return handle
 
     def serve_request(self, session: str, obs,
-                      deadline_ms: float | None,
+                      deadline_ms: float | None, tctx=None,
                       clock: int | None = None) -> dict:
         obs = self.validate_obs(obs)
-        handle = self._submit(session, obs, deadline_ms, clock=clock)
+        handle = self._submit(session, obs, deadline_ms, tctx, clock=clock)
         # A deadline'd request resolves engine-side well inside
         # deadline + one batch; the no-deadline wait is bounded by the
         # configured front-end budget so a wedged engine surfaces as a
@@ -116,22 +172,25 @@ class EngineBackend:
         timeout = (max(float(deadline_ms) / 1e3 * 4, 5.0) if deadline_ms
                    else self.request_timeout_s)
         result = handle.wait(timeout)
-        if result is None:
-            if handle.error is not None:
-                raise handle.error
-            raise ServeEngineFailed(
-                f"request did not complete within the front-end "
-                f"budget ({timeout:.1f}s)")
-        return self.result_dict(result)
+        try:
+            if result is None:
+                if handle.error is not None:
+                    raise handle.error
+                raise ServeEngineFailed(
+                    f"request did not complete within the front-end "
+                    f"budget ({timeout:.1f}s)")
+            return self.result_dict(result)
+        finally:
+            self.trace_complete(tctx, handle)
 
     def submit_async(self, session: str, obs, deadline_ms: float | None,
-                     signal_done, clock: int | None = None):
+                     signal_done, tctx=None, clock: int | None = None):
         """The evloop front-end's dispatch: validate and enqueue, then
         return the request handle WITHOUT waiting — ``signal_done()``
         fires (from the engine's consumer thread) once the handle
         completes; read ``handle.result`` / ``handle.error`` after."""
         obs = self.validate_obs(obs)
-        return self._submit(session, obs, deadline_ms,
+        return self._submit(session, obs, deadline_ms, tctx,
                             callback=lambda _result: signal_done(),
                             clock=clock)
 
@@ -182,6 +241,7 @@ class _Handler(BaseHTTPRequestHandler):
                content_type: str = "application/json") -> None:
         payload = (body if isinstance(body, bytes)
                    else json.dumps(body).encode())
+        self._last_status = status       # the hop span's outcome note
         try:
             # Rendered by the shared sans-IO renderer — byte-identical
             # to the evloop backend's replies (the differential-oracle
@@ -229,6 +289,12 @@ class _Handler(BaseHTTPRequestHandler):
                         {"error": "engine_failed",
                          "detail": "front-end is draining"})
             return
+        # email.message.Message.get is case-insensitive, so the parsed
+        # proto header dict and this stdlib mapping read identically.
+        tracer = fe.tracer
+        tctx = tracer.begin(self.headers) if tracer is not None else None
+        traced = tctx is not None and getattr(fe.backend, "wire_traced",
+                                              False)
         try:
             deadline_raw = self.headers.get(wire.DEADLINE_HEADER)
             proxy = getattr(fe.backend, "proxy_request", None)
@@ -243,7 +309,10 @@ class _Handler(BaseHTTPRequestHandler):
                     self._reply(*wire.error_to_status(exc))
                     return
                 try:
-                    status, reply = proxy(session, raw, deadline_raw)
+                    status, reply = (proxy(session, raw, deadline_raw,
+                                           tctx=tctx) if traced
+                                     else proxy(session, raw,
+                                                deadline_raw))
                 except Exception as exc:    # noqa: BLE001
                     status, reply = wire.error_to_status(exc)
                     if status == 500:
@@ -281,8 +350,12 @@ class _Handler(BaseHTTPRequestHandler):
             fe.registry.inc("frontend_requests_total")
             kwargs = {"clock": clock} if clock is not None else {}
             try:
-                result = fe.backend.serve_request(session, obs,
-                                                  deadline_ms, **kwargs)
+                result = (fe.backend.serve_request(session, obs,
+                                                   deadline_ms, tctx=tctx,
+                                                   **kwargs)
+                          if traced else
+                          fe.backend.serve_request(session, obs,
+                                                   deadline_ms, **kwargs))
             except Exception as exc:    # noqa: BLE001 — every serving
                 # outcome maps to a wire status; the handler never dies.
                 status, body = wire.error_to_status(exc)
@@ -293,6 +366,9 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._reply(wire.STATUS_OK, result)
         finally:
+            if tctx is not None:
+                tracer.finish(tctx, "frontend",
+                              note=str(getattr(self, "_last_status", "")))
             with fe._inflight_cv:
                 fe._inflight -= 1
                 fe._inflight_cv.notify_all()
@@ -324,9 +400,12 @@ class ThreadedServeFrontend:
     construction for the actual one."""
 
     def __init__(self, backend, registry, *, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, tracer=None):
         self.backend = backend
         self.registry = registry
+        #: Optional :class:`~sharetrade_tpu_torch.fleet.wire.WireTracer` —
+        #: None (the default) means zero trace parsing and zero spans.
+        self.tracer = tracer
         self.draining = False
         self._inflight = 0
         self._inflight_cv = threading.Condition()
@@ -372,17 +451,21 @@ class ThreadedServeFrontend:
 
 
 def ServeFrontend(backend, registry, *, host: str = "127.0.0.1",
-                  port: int = 0, wire_backend: str | None = None):
+                  port: int = 0, wire_backend: str | None = None,
+                  tracer=None):
     """Build a wire front-end — the one construction surface both
     backends share (``FleetConfig.wire_backend`` plumbs through here).
-    ``None`` means the default backend (evloop)."""
+    ``None`` means the default backend (evloop). ``tracer`` (a
+    :class:`~sharetrade_tpu_torch.fleet.wire.WireTracer` or None) switches
+    trace propagation on for either backend identically."""
     wire_backend = wire_backend or "evloop"
     if wire_backend == "evloop":
         from sharetrade_tpu_torch.fleet.evloop import EvloopFrontend
-        return EvloopFrontend(backend, registry, host=host, port=port)
+        return EvloopFrontend(backend, registry, host=host, port=port,
+                              tracer=tracer)
     if wire_backend == "threaded":
         return ThreadedServeFrontend(backend, registry, host=host,
-                                     port=port)
+                                     port=port, tracer=tracer)
     raise ValueError(
         f"unknown fleet.wire_backend {wire_backend!r} "
         f"(expected 'evloop' or 'threaded')")

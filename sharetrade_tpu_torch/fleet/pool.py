@@ -245,6 +245,16 @@ class EnginePool:
                 # Every worker shares ONE arena (and a respawn rejoins
                 # it): the handoff half of warm-carry migration.
                 cmd += ["--set", f"serve.spill_dir={self.arena_dir}"]
+            span_dir = getattr(self.cfg.obs, "span_dir", "")
+            if span_dir:
+                # Span journaling: each worker appends wire spans to its
+                # OWN journal in the fleet's shared spans dir, keyed by
+                # engine id (no writer contention — one file per
+                # process). The workers run obs.enabled=false; the span
+                # journal is the one obs artifact deliberately shared,
+                # switched by span_dir alone (obs/__init__.py).
+                cmd += ["--set", f"obs.span_dir={span_dir}",
+                        "--set", f"obs.span_proc=engine-{handle.engine_id}"]
             if self._start:
                 cmd += ["--start", self._start]
             if self._end:

@@ -326,7 +326,7 @@ def py_render_response(status: int, body: bytes,
 
 #: Why the native rung is unavailable (the loud fallback line names it).
 _NATIVE_ERROR = ("the native wire rung (native/wire.cc) is not ported to "
-                 "sharetrade_tpu_torch (ROADMAP item 13)")
+                 "sharetrade_tpu_torch (ROADMAP item 13c)")
 _FALLBACK_LOGGED = False
 
 #: The backend that is LIVE right now (always "py" in the port).

@@ -3,8 +3,8 @@
 The router is a ``serve_request`` backend (fleet/frontend.py serves it on
 the fleet's public port) that proxies each request to ONE engine worker,
 chosen from the signals every engine already exports. A copy of the JAX
-package's ``fleet/router.py`` without its relay spans (they wait for
-``obs.enabled``); a router of either package fronts engines of the other:
+package's ``fleet/router.py``, relay spans included; a router of either
+package fronts engines of the other:
 
 - **routing score** (refreshed by the telemetry poller every
   ``fleet.telemetry_poll_s``): an engine's live queue depth plus a large
@@ -51,7 +51,7 @@ import time
 from collections import OrderedDict, deque
 from typing import Any
 
-from sharetrade_tpu_torch.fleet import wire
+from sharetrade_tpu_torch.fleet import proto, wire
 from sharetrade_tpu_torch.fleet.wire import FleetClient
 from sharetrade_tpu_torch.obs.exporter import parse_prom_text
 from sharetrade_tpu_torch.obs.hist import (
@@ -121,14 +121,23 @@ class FleetRouter:
     :class:`~sharetrade_tpu_torch.fleet.pool.EnginePool`, or a static
     ``StaticEndpoints`` for tests/external fleets."""
 
+    #: Front-ends hand this backend the parsed wire trace context.
+    wire_traced = True
+
     def __init__(self, pool: Any, cfg: Any, registry: Any, *,
-                 workdir: str | None = None, obs_cfg: Any = None):
+                 workdir: str | None = None, obs_cfg: Any = None,
+                 obs: Any = None):
         self.pool = pool
         self.cfg = cfg                      # FleetConfig
         self.registry = registry
         #: Status-file root; "" disables fleet_status.json entirely
         #: (in-process embedding and unit tests).
         self.dir = cfg.dir if workdir is None else (workdir or None)
+        self._obs = obs
+        #: The router's span sink (obs/trace.py SpanSink) — None means
+        #: no relay spans, and inbound trace context is relayed but not
+        #: journaled here.
+        self.spans = getattr(obs, "spans", None)
         #: Per-poll gauge history ring; None without a workdir.
         self._history: TsdbRing | None = None
         history_rows = int(getattr(obs_cfg, "history_rows", 2048) or 0)
@@ -203,7 +212,8 @@ class FleetRouter:
     # ---- the serve_request backend (fleet/frontend.py) --------------
 
     def proxy_request(self, session: str, body: bytes,
-                      deadline_raw: str | None) -> tuple[int, bytes]:
+                      deadline_raw: str | None,
+                      tctx=None) -> tuple[int, bytes]:
         """The THIN data path (fleet/frontend.py's fast path): relay the
         raw request body to one engine and hand its ``(status, body)``
         back — no JSON parse/serialize on the proxy hop, which is what
@@ -220,7 +230,14 @@ class FleetRouter:
         ``note_*`` helpers below so the evloop relay (fleet/evloop.py)
         and this blocking loop share ONE definition of the semantics —
         what keeps the threaded backend an honest differential oracle
-        for the event-loop one."""
+        for the event-loop one.
+
+        When ``tctx`` (the front-end's parsed wire trace context)
+        arrives and this router has a span sink, the traversal journals
+        one ``relay`` envelope plus a ``relay_attempt`` per hop — each
+        attempt's span id is forwarded as ``X-Parent-Span`` and its
+        ``upstream_io`` child brackets the raw write/read — the same
+        span shapes the evloop relay emits."""
         self.registry.inc("fleet_requests_total")
         headers: dict | None = ({wire.DEADLINE_HEADER: deadline_raw}
                                 if deadline_raw is not None else None)
@@ -234,23 +251,52 @@ class FleetRouter:
         timeout_s = self.relay_timeout_s(deadline_raw)
         tried: set[str] = set()
         migrated = False
+        spans = self.spans
+        if spans is None:
+            tctx = None
+        relay_span = spans.new_span_id() if tctx is not None else ""
+        t0 = time.perf_counter()
+        next_note = "first"
         while True:
             choice = self._route(session, exclude=tried)
             if choice is None:
                 self.note_unrouted()
+                if tctx is not None:
+                    spans.span(tctx[0], relay_span, tctx[2] or tctx[1],
+                               "relay", t0, time.perf_counter(),
+                               "unrouted")
                 raise ServeEngineFailed(UNROUTED_DETAIL)
             engine_id, endpoint = choice
             client = self._client_for(endpoint)
             self.note_sent(engine_id)
+            hop_headers = headers
+            attempt_span = io_span = ""
+            attempt_t0 = 0.0
+            if tctx is not None:
+                attempt_span = spans.new_span_id()
+                io_span = spans.new_span_id()
+                attempt_t0 = time.perf_counter()
+                hop_headers = dict(headers or {})
+                hop_headers[proto.TRACE_HEADER] = tctx[0]
+                hop_headers[proto.PARENT_HEADER] = attempt_span
             status, exc_repr = None, ""
             try:
                 status, reply = client.raw_request(
-                    wire.SUBMIT_PATH, body, extra_headers=headers,
+                    wire.SUBMIT_PATH, body, extra_headers=hop_headers,
                     timeout_s=timeout_s)
             except wire.TRANSPORT_ERRORS as exc:
                 status, reply, exc_repr = None, b"", repr(exc)
             finally:
                 self.note_done(engine_id)
+                if tctx is not None:
+                    now = time.perf_counter()
+                    why = (exc_repr if status is None
+                           else f"status {status}")
+                    spans.span(tctx[0], io_span, attempt_span,
+                               "upstream_io", attempt_t0, now)
+                    spans.span(tctx[0], attempt_span, relay_span,
+                               "relay_attempt", attempt_t0, now,
+                               f"{next_note} {why}".strip())
             if status is None or status == wire.STATUS_UNAVAILABLE:
                 # The engine died/hung mid-request (SIGKILL chaos, a
                 # deploy) — or answered 503 over a still-open keep-alive
@@ -262,13 +308,18 @@ class FleetRouter:
                 tried.add(engine_id)
                 migrated = True
                 why = exc_repr if status is None else f"status {status}"
+                next_note = f"migrate:{why}"
                 self.note_engine_gone(session, engine_id, why)
                 continue
+            if tctx is not None:
+                spans.span(tctx[0], relay_span, tctx[2] or tctx[1],
+                           "relay", t0, time.perf_counter(),
+                           "migrated" if migrated else "")
             return self.finish_relay(session, engine_id, migrated,
                                      status, reply)
 
     def serve_request(self, session: str, obs,
-                      deadline_ms: float | None) -> dict:
+                      deadline_ms: float | None, tctx=None) -> dict:
         """The in-process convenience surface (tests, embedding): the
         same routing path as :meth:`proxy_request`, with the JSON
         round-trip this caller asked for."""
@@ -276,7 +327,8 @@ class FleetRouter:
                            "obs": [float(x) for x in obs]}).encode()
         status, reply = self.proxy_request(
             session, body,
-            f"{float(deadline_ms):g}" if deadline_ms else None)
+            f"{float(deadline_ms):g}" if deadline_ms else None,
+            tctx=tctx)
         try:
             parsed = json.loads(reply.decode("utf-8"))
         except (ValueError, UnicodeDecodeError):

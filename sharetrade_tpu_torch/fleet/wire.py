@@ -8,10 +8,9 @@ persistent-connection client) is what makes "the router is just another
 client of an engine" literally true in the code.
 
 A copy of the JAX package's ``fleet/wire.py``, so a client or router of
-either package talks to a front-end of the other. Its trace spans wait
-for ``obs.enabled`` (ROADMAP item 13), as do the front-ends' and the
-router's: :class:`FleetClient` refuses a span sink, and never sends the
-trace headers.
+either package talks to a front-end of the other, trace headers and span
+journals included: a traced request stitches across processes of either
+package (obs/collect.py).
 
 Endpoints (fleet/frontend.py and fleet/evloop.py serve them over any
 ``serve_request`` backend — a local :class:`~sharetrade_tpu_torch.serve.
@@ -57,9 +56,11 @@ from __future__ import annotations
 import json
 import re
 import socket
+import time
 from http.client import HTTPException
 
 from sharetrade_tpu_torch.fleet import proto
+from sharetrade_tpu_torch.obs.trace import new_trace_id
 from sharetrade_tpu_torch.serve.engine import (
     ServeDeadlineExceeded,
     ServeEngineFailed,
@@ -150,6 +151,54 @@ class _WireConnError(ConnectionError):
     transport-class (the keep-alive is unusable), never protocol-class."""
 
 
+class WireTracer:
+    """Frontend-side trace context for one process: parse the inbound
+    ``X-Trace-Id``/``X-Parent-Span`` headers (fleet/proto.py — the one
+    framing definition) or, when ``mint`` and none arrived, mint a fresh
+    trace id — so every request through a tracing front-end belongs to
+    exactly one trace. Shared by BOTH wire backends (threaded handler
+    and evloop), which is what keeps their span shapes identical.
+
+    ``begin`` returns an opaque tuple context (or None = untraced
+    request); ``finish`` journals this hop's span through the bounded
+    :class:`~sharetrade_tpu_torch.obs.trace.SpanSink` (tuple append now,
+    serialization at flush).
+
+    ``sink=None`` is the ENGINE-worker spelling: parse and propagate the
+    inbound context without emitting a hop span of our own — an engine's
+    spans must parent DIRECTLY under the router's journaled attempt span,
+    never under an engine-local span a SIGKILL could leave unflushed
+    (the stitch contract in obs/collect.py)."""
+
+    __slots__ = ("sink", "mint")
+
+    def __init__(self, sink=None, *, mint: bool = False):
+        self.sink = sink
+        self.mint = mint
+
+    def begin(self, headers: dict) -> tuple | None:
+        """(trace_id, inbound_parent, own_span_id, t0) for one inbound
+        request, or None when it carries no context and we don't mint.
+        ``own_span_id`` is ``""`` for a parse-only (sink-less) tracer —
+        downstream hops then parent under ``inbound_parent``."""
+        ctx = proto.trace_context(headers)
+        if ctx is None:
+            if not self.mint or self.sink is None:
+                return None
+            trace_id, parent = new_trace_id(), ""
+        else:
+            trace_id, parent = ctx
+        own = self.sink.new_span_id() if self.sink is not None else ""
+        return (trace_id, parent, own, time.perf_counter())
+
+    def finish(self, tctx: tuple, name: str, note: str = "") -> None:
+        trace_id, parent, span_id, t0 = tctx
+        if not span_id:
+            return
+        self.sink.span(trace_id, span_id, parent, name, t0,
+                       time.perf_counter(), note)
+
+
 class FleetClient:
     """Blocking wire client over ONE persistent keep-alive connection.
 
@@ -175,12 +224,14 @@ class FleetClient:
         self.timeout_s = float(timeout_s)
         self._sock: socket.socket | None = None
         self._parser = proto.ResponseParser()
-        # The JAX client's wire-span sink: its spans are not ported, so
-        # the obs-disabled wire (no trace headers, no spans) is the only one.
-        if sink is not None:
-            raise NotImplementedError(
-                "FleetClient(sink=...): wire trace spans are not yet ported "
-                "to sharetrade_tpu_torch (ROADMAP item 13)")
+        #: Optional wire-span sink (obs/trace.py SpanSink). When set,
+        #: every submit MINTS a trace id, carries it (plus this client
+        #: span's id as the parent) on the request headers, journals a
+        #: ``client_submit`` root span, and returns the trace id in the
+        #: reply dict under ``"trace_id"`` (added CLIENT-side — reply
+        #: wire bytes never carry trace state). None (default) = zero
+        #: headers, zero spans.
+        self.sink = sink
 
     def close(self) -> None:
         if self._sock is not None:
@@ -271,9 +322,24 @@ class FleetClient:
             headers[DEADLINE_HEADER] = f"{float(deadline_ms):g}"
             if timeout_s is None:
                 timeout_s = max(float(deadline_ms) / 1e3 * 4, 5.0)
-        status, body = self._request("POST", SUBMIT_PATH, body=payload,
-                                     headers=headers, timeout_s=timeout_s)
+        trace_id = span_id = None
+        if self.sink is not None:
+            trace_id = new_trace_id()
+            span_id = self.sink.new_span_id()
+            headers[proto.TRACE_HEADER] = trace_id
+            headers[proto.PARENT_HEADER] = span_id
+        t0 = time.perf_counter()
+        try:
+            status, body = self._request("POST", SUBMIT_PATH,
+                                         body=payload, headers=headers,
+                                         timeout_s=timeout_s)
+        finally:
+            if span_id is not None:
+                self.sink.span(trace_id, span_id, "", "client_submit",
+                               t0, time.perf_counter(), note=session)
         parsed = self._json(body)
+        if trace_id is not None:
+            parsed.setdefault("trace_id", trace_id)
         if status == STATUS_OK:
             return parsed
         raise status_to_error(status, parsed)

@@ -1,19 +1,38 @@
-"""The Prometheus exposition of a ``MetricsRegistry``: the renderer and its
-strict reader.
+"""Metrics exporter: ``MetricsRegistry`` → JSONL history + Prometheus
+textfile, and the strict reader of that exposition.
 
-A copy of the JAX package's ``obs/exporter.py`` but for its background
-``MetricsExporter`` (the JSONL history and the textfile it rewrites wait for
-``obs.enabled``): :func:`render_prom_text` is the fleet front-end's live
-``/metrics`` body, and :func:`parse_prom_text` the router's scrape-side
-reader. Histograms export as the standard ``_bucket{le=...}`` / ``_sum`` /
+The counterpart of the JAX package's ``obs/exporter.py``, in its formats.
+The registry holds everything in memory; :class:`MetricsExporter` makes
+that state durable and scrapeable without adding anything to the hot loop:
+a background thread drains ``registry.snapshot()`` / ``registry.counters()``
+/ ``registry.histograms()`` every ``interval_s`` seconds into
+
+- ``metrics.jsonl``: one append-only line per drain, skipped when nothing
+  changed;
+- ``metrics.prom``: a Prometheus textfile snapshot (gauges, counters and
+  histograms in exposition format, atomically rewritten).
+
+:func:`render_prom_text` is also the fleet front-end's live ``/metrics``
+body, and :func:`parse_prom_text` the router's scrape-side reader.
+Histograms export as the standard ``_bucket{le=...}`` / ``_sum`` /
 ``_count`` triple with cumulative bucket counts ending in ``le="+Inf"``,
 with the JAX package's label text, so a router of either package merges
-the other's histograms bucket for bucket.
+the other's histograms bucket for bucket. A crashed exporter write
+degrades observability, never the run.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
+import threading
+import time
+
+from sharetrade_tpu_torch.utils.logging import get_logger
+from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
+
+log = get_logger("obs.exporter")
 
 _PROM_BAD = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -59,6 +78,71 @@ def render_prom_text(gauges: dict, counters: dict,
         lines.append(f"{pname}_sum {snap['sum']}")
         lines.append(f"{pname}_count {snap['count']}")
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+class MetricsExporter:
+    def __init__(self, registry: MetricsRegistry, run_dir: str, *,
+                 interval_s: float = 2.0, prefix: str = "sharetrade"):
+        self._registry = registry
+        self._jsonl_path = os.path.join(run_dir, "metrics.jsonl")
+        self._prom_path = os.path.join(run_dir, "metrics.prom")
+        self._interval_s = max(0.05, float(interval_s))
+        self._prefix = prefix
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._last: tuple[dict, dict] | None = None
+        self._io_lock = threading.Lock()   # drain() callable off-thread too
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(
+            target=self._run, name="obs-exporter", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._interval_s):
+            try:
+                self.drain()
+            except Exception:   # exporter IO must never kill anything
+                log.exception("metrics export failed; will retry")
+
+    def drain(self) -> bool:
+        """One export pass; returns True when something was written."""
+        gauges = self._registry.snapshot()
+        counters = self._registry.counters()
+        hists = self._registry.histograms()
+        with self._io_lock:
+            if (gauges, counters, hists) == self._last:
+                return False
+            self._last = (gauges, counters, hists)
+            record = {"ts": time.time(), "gauges": gauges,
+                      "counters": counters}
+            if hists:
+                record["histograms"] = hists
+            with open(self._jsonl_path, "a", encoding="utf-8") as f:
+                f.write(json.dumps(record) + "\n")
+            self._write_prom(gauges, counters, hists)
+        return True
+
+    def _write_prom(self, gauges: dict, counters: dict,
+                    hists: dict | None = None) -> None:
+        text = render_prom_text(gauges, counters, hists,
+                                prefix=self._prefix)
+        tmp = f"{self._prom_path}.tmp-{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(text)
+        os.replace(tmp, self._prom_path)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        try:
+            self.drain()        # final snapshot always lands on disk
+        except Exception:
+            log.exception("final metrics export failed")
 
 
 # ---- strict exposition reader -----------------------------------------

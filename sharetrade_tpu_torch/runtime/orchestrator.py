@@ -94,16 +94,31 @@ under ``distrib.actor_dir`` every ``distrib.ingest_every_updates`` updates
 step lock, the rows stamped past each writer's cursor are pushed into the
 live replay buffer (on the card, the chunk graph's own buffers) and PER's
 tree is reseeded. ``tuning.adaptive_ingest`` backs the cadence off on dry
-feeds and tightens it on a backlog, as in the JAX package (its flight
-event is an ``ingest_cadence_adjust`` event here).
+feeds and tightens it on a backlog, as in the JAX package (each move an
+``ingest_cadence_adjust`` record in the flight ring).
 
-Not yet ported: roofline/obs and the tracer (``runtime.profile_dir``); a
-non-default value of such a knob raises ``ConfigError``
-(:func:`check_ported`).
+Telemetry (``obs.enabled``, ``obs/``), as in the JAX package: the run
+directory's manifest, ``trace.jsonl`` (``dispatch`` and ``pipeline_stall``
+on the dispatcher, ``readback``, ``host_process`` and ``queue_wait`` on the
+consumer, checkpoint phases from whichever thread writes,
+``supervision_recovery``, ``preemption_drain``, ``phase:*`` instants), the
+``train_chunk_seconds`` / ``train_dispatch_gap_ms`` histograms in
+``metrics.prom``, and the flight ring (run events, lifecycle transitions,
+``chunk_metrics`` rows of every sampled readback, WARNING+ log lines),
+dumped as ``flight_recorder.json`` on supervision and preemption. The spans
+ride the sampling cadence, and their arguments and the flight rows are host
+values the sampled readback already brought back: obs adds no device
+synchronisation, and a ``dispatch`` span times the enqueue of a graph
+replay (the chunk program's CUDA events time the device).
+
+Not yet ported: the roofline capture (``obs.roofline``) and the profiler
+(``runtime.profile_dir``), ROADMAP item 13b; a non-default value of such a
+knob raises ``ConfigError`` (:func:`check_ported`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import os
@@ -136,6 +151,8 @@ from sharetrade_tpu_torch.device import resolve_device
 from sharetrade_tpu_torch.distrib.actor import TRANSITIONS_FILE
 from sharetrade_tpu_torch.env import make_env
 from sharetrade_tpu_torch.models.core import tree_leaves, tree_map
+from sharetrade_tpu_torch.obs import build_obs
+from sharetrade_tpu_torch.obs.hist import SECONDS_BOUNDS, Histogram
 from sharetrade_tpu_torch.precision import policy_from_config
 from sharetrade_tpu_torch.runtime.lifecycle import (
     Lifecycle, Phase, QueryReply, ReplyState)
@@ -146,6 +163,9 @@ from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
 from sharetrade_tpu_torch.utils.profiling import StepTimer
 
 log = get_logger("runtime.orchestrator")
+
+#: Shared no-op context for un-sampled / obs-disabled span sites.
+_NULL_CTX = contextlib.nullcontext()
 
 #: Supervision verbs.
 RESUME, RESTART, STOP, ESCALATE = "resume", "restart", "stop", "escalate"
@@ -163,14 +183,14 @@ DEFAULT_ERROR_POLICY: dict[type, str] = {
 #: Knobs whose feature is not ported, with the default the port runs at
 #: (any other value is refused) and the ROADMAP item that ports it.
 _REFUSED = {
-    "runtime.profile_dir": (None, 13),
-    "obs.enabled": (False, 13),
+    "runtime.profile_dir": (None, "13b"),
+    "obs.roofline": (False, "13b"),
 }
 #: The knobs of ``_REFUSED`` each command refuses. ``cli serve`` lets
 #: ``runtime.profile_dir`` through, as the JAX package's ``cli serve``
 #: ignores it.
-TRAIN_REFUSED = ("runtime.profile_dir", "obs.enabled")
-SERVE_REFUSED = ("obs.enabled",)
+TRAIN_REFUSED = ("runtime.profile_dir", "obs.roofline")
+SERVE_REFUSED = ("obs.roofline",)
 
 
 def _knob(cfg: FrameworkConfig, path: str) -> Any:
@@ -257,6 +277,26 @@ class Orchestrator:
         self._error_policy = (DEFAULT_ERROR_POLICY if error_policy is None
                               else error_policy)
         self.metrics = MetricsRegistry(max_points=cfg.obs.max_metric_points)
+        # Telemetry (obs/): an inert facade when obs.enabled is off (no
+        # file, span() a shared null context).
+        self.obs = build_obs(cfg, self.metrics, device=self.device)
+        # The chunk wall time and the inter-dispatch gap as mergeable
+        # histograms (obs-gated: with obs off the loop pays one None check
+        # per dispatch).
+        self._h_chunk_seconds = self._h_dispatch_gap = None
+        if cfg.obs.enabled:
+            self._h_chunk_seconds = self.metrics.attach_histogram(
+                "train_chunk_seconds", Histogram(bounds=SECONDS_BOUNDS))
+            self._h_dispatch_gap = self.metrics.attach_histogram(
+                "train_dispatch_gap_ms", Histogram())
+        if self.obs.enabled:
+            # Run events double into the flight ring, lifecycle transitions
+            # mark the trace, and checkpoint phases span it from whichever
+            # thread writes.
+            self.events.mirror = self._obs_event_tap
+            self.lifecycle.on_transition = self._obs_phase_tap
+            if getattr(self.checkpoints, "tracer", None) is None:
+                self.checkpoints.tracer = self.obs.tracer
         self.agent: Agent | None = None
         self.env = None
         # The chunk program (None under step_override); set before the
@@ -335,6 +375,15 @@ class Orchestrator:
             fsync_every_records=data.journal_fsync_every_records,
             fsync_interval_s=data.journal_fsync_interval_s,
             segment_records=data.journal_segment_records)
+
+    # ---- telemetry taps (obs/): wired only when obs.enabled ---------------
+
+    def _obs_event_tap(self, kind: str, payload: dict) -> None:
+        self.obs.record("event", event=kind, **payload)
+
+    def _obs_phase_tap(self, old: Phase, new: Phase) -> None:
+        self.obs.record("lifecycle", frm=old.value, to=new.value)
+        self.obs.tracer.instant(f"phase:{new.value}")
 
     # ---- the live state ---------------------------------------------------
 
@@ -523,7 +572,8 @@ class Orchestrator:
     def _new_pipeline(self) -> AsyncPipeline:
         return AsyncPipeline(self.cfg.runtime.pipeline_depth,
                              self._host_process,
-                             attn_check=self._row_needs_attention)
+                             attn_check=self._row_needs_attention,
+                             span=self.obs.span if self.obs.enabled else None)
 
     def _run_supervised(self) -> None:
         """The dispatcher, as in the JAX package: dispatches chunks and
@@ -544,6 +594,7 @@ class Orchestrator:
         timer = StepTimer(rt.chunk_steps, self.cfg.parallel.num_workers,
                           max_history=self.cfg.obs.max_timer_history or None)
         self._timer = timer
+        obs = self.obs
         updates0, env_steps0 = (int(v) for v in torch.stack(
             [self._ts.updates, self._ts.env_steps]).tolist())
         # Baseline before the first chunk unless an INTACT checkpoint could
@@ -557,6 +608,21 @@ class Orchestrator:
         last_env_steps: int | None = env_steps0
         chunks_since = 0   # chunks since the last materialization decision
         chunks_ahead = 0   # chunks dispatched past the last boundary row SEEN
+        # The inter-dispatch gap (obs-gated): the end of one dispatch call
+        # to the start of the next; reset across recoveries so a backoff
+        # never counts as a gap. One helper pair for both dispatch sites.
+        last_dispatch_end: float | None = None
+
+        def _note_dispatch_gap() -> None:
+            if (self._h_dispatch_gap is not None
+                    and last_dispatch_end is not None):
+                self._h_dispatch_gap.observe(
+                    (time.perf_counter() - last_dispatch_end) * 1e3)
+
+        def _stamp_dispatch_end() -> None:
+            nonlocal last_dispatch_end
+            if self._h_dispatch_gap is not None:
+                last_dispatch_end = time.perf_counter()
         self._committed_idx = 0
         # Double-buffered dispatch (sync path, K > 1): the (readback, K,
         # heals at dispatch) of a megachunk already dispatched while its
@@ -631,9 +697,21 @@ class Orchestrator:
                                     last_env_steps, chunks_ahead = refreshed
                                     continue
                         k = mega if can_fuse else 1
+                        # Obs spans ride the sampling cadence: only the
+                        # dispatch whose rows this sample reads back is
+                        # timed (the predicate mirrors the sample decision
+                        # below), so between samples the loop is span-free.
+                        sampling = obs.enabled and (
+                            chunks_since + k >= metrics_every or journaled
+                            or (last_env_steps + (chunks_ahead + k)
+                                * rt.chunk_steps) >= threshold)
+                        _note_dispatch_gap()
                         in_step = True
-                        metrics = self._dispatch(k)
+                        with (obs.span("dispatch", chunk=chunk_idx, k=k)
+                              if sampling else _NULL_CTX):
+                            metrics = self._dispatch(k)
                         in_step = False
+                        _stamp_dispatch_end()
                     chunks_since += k
                     chunks_ahead += k
                     est_env_steps = min(
@@ -649,7 +727,10 @@ class Orchestrator:
                         boundary = Boundary(chunk_idx, k, readback, None,
                                             heals_mark, chunks_since)
                         if not pl.try_put(boundary):
-                            ok = pl.put(boundary, stop=self._stop)
+                            with (obs.span("pipeline_stall", chunk=chunk_idx,
+                                           depth=pl.depth)
+                                  if obs.enabled else _NULL_CTX):
+                                ok = pl.put(boundary, stop=self._stop)
                             self.metrics.inc("pipeline_stalls_total")
                             if not ok:
                                 continue   # fault/stop: the loop top acts
@@ -674,9 +755,14 @@ class Orchestrator:
                         # one's rows (their copy is already enqueued):
                         # decisions below act on a state one megachunk
                         # ahead of the rows, as in the JAX package.
+                        _note_dispatch_gap()
                         in_step = True
-                        ahead = self._dispatch(k)
+                        with (obs.span("dispatch", chunk=chunk_idx + k, k=k,
+                                       prefetch=True)
+                              if obs.enabled else _NULL_CTX):
+                            ahead = self._dispatch(k)
                         in_step = False
+                        _stamp_dispatch_end()
                         pending = (self._start_readback(ahead), k,
                                    self.agent_heals)
                     row = self._host_process(Boundary(
@@ -692,6 +778,7 @@ class Orchestrator:
                 except Exception as exc:  # the supervision decider
                     last_env_steps = None   # resync after any recovery
                     pending = None          # the megachunk in flight is stale
+                    last_dispatch_end = None  # a recovery is not a "gap"
                     pipeline_fault = pl is not None and exc is pl.error
                     if pl is not None:
                         # Queued boundaries were computed from state the
@@ -714,6 +801,14 @@ class Orchestrator:
                     verb = self._decide(exc)
                     self.events.emit("worker_failed", error=repr(exc),
                                      verb=verb, restarts=self.restarts + 1)
+                    # The forensic bundle BEFORE any recovery changes the
+                    # state: the ring's newest chunk_metrics row is the
+                    # failing chunk (rows are recorded before the hooks
+                    # that raise on them).
+                    obs.dump_flight(reason="supervision", error=repr(exc),
+                                    verb=verb, restarts=self.restarts,
+                                    episode=self.episode,
+                                    next_chunk=chunk_idx)
                     if verb == RESUME:
                         log.warning("resuming after %r (policy: resume)", exc)
                         if in_step:
@@ -726,15 +821,18 @@ class Orchestrator:
                         continue
                     if verb == STOP:
                         self.lifecycle.force(Phase.FAILED)
+                        obs.flush()
                         log.error("stopping after %r (policy: stop)", exc)
                         return
                     if verb == ESCALATE:
                         self.lifecycle.force(Phase.FAILED)
+                        obs.flush()
                         raise
                     self.restarts += 1
                     self.metrics.inc("restarts_total")
                     if self.restarts > rt.max_restarts:
                         self.lifecycle.force(Phase.FAILED)
+                        obs.flush()
                         log.error("restart budget exhausted: %r", exc)
                         return
                     delay = min(rt.backoff_initial_s * 2 ** (self.restarts - 1),
@@ -743,9 +841,12 @@ class Orchestrator:
                                                   rt.backoff_jitter)
                     log.warning("chunk failed (%r); restart %d/%d in %.2fs",
                                 exc, self.restarts, rt.max_restarts, delay)
-                    if self._wait_backoff(delay):
-                        return
-                    self._restore_or_reinit()
+                    with (obs.span("supervision_recovery",
+                                   restart=self.restarts)
+                          if obs.enabled else _NULL_CTX):
+                        if self._wait_backoff(delay):
+                            return
+                        self._restore_or_reinit()
                     timer.rebase()
         finally:
             self._pl = None
@@ -769,10 +870,24 @@ class Orchestrator:
         timer's rates, becomes the snapshot. On the consumer thread with
         the pipeline on, inline otherwise. ``_committed_idx`` advances per
         row: the fault-attribution cursor."""
+        obs = self.obs
         self._committed_idx = b.base
-        rows = b.metrics.rows()
-        transitions = b.metrics.transitions()
+        with (obs.span("readback", chunk=b.base, k=b.k)
+              if obs.enabled else _NULL_CTX):
+            rows = b.metrics.rows()
+            transitions = b.metrics.transitions()
+        with (obs.span("host_process", chunk=b.base, k=b.k)
+              if obs.enabled else _NULL_CTX):
+            return self._process_rows(b, rows, transitions)
+
+    def _process_rows(self, b: Boundary, rows: list[dict[str, float]],
+                      transitions: dict | None) -> dict[str, float]:
         for i, row in enumerate(rows):
+            if self.obs.enabled:
+                # Into the flight ring BEFORE the fault hook and the health
+                # checks that can raise on this row: at dump time the
+                # ring's newest chunk_metrics entry is the failing chunk.
+                self.obs.record("chunk_metrics", chunk=b.base + i, **row)
             if transitions is not None:
                 # Per inner chunk, stamped with that chunk's env steps.
                 self._journal_transitions(
@@ -787,6 +902,10 @@ class Orchestrator:
                 self.metrics.record_many(row)
         metrics = rows[-1]
         metrics.update(self._timer.tick(b.chunks_covered))
+        if (self._h_chunk_seconds is not None
+                and metrics.get("chunk_seconds")):
+            # Host floats only: the sampled per-chunk wall time.
+            self._h_chunk_seconds.observe(metrics["chunk_seconds"])
         self.chunks += b.chunks_covered
         with self._snapshot_lock:
             self._snapshot = metrics
@@ -908,6 +1027,7 @@ class Orchestrator:
             self.events.emit("training_completed",
                              env_steps=int(metrics["env_steps"]),
                              episodes=self.episode, **self._timer.summary())
+            self.obs.flush()   # trace + final metrics drain durable now
             log.info("training completed at %d env steps",
                      int(metrics["env_steps"]))
             return "completed"
@@ -1081,33 +1201,49 @@ class Orchestrator:
         emergency ``tag_preempt`` checkpoint with the resume metadata.
         Never raises: a failure here degrades durability but must not turn
         a preemption into a restart."""
+        obs = self.obs
         grace = self.cfg.runtime.preempt_grace_s
         deadline = self._preempt_deadline or (time.monotonic() + grace)
         log.warning("preemption requested; draining for an emergency "
                     "checkpoint (%.1fs of the %.1fs grace left)",
                     max(0.0, deadline - time.monotonic()), grace)
         saved = False
+        with (obs.span("preemption_drain", grace_s=grace)
+              if obs.enabled else _NULL_CTX):
+            try:
+                if pl is not None:
+                    pl.drain(timeout_s=max(0.5, deadline - time.monotonic()))
+                updates, env_steps = (int(v) for v in torch.stack(
+                    [self._ts.updates, self._ts.env_steps]).tolist())
+                self.checkpoints.wait_pending(
+                    timeout=max(0.5, deadline - time.monotonic()))
+                self.checkpoints.save_tagged(
+                    "preempt", self._ts,
+                    metadata={"updates": updates, "env_steps": env_steps,
+                              "episode": self.episode, "preempted": True})
+                saved = True
+                # Durability first: a failing obs volume must not skip the
+                # journal flush or the event.
+                self._flush_journal()
+                self.events.emit("preempted", updates=updates,
+                                 env_steps=env_steps, episode=self.episode)
+                log.warning("emergency checkpoint tag_preempt written "
+                            "(updates=%d, env_steps=%d, episode=%d)",
+                            updates, env_steps, self.episode)
+            except Exception:
+                log.exception("preemption drain failed; exiting with "
+                              "whatever was already durable")
         try:
-            if pl is not None:
-                pl.drain(timeout_s=max(0.5, deadline - time.monotonic()))
-            updates, env_steps = (int(v) for v in torch.stack(
-                [self._ts.updates, self._ts.env_steps]).tolist())
-            self.checkpoints.wait_pending(
-                timeout=max(0.5, deadline - time.monotonic()))
-            self.checkpoints.save_tagged(
-                "preempt", self._ts,
-                metadata={"updates": updates, "env_steps": env_steps,
-                          "episode": self.episode, "preempted": True})
-            saved = True
-            self._flush_journal()
-            self.events.emit("preempted", updates=updates,
-                             env_steps=env_steps, episode=self.episode)
-            log.warning("emergency checkpoint tag_preempt written "
-                        "(updates=%d, env_steps=%d, episode=%d)",
-                        updates, env_steps, self.episode)
+            # Telemetry in its own no-raise envelope: an IO error here must
+            # not turn the preemption into a restart.
+            if saved:
+                obs.tracer.instant("emergency_checkpoint",
+                                   updates=updates, env_steps=env_steps)
+            obs.dump_flight(reason="preemption", episode=self.episode,
+                            restarts=self.restarts)
+            obs.flush()
         except Exception:
-            log.exception("preemption drain failed; exiting with whatever "
-                          "was already durable")
+            log.exception("preemption telemetry flush failed")
         self.preempt_saved = saved
         self.preempted = True
 
@@ -1330,8 +1466,8 @@ class Orchestrator:
         self._ingest_every = new
         self.metrics.inc("ingest_adjustments_total")
         self.metrics.record("ingest_every_updates_current", float(new))
-        self.events.emit("ingest_cadence_adjust", reason=reason, every=new,
-                         base=base, rows=rows, backlog=backlog)
+        self.obs.record("ingest_cadence_adjust", reason=reason, every=new,
+                        base=base, rows=rows, backlog=backlog)
         log.info("adaptive ingest cadence: every %d -> %d updates (%s)",
                  every, new, reason)
 
@@ -1472,3 +1608,6 @@ class Orchestrator:
         if self._transitions_journal is not None:
             self._transitions_journal.close()
             self._transitions_journal = None
+        # Telemetry teardown last: the final drain and trace flush see
+        # everything the run wrote, its shutdown events included.
+        self.obs.close()

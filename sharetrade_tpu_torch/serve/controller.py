@@ -24,9 +24,8 @@ same two knobs a human would:
 
 Every adjustment is visible: the knob gauges (``serve_knob_*``), the
 ``serve_controller_adjustments_total`` counter, the
-``serve_controller_p99_ms`` objective gauge and a log line. (The JAX
-controller also records a flight-ring event through its ``obs``; the port
-has no flight recorder yet.)
+``serve_controller_p99_ms`` objective gauge, a log line, and a
+flight-ring event per adjustment when obs is attached.
 
 Deterministic by construction: :meth:`step` takes an optional fake ``now``
 and :meth:`_decide` is a pure function of (p99, overload, knobs), so the
@@ -82,7 +81,7 @@ class ServeController:
                  interval_s: float = 1.0, shrink: float = 0.5,
                  grow: float = 1.25, rearm_frac: float = 0.5,
                  min_batch_timeout_ms: float = 0.0,
-                 min_queue: int | None = None,
+                 min_queue: int | None = None, obs: Any = None,
                  clock=time.perf_counter):
         if target_p99_ms <= 0:
             raise ConfigError(
@@ -115,6 +114,7 @@ class ServeController:
         # batch size starves occupancy without improving the tail.
         floor = int(min_queue) if min_queue else max(int(cfg.max_batch), 1)
         self._min_queue = max(1, min(floor, self._ceil_queue))
+        self._obs = obs
         self._clock = clock
         self._hist = engine.latency_histogram
         self._prev_counts = self._hist.snapshot()["counts"]
@@ -248,4 +248,15 @@ class ServeController:
         log.info("serve controller %s: p99 %.1f ms vs target %.1f -> "
                  "batch_timeout_ms=%.3g max_queue=%d", action, p99,
                  self.target_p99_ms, new.batch_timeout_ms, new.max_queue)
+        if self._obs is not None:
+            # Flight-ring visibility: every adjustment is an event, so a
+            # post-incident bundle shows WHAT the controller did and on
+            # which objective reading (gated off internally when the
+            # recorder is off).
+            self._obs.record("serve_controller_adjust", action=action,
+                             p99_ms=round(float(p99), 3),
+                             window_completed=completed,
+                             window_bad=bad_delta,
+                             batch_timeout_ms=new.batch_timeout_ms,
+                             max_queue=new.max_queue)
         return adj

@@ -122,20 +122,34 @@ Live knobs: :meth:`ServeEngine.set_knobs` (the online controller's
 actuator, ``serve/controller.py``) swaps ``batch_timeout_ms`` and
 ``max_queue`` as one reference, clamped to the configured values, and
 retargets the ingress bound; batch collection reads the live vector once a
-tick. The JAX engine's ``obs`` facade (span trace, flight recorder,
-``serve_exemplars.json``) is not ported: the port runs as the JAX engine
-does with ``obs=None``, with no exemplar file, no flight event and no
-per-request span.
+tick.
+
+With an enabled ``obs`` facade (``obs/``, ``obs.request_trace``), every
+request's lifecycle is emitted into the run's ``trace.jsonl`` when it ends,
+whatever the outcome: one ``serve_request`` envelope (request, session,
+outcome, tick, cold flag, deferrals, the fleet trace id when the wire set
+one) with one child span per stamped stage, pre-serialised and appended in
+bulk per tick. The flight ring gets the supervised restarts
+(``serve_restart``), the overload onset's exemplars
+(``serve_overload_exemplars``), each SLO burn crossing (``slo_burn``, plus
+a ``serve_slo_burn`` trace instant), and, on the terminal failed state, the
+exemplars and the ``serve_failed`` bundle; the exemplar ring is written to
+``serve_exemplars.json`` whenever it changes (from the consumer and at
+stop only). Only host stamps are read: tracing adds no device
+synchronisation.
 
 Inference runs under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import math
 import os
 import queue
 import random
+import re
 import threading
 import time
 from collections import OrderedDict, deque
@@ -156,6 +170,8 @@ from sharetrade_tpu_torch.utils.metrics import MetricsRegistry
 log = get_logger("serve")
 
 _SHUTDOWN = object()
+#: Session ids that can go into a trace line without JSON escaping.
+_SID_SAFE = re.compile(r"[A-Za-z0-9_\-#.:]*\Z").match
 #: Done-queue nudge: the dispatcher enqueues spill ops for the consumer and
 #: pokes this (best-effort) so an idle consumer runs them now.
 _SPILL_TICK = object()
@@ -243,12 +259,18 @@ class _Request:
     __slots__ = ("session_id", "obs", "t_enq", "t_deadline", "t_collected",
                  "t_dispatched", "t_device", "t_done", "deferrals", "cold",
                  "batch", "outcome", "callback", "_event", "result", "error",
-                 "clock")
+                 "clock", "rid", "trace_id")
 
     def __init__(self, session_id: Any, obs: np.ndarray,
                  callback: Callable[[ServeResult | None], None] | None,
-                 deadline_ms: float = 0.0, clock: int | None = None):
+                 deadline_ms: float = 0.0, clock: int | None = None,
+                 rid: int = 0):
         self.session_id = session_id
+        #: The engine's request serial (trace lanes and span args).
+        self.rid = rid
+        #: The fleet trace identity the wire front-end threads in (None:
+        #: an untraced request): the stitch key of the request's spans.
+        self.trace_id: str | None = None
         self.obs = obs
         self.t_enq = time.perf_counter()
         # A negative deadline (a budget already spent) is already expired.
@@ -505,6 +527,7 @@ class ServeEngine:
     def __init__(self, model: Any, cfg: ServeConfig, params: Any, *,
                  params_step: int = 0, precision: PrecisionPolicy = FP32,
                  registry: MetricsRegistry | None = None,
+                 obs: Any = None,
                  obs_cfg: Any = None,
                  done_depth: int = _DONE_DEPTH,
                  restart_seed: int | None = None):
@@ -620,6 +643,24 @@ class ServeEngine:
         self._exemplars: deque[dict] = deque(
             maxlen=max(1, 4 * self._exemplar_k))
         self._ex_lock = threading.Lock()
+        #: The run's ``Obs`` facade (None: no flight event, no exemplar
+        #: file, no request span); the ring changed since the last
+        #: ``serve_exemplars.json`` write; the overload onset latch.
+        self._obs = obs
+        self._ex_dirty = False
+        self._overload_flagged = False
+        #: Request serials (``itertools.count.__next__`` is atomic).
+        self._rid = itertools.count(1)
+        # The per-request trace: the tracer when obs is enabled with the
+        # span trace and obs.request_trace on, else None (one attribute
+        # check per request).
+        tracer = getattr(obs, "tracer", None)
+        self._req_tracer = (
+            tracer if (obs is not None and getattr(obs, "enabled", False)
+                       and tracer is not None and tracer.enabled
+                       and (obs_cfg is None
+                            or getattr(obs_cfg, "request_trace", True)))
+            else None)
         #: perf_counter of the last spill-arena scan (the stats cadence
         #: also bounds :meth:`refresh_spill_gauges`' scans).
         self._spill_scan_t = 0.0
@@ -905,7 +946,8 @@ class ServeEngine:
         req = _Request(session_id, np.asarray(obs, np.float32), callback,
                        deadline_ms=deadline_ms,
                        clock=(int(session_clock)
-                              if session_clock is not None else None))
+                              if session_clock is not None else None),
+                       rid=next(self._rid))
         with self._lock:
             self._pending += 1
             self.counters["requests"] += 1
@@ -1144,7 +1186,60 @@ class ServeEngine:
         req.outcome = _outcome(exc)
         req._event.set()
         _fire(req.callback, None)
+        self._trace_request(req, req.outcome, time.perf_counter())
         self._publish_stats(io_ok=False)
+
+    #: Request-flow lanes: request spans render on synthetic tids (one of
+    #: 64 lanes by request id), so overlapping lifecycles draw as parallel
+    #: tracks in Perfetto with the envelope containing its stage children.
+    _TRACE_LANE_BASE = 1_000_000
+    _TRACE_LANES = 64
+
+    def _trace_request(self, req: _Request, outcome: str, t_end: float,
+                       lines: list[str] | None = None) -> None:
+        """Emit the request's lifecycle, the JAX engine's events byte for
+        byte: one ``serve_request`` envelope plus one child span per stamped
+        stage, once per terminal outcome, from whichever thread found it.
+        The lines are pre-serialised; ``lines`` (the batch completion)
+        collects them for one bulk append per tick. A no-op (one attribute
+        check) with request tracing off."""
+        tracer = self._req_tracer
+        if tracer is None:
+            return
+        to_us = tracer.to_us
+        pid = tracer.pid
+        lane = self._TRACE_LANE_BASE + req.rid % self._TRACE_LANES
+        ts0 = to_us(req.t_enq)
+        sid = req.session_id
+        session = (f'"{sid}"' if type(sid) is str and _SID_SAFE(sid)
+                   else json.dumps(str(sid)))
+        own = lines is None
+        if own:
+            lines = []
+        fleet = (f',"trace":"{req.trace_id}"'
+                 if req.trace_id is not None else "")
+        lines.append(
+            f'{{"name":"serve_request","cat":"serve","ph":"X",'
+            f'"ts":{ts0:.3f},"dur":{to_us(t_end) - ts0:.3f},'
+            f'"pid":{pid},"tid":{lane},"args":{{"request":{req.rid},'
+            f'"session":{session},"outcome":"{outcome}",'
+            f'"batch":{req.batch if req.batch is not None else 0},'
+            f'"cold":{"true" if req.cold else "false"},'
+            f'"deferrals":{req.deferrals}{fleet}}}}}')
+        for name, t0, t1 in (("queue_wait", req.t_enq, req.t_collected),
+                             ("batch_wait", req.t_collected,
+                              req.t_dispatched),
+                             ("device", req.t_dispatched, req.t_device),
+                             ("readback", req.t_device, req.t_done)):
+            if t0 is not None and t1 is not None:
+                za = to_us(t0)
+                lines.append(
+                    f'{{"name":"{name}","cat":"serve","ph":"X",'
+                    f'"ts":{za:.3f},"dur":{to_us(t1) - za:.3f},'
+                    f'"pid":{pid},"tid":{lane},'
+                    f'"args":{{"request":{req.rid}}}}}')
+        if own:
+            tracer.emit_lines(lines)
 
     # -- supervision (serve.max_restarts > 0) ------------------------------
 
@@ -1165,6 +1260,12 @@ class ServeEngine:
                 self._enter_failed(exc)
                 return
             self._registry.inc("serve_restarts_total")
+            if self._obs is not None:
+                # Which restart, why, and what the tail looked like going
+                # in, for the eventual bundle.
+                self._obs.record("serve_restart", streak=streak,
+                                 error=repr(exc),
+                                 exemplars=self.exemplars()[:4])
             self._backoff_sleep(streak)
             try:
                 self._build_arena()
@@ -1194,6 +1295,13 @@ class ServeEngine:
                   "exceeded serve.max_restarts=%d (last: %r); failing all "
                   "queued work", self._restart_streak, self.cfg.max_restarts,
                   exc)
+        if self._obs is not None and getattr(self._obs, "enabled", False):
+            # The serve-side black box: the restart trail, the overload
+            # exemplars and WARNING+ logs, plus the slowest requests now.
+            self._obs.record("serve_exemplars",
+                             exemplars=self.exemplars()[:8])
+            self._obs.dump_flight(reason="serve_failed", error=repr(exc),
+                                  restart_streak=self._restart_streak)
         self._drain_failed()
 
     def _drain_failed(self) -> None:
@@ -1632,6 +1740,8 @@ class ServeEngine:
                             self._term_bad += 1
                         req._event.set()
                         _fire(req.callback, None)
+                        self._trace_request(req, "failed",
+                                            time.perf_counter())
             self._consumer_fault = exc
             self._consumer_fault_epoch = done.epoch
             self._restart_requested.set()
@@ -1705,6 +1815,9 @@ class ServeEngine:
         n_done = slow = 0
         hists = self._hists
         slo_target = self._slo[1]
+        # One bulk tracer append per completed tick.
+        trace_lines: list[str] | None = (
+            [] if self._req_tracer is not None else None)
         try:
             for reqs, act_dev, logit_dev, val_dev in done.groups:
                 actions = act_dev.cpu().numpy()
@@ -1759,12 +1872,16 @@ class ServeEngine:
                     if self._exemplar_k:
                         self._note_exemplar(req, latency_ms, stages,
                                             done.live.step)
+                    self._trace_request(req, "completed", req.t_done,
+                                        lines=trace_lines)
             if done.install_events is not None:
                 start, end = done.install_events
                 end.synchronize()
                 self._paging_ms["install"][0] += start.elapsed_time(end)
                 self._paging_ms["install"][1] += 1
         finally:
+            if trace_lines:
+                self._req_tracer.emit_lines(trace_lines)
             with self._lock:
                 self._pending -= done.n
                 self.counters["completed"] += n_done
@@ -1891,7 +2008,7 @@ class ServeEngine:
             row["serve_spill_budget_bytes"] = float(arena.max_bytes)
         row.update(self._slo_burn(now, term))
         self._registry.record_many(row)
-        self._fold_exemplars()
+        self._fold_exemplars(overloaded, io_ok)
         self._stats_t = now
 
     def _slo_burn(self, now: float, term: tuple) -> dict[str, float]:
@@ -1926,14 +2043,46 @@ class ServeEngine:
             log.warning("SLO burn rate %.2f crossed threshold %.2f (window "
                         "%ds: %d/%d bad, %d/%d slow)", worst, threshold,
                         int(window_s), d_bad, d_total, d_slow, d_completed)
+            if self._obs is not None:
+                self._obs.record(
+                    "slo_burn", burns=burns, threshold=threshold,
+                    window_s=window_s, bad=d_bad, total=d_total,
+                    slow=d_slow, completed=d_completed,
+                    exemplars=self.exemplars()[:4])
+                self._obs.tracer.instant("serve_slo_burn", **burns)
         elif self._burn_alarm and worst < 0.5 * threshold:
             self._burn_alarm = False
         return out
 
-    def _fold_exemplars(self) -> None:
-        """End of a window: its slowest requests join the bounded ring."""
+    def _fold_exemplars(self, overloaded: bool = False,
+                        io_ok: bool = True) -> None:
+        """End of a window: its slowest requests join the bounded ring; at
+        an overload onset they go into the flight ring; with obs enabled
+        the ring is rewritten to ``serve_exemplars.json`` when it changed
+        (``io_ok=False``, the failure paths' publishes on submitters' and
+        the dispatcher's threads, leaves the write to the next one)."""
         with self._ex_lock:
             if self._window_slowest:
                 self._exemplars.extend(sorted(
                     self._window_slowest, key=lambda e: -e["latency_ms"]))
                 self._window_slowest = []
+                self._ex_dirty = True
+        obs = self._obs
+        if obs is None or not getattr(obs, "enabled", False):
+            self._overload_flagged = overloaded
+            return
+        if overloaded and not self._overload_flagged:
+            obs.record("serve_overload_exemplars",
+                       exemplars=self.exemplars()[:8])
+        self._overload_flagged = overloaded
+        run_dir = getattr(obs, "run_dir", None)
+        if run_dir and io_ok and self._ex_dirty:
+            try:
+                path = os.path.join(run_dir, "serve_exemplars.json")
+                tmp = f"{path}.tmp-{os.getpid()}"
+                with open(tmp, "w", encoding="utf-8") as f:
+                    json.dump({"exemplars": self.exemplars()}, f)
+                os.replace(tmp, path)
+                self._ex_dirty = False
+            except OSError:
+                log.exception("serve exemplar export failed")

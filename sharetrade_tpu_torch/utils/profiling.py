@@ -2,11 +2,11 @@
 
 The port's copy of :class:`StepTimer` from the JAX package's
 ``utils/profiling.py`` (that module's ``Tracer`` wraps ``jax.profiler`` and
-is not ported: ``runtime.profile_dir`` stays refused). The orchestrator
-ticks it once per metrics sample with the number of chunks the sample
-covers; ``summary()`` is what the ``training_completed`` event carries
-(``chunks_timed``, ``total_seconds``, ``mean_chunk_seconds``,
-``mean_agent_steps_per_sec``).
+is not ported: ``runtime.profile_dir`` stays refused, ROADMAP item 13b).
+The orchestrator ticks it once per metrics sample with the number of
+chunks the sample covers; ``summary()`` is what the ``training_completed``
+event carries (``chunks_timed``, ``total_seconds``,
+``mean_chunk_seconds``, ``mean_agent_steps_per_sec``).
 """
 
 from __future__ import annotations

@@ -93,10 +93,11 @@ def test_cli_serve_builds_the_head_the_learner_trains(tmp_path):
 
 
 @pytest.mark.parametrize("knob", [
-    "obs.enabled=true", "tuning.profile=/nonexistent/tuned_profile.json"])
+    "obs.roofline=true", "tuning.profile=/nonexistent/tuned_profile.json"])
 def test_cli_serve_refuses_what_it_cannot_honour(knob, tmp_path):
-    """``obs.enabled`` is not ported; a profile that is not there is a
-    ``ProfileError`` (a ``ConfigError``), as in the JAX package."""
+    """``obs.roofline`` is not ported (ROADMAP item 13b); a profile that is
+    not there is a ``ProfileError`` (a ``ConfigError``), as in the JAX
+    package."""
     serve = _run("serve", tmp_path, knob, args=["--duration", "0.5"])
     assert serve.returncode == 2
     if knob.startswith("obs."):

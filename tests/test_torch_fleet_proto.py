@@ -290,11 +290,25 @@ def test_extract_session_identical(raw):
     assert outcome(twire) == outcome(jwire)
 
 
-def test_client_refuses_a_span_sink_and_trace_ids_keep_the_jax_format():
+def test_client_refuses_a_span_sink_and_trace_ids_keep_the_jax_format(
+        tmp_path):
+    """A client with a span sink journals its ``client_submit`` root span
+    (the session as its note) in the JAX record format, even when the
+    submit fails; trace ids keep the JAX format."""
+    from sharetrade_tpu.obs.collect import read_span_dir
     from sharetrade_tpu.obs.trace import new_trace_id as jax_trace_id
-    from sharetrade_tpu_torch.obs.trace import new_trace_id
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        twire.FleetClient("127.0.0.1", 1, sink=object())
+    from sharetrade_tpu_torch.obs.trace import (
+        SpanJournal, SpanSink, new_trace_id)
+    sink = SpanSink(SpanJournal(str(tmp_path), "client"))
+    client = twire.FleetClient("127.0.0.1", 1, sink=sink)
+    with pytest.raises(Exception):      # nothing listens on port 1
+        client.submit("s1", [1.0] * 8)
+    client.close()
+    sink.close()
+    spans = read_span_dir(str(tmp_path))
+    assert [(s["name"], s["proc"], s["parent"], s.get("note"))
+            for s in spans] == [("client_submit", "client", "", "s1")]
+    assert len(spans[0]["trace"]) == 16 and spans[0]["dur_us"] >= 0
     twire.FleetClient("127.0.0.1", 1).close()    # no sink: no connection yet
     ours, theirs = new_trace_id(), jax_trace_id()
     assert len(ours) == len(theirs) and int(ours, 16) >= 0

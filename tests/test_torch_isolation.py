@@ -12,9 +12,9 @@
 - Without a GPU and without ``--device cpu``, ``cli serve``, ``cli train``
   and ``cli fleet`` fail with a message that says so instead of running on
   the CPU.
-- What the fleet does not port is refused with exit code 2 and a message
-  naming its ROADMAP item: ``obs.enabled`` with ``cli serve --listen``,
-  ``cli fleet`` or ``cli fleet --learner`` (item 13).
+- What is not ported is refused with exit code 2 and a message naming its
+  ROADMAP item: ``obs.roofline`` with ``cli serve --listen``, ``cli fleet``
+  or ``cli fleet --learner`` (item 13b).
 - The repo's network, spawn and native-wire lints
   (``tools/lint_hot_loop.py`` checks 12, 14, 15 and 18) find nothing in the
   port but lines carrying the JAX package's own markers.
@@ -60,7 +60,7 @@ def _sources():
                  REPO / "tools" / "torch_train_ab.py",
                  REPO / "tools" / "torch_autotune.py"):
         assert path in files, path
-    for rel in FLEET_MODULES + ACTOR_MODULES:
+    for rel in FLEET_MODULES + ACTOR_MODULES + OBS_MODULES:
         assert PACKAGE / rel in files, rel
     return files
 
@@ -75,6 +75,10 @@ FLEET_MODULES = (
     "fleet/autoscale.py")
 #: The actor slice's modules.
 ACTOR_MODULES = ("distrib/actor.py", "distrib/pool.py", "fleet/flywheel.py")
+#: The telemetry slice's modules.
+OBS_MODULES = ("obs/__init__.py", "obs/trace.py", "obs/flight.py",
+               "obs/exporter.py", "obs/manifest.py", "obs/roofline.py",
+               "obs/collect.py")
 
 
 def test_import_leaves_jax_and_the_jax_package_out(tmp_path):
@@ -138,11 +142,11 @@ def test_cli_fleet_without_gpu_refuses_instead_of_running_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["fleet", "--learner", "--device", "cpu", "--set", "learner.algo=dqn",
-      "--set", "obs.enabled=true"], "ROADMAP item 13"),
-    (["fleet", "--device", "cpu", "--set", "obs.enabled=true"],
-     "ROADMAP item 13"),
+      "--set", "obs.roofline=true"], "ROADMAP item 13b"),
+    (["fleet", "--device", "cpu", "--set", "obs.roofline=true"],
+     "ROADMAP item 13b"),
     (["serve", "--listen", "127.0.0.1:0", "--device", "cpu", "--set",
-      "obs.enabled=true"], "ROADMAP item 13"),
+      "obs.roofline=true"], "ROADMAP item 13b"),
 ], ids=["fleet-learner", "fleet-obs", "listen-obs"])
 def test_unported_fleet_parts_are_refused(argv, item, capsys, tmp_path,
                                           monkeypatch):
@@ -221,7 +225,8 @@ def test_the_module_arg_pattern_catches_a_jax_child():
         assert not _JAX_MODULE_ARG.search(line), line
 
 
-@pytest.mark.parametrize("module", FLEET_MODULES + ACTOR_MODULES)
+@pytest.mark.parametrize("module", FLEET_MODULES + ACTOR_MODULES
+                         + OBS_MODULES)
 def test_the_fleet_modules_are_scanned_and_imported(module):
     """The fleet slice's modules are among the files the source scan reads
     and the modules the import check imports (both walk the package)."""

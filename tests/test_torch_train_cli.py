@@ -147,9 +147,9 @@ def test_preempt_mid_episode_and_trained_only_not_computed(tmp_path):
 
 
 @pytest.mark.parametrize("knob", ["runtime.profile_dir=trace",
-                                  "obs.enabled=true"])
+                                  "obs.roofline=true"])
 def test_unported_knobs_are_refused(knob, tmp_path):
-    with pytest.raises(ConfigError, match="not yet ported"):
+    with pytest.raises(ConfigError, match="not yet ported.*item 13b"):
         orch = _orchestrator(tmp_path, knob)
         orch.send_training_data(_prices(60))
 
